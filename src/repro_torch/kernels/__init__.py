@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ under ``csrc/``)."""
+from repro_torch.kernels.pul_attention import (
+    LAUNCHES,
+    NEG_INF,
+    RingPlan,
+    paged_decode_attention_ref,
+    paged_sweep_decode_attention_ref,
+    pul_paged_decode_attention,
+    pul_paged_sweep_decode_attention,
+    ring_plan,
+)
+
+__all__ = [
+    "LAUNCHES", "NEG_INF", "RingPlan", "ring_plan",
+    "pul_paged_decode_attention", "pul_paged_sweep_decode_attention",
+    "paged_decode_attention_ref", "paged_sweep_decode_attention_ref",
+]

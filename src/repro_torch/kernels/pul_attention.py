@@ -1,0 +1,295 @@
+"""Paged decode attention of the serving main path: K1 and K2.
+
+Two kernels, both CUDA C++ for Hopper in ``csrc/pul_paged_decode.cu`` (one
+templated body, see the note at the head of that file):
+
+  * :func:`pul_paged_sweep_decode_attention` (K1) replaces the reference's
+    ``kernels/pul_attention.py::pul_paged_sweep_decode_attention``: one layer
+    step of the single-sweep decode over the FULL per-layer planes, with the
+    current token's K/V committed to (layer, frames[b], kv_h, offsets[b]) in
+    the kernel's epilogue. The planes are torch tensors updated in place —
+    the port's counterpart of the reference's input/output aliasing and
+    buffer donation.
+  * :func:`pul_paged_decode_attention` (K2) replaces
+    ``pul_paged_decode_attention``: the same attention over one layer's page
+    frames, with an optional current token and no commit.
+
+Beside each kernel is its plain PyTorch version
+(:func:`paged_sweep_decode_attention_ref`, :func:`paged_decode_attention_ref`):
+fp32 math on gathered pages plus an ``index_put_`` commit. A wrapper uses the
+plain version only for tensors on the CPU (the CPU tests); for CUDA tensors
+it launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
+kernel, so a run can show the main path went through them.
+
+The in-kernel PUL ring is budgeted against Hopper's shared memory by
+:func:`ring_plan` (the counterpart of the reference's ``ring_scratch`` VMEM
+check).
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core.pul import IssueStrategy, PULConfig
+
+NEG_INF = -2.0e38
+#: dynamic shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT_BYTES = 232448
+#: deepest preload distance the kernel's cp.async.wait_group table covers
+MAX_RING_DISTANCE = 32
+#: kernel launches so far, by kernel ("k1": sweep, "k2": per-layer)
+LAUNCHES = {"k1": 0, "k2": 0}
+
+_THREADS = 128
+_SOURCE = "pul_paged_decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class RingPlan:
+    distance: int       # pages preloaded ahead of the compute
+    slots: int          # ring slots (each holds one page's K and V slab)
+    smem_bytes: int     # dynamic shared memory of one block
+
+
+def ring_plan(cfg: PULConfig, *, G: int, P: int, hd: int,
+              itemsize: int = 2) -> RingPlan:
+    """Clamp a PULConfig's ring to what one Hopper block can hold.
+
+    The kernel keeps, besides the ring, q and the fp32 accumulator (G, hd),
+    the page's logits (G, P) and m/l/corr (G,) in shared memory. Distance is
+    clamped to the slots that fit and to ``MAX_RING_DISTANCE``; slots follow
+    ``PULConfig.num_slots`` (2d for BATCH, d + 1 for SEQUENTIAL) within the
+    same budget. Raises when not even one slot fits."""
+    aux = (2 * G * hd + G * P + 3 * G) * 4
+    pair = 2 * P * hd * itemsize
+    max_slots = (SMEM_LIMIT_BYTES - aux) // pair
+    seq = cfg.strategy is IssueStrategy.SEQUENTIAL
+    d = min(cfg.distance, MAX_RING_DISTANCE, max_slots - (1 if seq else 0))
+    if d < 1:
+        raise ValueError(
+            f"a ({P}, {hd}) page slab pair of {pair} B does not fit the "
+            f"{SMEM_LIMIT_BYTES} B of shared memory a Hopper block may use")
+    want = cfg.slots if cfg.slots is not None else (d + 1 if seq else 2 * d)
+    slots = min(max(want, d + 1 if seq else d), max_slots)
+    return RingPlan(d, slots, slots * pair + aux)
+
+
+# ---------------------------------------------------------------------- #
+# plain versions
+# ---------------------------------------------------------------------- #
+def _cap(x: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
+    return softcap * torch.tanh(x / softcap) if softcap is not None else x
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_tables, lengths, *,
+                               scale: Optional[float] = None,
+                               softcap: Optional[float] = None,
+                               window: Optional[int] = None,
+                               k_new=None, v_new=None) -> torch.Tensor:
+    """Plain version of K2: fp32 attention over the gathered pages.
+
+    q (B, H, hd); k_pages/v_pages (NP, K, P, hd); page_tables (B, n_pages);
+    lengths (B,); k_new/v_new (B, K, hd) or None. Positions < lengths[b]
+    (and > lengths[b] - window) are visible; the current token always is.
+    With nothing visible the output is 0, as in the kernel."""
+    B, H, hd = q.shape
+    NP, K, P, _ = k_pages.shape
+    n_pages = page_tables.shape[1]
+    G = H // K
+    S = n_pages * P
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    pt = page_tables.long()
+    qf = q.float().reshape(B, K, G, hd)
+    kd = k_pages[pt].permute(0, 2, 1, 3, 4).reshape(B, K, S, hd).float()
+    vd = v_pages[pt].permute(0, 2, 1, 3, 4).reshape(B, K, S, hd).float()
+    logits = _cap(torch.einsum("bkgd,bksd->bkgs", qf, kd) * scale, softcap)
+    jk = torch.arange(S, device=q.device)[None, :]
+    L = lengths.to(q.device).long()[:, None]
+    vis = jk < L
+    if window is not None:
+        vis = vis & (jk > L - window)
+    if k_new is not None:
+        ln = _cap(torch.einsum("bkgd,bkd->bkg", qf, k_new.float()) * scale,
+                  softcap)
+        logits = torch.cat([logits, ln[..., None]], dim=-1)
+        vis = torch.cat([vis, torch.ones_like(vis[:, :1])], dim=-1)
+        vd = torch.cat([vd, v_new.float()[:, :, None]], dim=2)
+    vis = vis[:, None, None, :]
+    logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", p, vd) / l.clamp_min(1e-30)
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def paged_sweep_decode_attention_ref(q, k_planes, v_planes, layer: int,
+                                     page_tables, lengths, k_new, v_new,
+                                     frames, offsets, *,
+                                     scale: Optional[float] = None,
+                                     softcap: Optional[float] = None,
+                                     window: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """Plain version of K1: K2's attention over plane row `layer`, then the
+    commit of k_new/v_new at (layer, frames[b], :, offsets[b]) in place."""
+    out = paged_decode_attention_ref(
+        q, k_planes[layer], v_planes[layer], page_tables, lengths,
+        scale=scale, softcap=softcap, window=window, k_new=k_new, v_new=v_new)
+    idx = (frames.long().to(k_planes.device), offsets.long().to(k_planes.device))
+    # (NF, K, P, hd) -> (NF, P, K, hd) view: (frame, offset) picks a (K, hd) row
+    k_planes[layer].permute(0, 2, 1, 3).index_put_(idx, k_new.to(k_planes.dtype))
+    v_planes[layer].permute(0, 2, 1, 3).index_put_(idx, v_new.to(v_planes.dtype))
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# kernel wrappers
+# ---------------------------------------------------------------------- #
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import _build
+        lib = _build.load(_SOURCE)
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.pul_paged_sweep_decode.argtypes = (
+            [P] * 10 + [I] * 8 + [F, F] + [I] * 5 + [P])
+        lib.pul_paged_sweep_decode.restype = I
+        lib.pul_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, F] + [I] * 5 + [P]
+        lib.pul_paged_decode.restype = I
+        _LIB = lib
+    return _LIB
+
+
+def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_common(q, k, v, page_tables, lengths, k_new, v_new, plane_shape):
+    if q.device.type != "cuda":
+        raise ValueError(f"the paged decode kernels run on CUDA tensors, got "
+                         f"{q.device}")
+    B, H, hd = q.shape
+    K, P = plane_shape[-3], plane_shape[-2]
+    if H % K:
+        raise ValueError(f"{H} query heads do not group over {K} kv heads")
+    if (P * hd * 2) % 16:
+        raise ValueError(f"a ({P}, {hd}) bf16 page slab is not a multiple of "
+                         "the 16-byte cp.async granule")
+    dev = q.device
+    _check("q", q, (B, H, hd), torch.bfloat16, dev)
+    _check("k planes", k, plane_shape, torch.bfloat16, dev)
+    _check("v planes", v, plane_shape, torch.bfloat16, dev)
+    _check("page_tables", page_tables, (B, page_tables.shape[1]), torch.int32,
+           dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    if k_new is not None:
+        _check("k_new", k_new, (B, K, hd), torch.bfloat16, dev)
+        _check("v_new", v_new, (B, K, hd), torch.bfloat16, dev)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
+
+
+def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
+                               cfg: PULConfig = PULConfig(),
+                               scale: Optional[float] = None,
+                               softcap: Optional[float] = None,
+                               window: Optional[int] = None,
+                               k_new=None, v_new=None) -> torch.Tensor:
+    """K2: decode attention straight over one layer's page frames.
+
+    q (B, H, hd); k_pages/v_pages (NP, K, P, hd); page_tables (B, n_pages)
+    int32; lengths (B,) int32; k_new/v_new (B, K, hd), the current token,
+    folded into the online softmax after the page stream. Returns (B, H, hd).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new/v_new come as a pair")
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(
+            q, k_pages, v_pages, page_tables, lengths, scale=scale,
+            softcap=softcap, window=window, k_new=k_new, v_new=v_new)
+    _check_common(q, k_pages, v_pages, page_tables, lengths, k_new, v_new,
+                  k_pages.shape)
+    B, H, hd = q.shape
+    NP, K, P, _ = k_pages.shape
+    plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
+    out = torch.empty_like(q)
+    rc = _lib().pul_paged_decode(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_tables),
+        _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(out),
+        B, K, H // K, P, hd, page_tables.shape[1], NP,
+        scale if scale is not None else 1.0 / math.sqrt(hd),
+        softcap if softcap is not None else 0.0,
+        window if window is not None else 0,
+        plan.distance, plan.slots,
+        int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(rc, "pul_paged_decode")
+    LAUNCHES["k2"] += 1
+    return out
+
+
+def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
+                                     page_tables, lengths, k_new, v_new,
+                                     frames, offsets, *,
+                                     cfg: PULConfig = PULConfig(),
+                                     scale: Optional[float] = None,
+                                     softcap: Optional[float] = None,
+                                     window: Optional[int] = None
+                                     ) -> torch.Tensor:
+    """K1: one layer step of the single-sweep paged decode.
+
+    q (B, H, hd); k_planes/v_planes (L, NF, K, P, hd), the ENTIRE per-layer
+    store, never sliced on the host; layer: the plane row to read; k_new /
+    v_new (B, K, hd), merged into the online softmax AND written to plane
+    position (layer, frames[b], kv_h, offsets[b]); frames/offsets (B,) int32
+    (the TRASH frame for inactive slots). Returns out (B, H, hd); the planes
+    are updated in place."""
+    if q.device.type == "cpu":
+        return paged_sweep_decode_attention_ref(
+            q, k_planes, v_planes, layer, page_tables, lengths, k_new, v_new,
+            frames, offsets, scale=scale, softcap=softcap, window=window)
+    _check_common(q, k_planes, v_planes, page_tables, lengths, k_new, v_new,
+                  k_planes.shape)
+    B, H, hd = q.shape
+    L, NF, K, P, _ = k_planes.shape
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the planes' {L} layers")
+    _check("frames", frames, (B,), torch.int32, q.device)
+    _check("offsets", offsets, (B,), torch.int32, q.device)
+    plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
+    out = torch.empty_like(q)
+    rc = _lib().pul_paged_sweep_decode(
+        _ptr(q), _ptr(k_planes), _ptr(v_planes), _ptr(page_tables),
+        _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(frames), _ptr(offsets),
+        _ptr(out), B, K, H // K, P, hd, page_tables.shape[1], NF, int(layer),
+        scale if scale is not None else 1.0 / math.sqrt(hd),
+        softcap if softcap is not None else 0.0,
+        window if window is not None else 0,
+        plan.distance, plan.slots,
+        int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _raise_on(rc, "pul_paged_sweep_decode")
+    LAUNCHES["k1"] += 1
+    return out

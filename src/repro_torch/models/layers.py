@@ -1,0 +1,257 @@
+"""Transformer layers of the port (``repro/models/layers.py``): norms, RoPE,
+GQA attention for prefill and paged decode, the MLP, embedding and logits.
+
+Plain functions on tensors over a param dict. The reference's bf16 rounding
+points are kept: projections and the head are bf16 products, norms and RoPE
+run in fp32 and round back, and prefill attention rounds q·kᵀ to bf16
+before the fp32 cast, scale and softmax, then casts the probabilities to
+bf16 (`_attend`). Prefill attention is plain torch ops: in the reference it
+is jnp, not a Pallas kernel. Paged decode attention goes through the port's
+CUDA kernels (``kernels.pul_attention``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.module import Param
+
+NEG_INF = -2.0e38  # large finite; avoids nan from (-inf) - (-inf)
+# the reference streams prefill attention over KV blocks past 2 * KV_BLOCK
+# tokens (`_attend_chunked`); the port's buckets stay below it
+KV_BLOCK = 1024
+
+
+class PagedSweep:
+    """Routing context for the single-sweep paged decode.
+
+    The backbone sets `prefix` to the current block's plane path and `layer`
+    to the layer index; the attention block reads its planes via
+    :meth:`plane` and calls the sweep kernel, which selects the layer itself
+    and commits the current token's rows in its epilogue — in place, so the
+    planes dict needs no write-back. `lengths` ((B,) int32) are the slots'
+    cached tokens; `frames`/`offsets` ((B,) int32) name each slot's
+    tail-page commit position (TRASH frame for inactive slots).
+    """
+
+    def __init__(self, page_table, lengths, pul_cfg, frames, offsets, planes):
+        self.page_table = page_table
+        self.lengths = lengths
+        self.pul_cfg = pul_cfg
+        self.frames = frames
+        self.offsets = offsets
+        self.planes = planes        # {plane_key: (L, NF, ...) full plane}
+        self.prefix: Tuple[str, ...] = ()
+        self.layer = 0
+
+    def plane(self, leaf: str) -> torch.Tensor:
+        return self.planes["/".join((*self.prefix, leaf))]
+
+
+# --------------------------------------------------------------------------
+# norms / positions
+# --------------------------------------------------------------------------
+def rms_norm_params(dim: int, name_axis: str = "norm") -> Param:
+    return Param((dim,), (name_axis,), dtype=torch.float32, init="zeros")
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm with gemma-style (1 + scale) parameterization (zero init)."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dt)
+
+
+def rope(x, positions, theta: float):
+    """Half-split rotary embedding in fp32. x: (..., seq, n, head_dim),
+    positions broadcastable to (..., seq)."""
+    dt = x.dtype
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None, None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:2 * half].float()
+    rot = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    if hd != 2 * half:
+        rot = torch.cat([rot, x[..., 2 * half:].float()], dim=-1)
+    return rot.to(dt)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+def attention_params(cfg: ModelConfig) -> Dict[str, Any]:
+    D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = torch.bfloat16
+    p: Dict[str, Any] = {
+        "wq": Param((D, H, hd), ("embed", "heads", "head_dim"), dt, "fan_in"),
+        "wk": Param((D, K, hd), ("embed", "kv_heads", "head_dim"), dt, "fan_in"),
+        "wv": Param((D, K, hd), ("embed", "kv_heads", "head_dim"), dt, "fan_in"),
+        "wo": Param((H, hd, D), ("heads", "head_dim", "embed"), dt, "fan_in"),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = Param((H, hd), ("heads", "head_dim"), dt, "zeros")
+        p["bk"] = Param((K, hd), ("kv_heads", "head_dim"), dt, "zeros")
+        p["bv"] = Param((K, hd), ("kv_heads", "head_dim"), dt, "zeros")
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_params(hd)
+        p["k_norm"] = rms_norm_params(hd)
+    return p
+
+
+def _attend(q, k, v, *, mask, softcap: Optional[float], scale: float):
+    """q: (B,T,H,hd) k/v: (B,S,K,hd); grouped-query attention core."""
+    B, T, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    q = q.reshape(B, T, K, G, hd)
+    logits = torch.einsum("btkgh,bskh->bkgts", q, k).float() * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v)
+    return out.reshape(B, T, H, hd)
+
+
+def _causal_mask(tq: int, tk: int, *, window: Optional[int], device):
+    iq = torch.arange(tq, device=device)[:, None]
+    jk = torch.arange(tk, device=device)[None, :]
+    m = jk <= iq
+    if window is not None:
+        m = m & (jk > iq - window)
+    return m[None, None, None]
+
+
+def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
+                    cache: Optional[Dict[str, Any]] = None,
+                    max_seq: Optional[int] = None, paged=None):
+    """Returns (y, new_cache).
+
+    kind="prefill": causal attention over the prompt; the cache holds k/v
+    (B, max_seq, K, hd) bf16 and idx (B,) = T.
+    kind="paged_decode": one token per slot over KV pages. `paged` is a
+    :class:`PagedSweep` (single sweep: K1 reads plane row `paged.layer` and
+    commits the token in place; new_cache is None) or a (page_table,
+    PULConfig) pair with `cache` = {"k", "v": (NF, K, P, hd) one layer's
+    frames, "idx": (B,)} (per layer: K2; new_cache holds the token's rows
+    for the engine to commit)."""
+    B, T, D = x.shape
+    hd = cfg.head_dim
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.pos_embedding == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(hd)
+
+    if kind == "paged_decode":
+        from repro_torch.kernels.pul_attention import (
+            pul_paged_decode_attention, pul_paged_sweep_decode_attention)
+        if T != 1:
+            raise ValueError("paged decode processes one token per step")
+        q1 = q[:, 0].contiguous()
+        k_new = k[:, 0].contiguous()
+        v_new = v[:, 0].contiguous()
+        if isinstance(paged, PagedSweep):
+            out = pul_paged_sweep_decode_attention(
+                q1, paged.plane("k"), paged.plane("v"), paged.layer,
+                paged.page_table, paged.lengths, k_new, v_new, paged.frames,
+                paged.offsets, scale=scale, softcap=cfg.attn_softcap,
+                cfg=paged.pul_cfg)
+            new_cache = None
+        else:
+            page_table, pul_cfg = paged
+            out = pul_paged_decode_attention(
+                q1, cache["k"], cache["v"], page_table, cache["idx"],
+                scale=scale, softcap=cfg.attn_softcap, k_new=k_new,
+                v_new=v_new, cfg=pul_cfg)
+            new_cache = {"k": k_new, "v": v_new, "idx": cache["idx"] + 1}
+        out = out[:, None]
+    elif kind == "prefill":
+        if T > 2 * KV_BLOCK:
+            raise NotImplementedError(
+                f"prefill of {T} tokens needs the streamed (chunked) "
+                "attention, not ported yet")
+        mask = _causal_mask(T, T, window=None, device=x.device)
+        out = _attend(q, k, v, mask=mask, softcap=cfg.attn_softcap,
+                      scale=scale)
+        target = max_seq or T
+        kc, vc = k, v
+        if T > target:
+            raise ValueError(f"prompt of {T} tokens exceeds max_seq {target}")
+        if T < target:
+            kc = F.pad(k, (0, 0, 0, 0, 0, target - T))
+            vc = F.pad(v, (0, 0, 0, 0, 0, target - T))
+        new_cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16),
+                     "idx": torch.full((B,), T, dtype=torch.int32,
+                                       device=x.device)}
+    else:
+        raise NotImplementedError(f"attention kind {kind!r} is not ported")
+    y = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    return y, new_cache
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+def mlp_params(cfg: ModelConfig) -> Dict[str, Any]:
+    D, Fd = cfg.d_model, cfg.d_ff
+    dt = torch.bfloat16
+    if cfg.mlp_type not in ("swiglu", "geglu"):
+        raise NotImplementedError(f"mlp_type {cfg.mlp_type} is not ported")
+    return {
+        "w_gate": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
+        "w_up": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
+        "w_down": Param((Fd, D), ("ff", "embed"), dt, "fan_in"),
+    }
+
+
+def mlp_apply(p, x, *, cfg: ModelConfig):
+    act = F.silu if cfg.mlp_type == "swiglu" else (
+        lambda t: F.gelu(t, approximate="tanh"))
+    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# embedding + logits
+# --------------------------------------------------------------------------
+def embedding_params(cfg: ModelConfig) -> Dict[str, Any]:
+    V = cfg.padded_vocab
+    p = {"table": Param((V, cfg.d_model), ("vocab", "embed"), torch.bfloat16,
+                        "embed")}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = Param((V, cfg.d_model), ("vocab", "embed"),
+                             torch.bfloat16, "fan_in", scale=0.02)
+    return p
+
+
+def embed_apply(p, tokens, *, cfg: ModelConfig):
+    x = p["table"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def logits_apply(p, x, *, cfg: ModelConfig):
+    """Full logits (B, T, vocab_size) in fp32 from a bf16 head product."""
+    w = p["table"] if cfg.tie_embeddings else p["lm_head"]
+    logits = torch.einsum("btd,vd->btv", x, w).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits[..., :cfg.vocab_size]

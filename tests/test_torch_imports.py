@@ -1,0 +1,73 @@
+"""The port stands alone: repro_torch imports neither JAX nor the reference.
+
+Every module of ``src/repro_torch`` is imported in a fresh interpreter with
+``sys.modules["jax"] = None`` (any ``import jax`` then fails), and no source
+file of the port, nor ``chip_smoke.py``, names jax or the ``repro`` package
+in an import statement.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+_IMPORT = re.compile(
+    r"^\s*(?:from\s+(jax|repro)(?:\.|\s)|import\s+(jax|repro)(?:\.|\s|,|$))",
+    re.MULTILINE)
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25     # every module, not a stub
+
+
+def test_no_port_source_imports_jax_or_the_reference():
+    offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+                 for f in _port_sources()
+                 for m in _IMPORT.finditer(f.read_text())]
+    assert offenders == [], offenders
+
+
+def test_import_pattern_catches_what_it_must():
+    for bad in ("import jax", "import jax.numpy as jnp", "from jax import lax",
+                "from repro.core import PULConfig", "import repro.serving",
+                "    from repro.models import zoo"):
+        assert _IMPORT.search(bad), bad
+    for fine in ("import repro_torch", "from repro_torch.core import x",
+                 "# the reference's repro.core module"):
+        assert not _IMPORT.search(fine), fine
+
+
+def test_chip_smoke_fails_without_cuda():
+    """Without a card the smoke script exits non-zero and prints no result."""
+    if __import__("torch").cuda.is_available():
+        import pytest
+        pytest.skip("a card is present")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
