@@ -5,29 +5,37 @@
 Phases, one line each; every phase runs, and any failure propagates so the
 exit code is not 0:
 
-  1. device   -- card name and power limit (nvidia-smi), copy rates that feed
-                 the H100 tiers of ``repro_torch.core.pul``
-  2. build    -- compile the CUDA kernels from ``src/repro_torch/csrc``
-  3. kernels  -- K1/K2 against their plain PyTorch versions at qwen3-1.7b
-                 widths (bf16, two bf16 ulps of each row's largest value),
-                 planted faults that the limit must reject, times, byte
-                 bounds and plain times
-  4. serving  -- full-width qwen3-1.7b (random weights from seed 0) served
-                 by the paged engine through K1 (fused sweep)
-  5. serving  -- the same script through K2 (per-layer): bitwise-equal tokens
-  6. summary  -- one JSON line listing the kernels
-  7. last line: {"ok": true, "device": {...}}
+  1. device       -- card name and power limit (nvidia-smi), copy rates that
+                     feed the H100 tiers of ``repro_torch.core.pul``
+  2. build        -- compile the CUDA sources of ``src/repro_torch/csrc``, one
+                     nvcc each, all started together
+  3. kernels      -- K1/K2 against their plain PyTorch versions at qwen3-1.7b
+                     widths (bf16, two bf16 ulps of each row's largest value),
+                     planted faults that the limit must reject, times, bounds
+                     and plain times
+  4. kernels-mla  -- the same for K3/K4 at deepseek-v2 widths
+  5. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
+                     by the paged engine through K1 (fused sweep), then the
+                     same script through K2 (per layer): bitwise-equal tokens
+  6. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
+                     dense layer 0 and 5 MoE layers), the same script through
+                     K3 and then K4: bitwise-equal tokens
+  7. summary      -- one JSON line listing the kernels
+  8. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
 one-off measurement, not a phase:
 
     python3 -c "import chip_smoke; chip_smoke.profile_decode()"
+    python3 -c "import chip_smoke; chip_smoke.profile_decode('deepseek-v2-236b')"
 
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -35,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,16 +57,24 @@ from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import pul_attention as PA  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     PagedEngineConfig, PagedServingEngine, Request)
 
-# qwen3-1.7b widths and the serving geometry of phases 4-5
+# qwen3-1.7b widths and the serving geometry of the serving phases
 H, KV, HD, P, L = 16, 8, 128, 16, 28
 SLOTS, MAX_SEQ = 8, 1024
-# published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s
-# and float32 flop/s outside the tensor cores, where the kernels do their math
+# deepseek-v2-236b widths (MLA: 128 heads, kv_lora 512, rope 64, qk 128 + 64)
+# and the smoke's one cut, depth: the dense layer 0 and 5 MoE layers
+DEEPSEEK = "deepseek-v2-236b"
+MLA_H, KVR, DR, MLA_QK = 128, 512, 64, 128 + 64
+MLA_LAYERS = 6
+# published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
+# dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
+# every bound uses, and float32 flop/s outside the tensor cores, where the
+# kernels do their math today (printed beside the K3/K4 bound)
 H100_SXM = "H100 80GB HBM3"
-HBM_PEAK, FP32_PEAK = 3.35e12, 67e12
+HBM_PEAK, BF16_TC_PEAK, FP32_PEAK = 3.35e12, 989e12, 67e12
 
 
 def _bf16_limit(want):
@@ -137,23 +154,31 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    path = _build.build(PA._SOURCE)
-    PA._lib()
+    with ThreadPoolExecutor(len(PA.SOURCES)) as pool:
+        paths = list(pool.map(_build.build, PA.SOURCES))
+    for source in PA.SOURCES:
+        PA._lib(source)
     secs = time.perf_counter() - t0
-    ptxas = " | ".join(line.strip() for line in
-                       str(_build.BUILD_INFO[PA._SOURCE]["ptxas"]).splitlines()
-                       if "registers" in line or "spill" in line)
-    print(f"[build] {path.name} in {secs:.2f} s; ptxas: {ptxas}")
+    for source, path in zip(PA.SOURCES, paths):
+        info = _build.BUILD_INFO[source]
+        ptxas = " | ".join(line.strip() for line in
+                           str(info["ptxas"]).splitlines()
+                           if "registers" in line or "spill" in line)
+        print(f"[build] {path.name}: nvcc {info['seconds']:.2f} s; "
+              f"ptxas: {ptxas}")
+    print(f"[build] {len(paths)} sources in {secs:.2f} s")
     return secs
 
 
-def engine_distance():
+def engine_distance(kv_features=2 * L * KV * HD, gqa_group=H // KV):
     """The preload distance the engine binds at full width (planner d* on
-    the port's default tiers, clamped to the FIFO as the engine does)."""
-    plan = plan_kv_page_stream(page_tokens=P, kv_features=2 * L * KV * HD,
+    the port's default tiers, clamped to the FIFO as the engine does); by
+    default at qwen3-1.7b's packed page."""
+    plan = plan_kv_page_stream(page_tokens=P, kv_features=kv_features,
                                tier=H100_PINNED_HOST, pe=H100_SM,
-                               gqa_group=H // KV)
+                               gqa_group=gqa_group)
     return max(1, min(plan.cfg.distance, plan.cfg.fifo_depth))
 
 
@@ -180,8 +205,8 @@ def _kernel_case(gen, dev, lengths, *, softcap=None, window=None):
 
 def _bound(c):
     """Least time for the kernel's work on this card: bytes each input read
-    once and each output written once over the HBM peak, against the fp32
-    flops of the visible positions over the fp32 peak."""
+    once and each output written once over the HBM peak, against the flops
+    of the visible positions over the bf16 peak (the operands' type)."""
     lens = c["lens"].tolist()
     w = c["window"]
     toks = 0
@@ -196,7 +221,7 @@ def _bound(c):
     small += c["q"].numel() * 2                             # out
     nbytes = slab_bytes + small
     t_bytes = nbytes / HBM_PEAK * 1e3
-    t_ops = 4.0 * H * HD * toks / FP32_PEAK * 1e3
+    t_ops = 4.0 * H * HD * toks / BF16_TC_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
 
@@ -311,6 +336,159 @@ def phase_kernels():
     }
 
 
+# ---------------------------------------------------------------------- #
+def _mla_case(gen, dev, lengths):
+    B = len(lengths)
+    n_pages = MAX_SEQ // P
+    NF = B * n_pages + 4
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=torch.bfloat16)
+    perm = torch.randperm(NF - 2, generator=gen, device=dev)[:B * n_pages] + 2
+    pt = perm.reshape(B, n_pages).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    frames = pt.gather(1, (lens // P).long()[:, None])[:, 0].contiguous()
+    frames[lens == 0] = 1                    # an idle slot writes the TRASH frame
+    return dict(qa=rnd(B, MLA_H, KVR), qr=rnd(B, MLA_H, DR),
+                cp=rnd(MLA_LAYERS, NF, P, KVR), rp=rnd(MLA_LAYERS, NF, P, DR),
+                cn=rnd(B, KVR), rn=rnd(B, DR), pt=pt, lens=lens,
+                frames=frames, offs=(lens % P).to(torch.int32))
+
+
+def _mla_bound(c, commit):
+    """Least time for K3 (commit) or K4 on this card: bytes each input read
+    once and each output written once (visible page slabs once, though the
+    kernel reads each H / Hb times) over the HBM peak, against the flops of
+    the visible positions and the current token, 2 * (2 kvr + dr) per token
+    and head, over the bf16 peak (the operands' type). Also returns the time
+    of the same flops on the fp32 CUDA cores, where the kernel does them."""
+    lens = c["lens"].tolist()
+    pages = sum(-(-n // P) for n in lens)
+    nbytes = pages * P * (KVR + DR) * 2
+    inputs = ["qa", "qr", "cn", "rn", "pt", "lens"]
+    if commit:
+        inputs += ["frames", "offs", "cn", "rn"]     # the committed rows
+    nbytes += sum(c[k].numel() * c[k].element_size() for k in inputs)
+    nbytes += c["qa"].numel() * 2                       # out
+    flops = sum(n + 1 for n in lens) * MLA_H * 2 * (2 * KVR + DR)
+    t_bytes = nbytes / HBM_PEAK * 1e3
+    t_ops = flops / BF16_TC_PEAK * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops, flops / FP32_PEAK * 1e3)
+
+
+def _mla_planted_faults(c, want, layer, scale):
+    """Wrong answers the limit must reject, on the mixed case: the last
+    visible page of the length-1000 row skipped, and the current token not
+    folded in."""
+    row = c["lens"].tolist().index(1000)
+    cut = c["lens"].clone()
+    cut[row] = 1000 // P * P
+    args = (c["qa"], c["qr"], c["cp"][layer], c["rp"][layer], c["pt"])
+    faults = {
+        "last page of the length-1000 row skipped":
+            PA.paged_mla_decode_attention_ref(*args, cut, c["cn"], c["rn"],
+                                              scale=scale),
+        "current token not folded":
+            PA.paged_mla_decode_attention_ref(*args, c["lens"], None, None,
+                                              scale=scale),
+    }
+    for what, bad in faults.items():
+        if _close(bad, want):
+            raise AssertionError(f"the bf16 limit lets a planted fault through: "
+                                 f"{what}")
+    print(f"[kernels-mla] planted faults rejected by the limit: "
+          f"{', '.join(faults)}")
+
+
+def phase_kernels_mla():
+    """K3/K4 against their plain versions at deepseek-v2 widths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    d_eng = engine_distance(MLA_LAYERS * (KVR + DR), 1)
+    scale = 1.0 / math.sqrt(MLA_QK)
+    cases = [("mixed", [0, 7, 16, 1000, 513, 250, 64, 999]),
+             ("other", [5, 300, 16, 777, 0, 1023, 48, 129])]
+    results = {"k3": [], "k4": []}
+    layer = 4
+    for label, lengths in cases:
+        c = _mla_case(gen, dev, lengths)
+        ring = [PULConfig(distance=d) for d in sorted({1, d_eng})]
+        ring.append(PULConfig(distance=d_eng, strategy=IssueStrategy.SEQUENTIAL))
+        for cfg in ring:
+            plan = PA.mla_ring_plan(cfg, H=MLA_H, P=P, kvr=KVR, dr=DR)
+            d = (f"{cfg.distance}{'' if cfg.strategy is IssueStrategy.BATCH else ' seq'}"
+                 f" (ring: d={plan.distance}, {plan.slots} slots)")
+            rest = (c["pt"], c["lens"], c["cn"], c["rn"])
+            # K4 first (it reads the pre-commit planes), then K3
+            out4 = PA.pul_paged_mla_decode_attention(
+                c["qa"], c["qr"], c["cp"][layer], c["rp"][layer], *rest,
+                scale=scale, cfg=cfg)
+            cp0, rp0 = c["cp"].clone(), c["rp"].clone()
+            out3 = PA.pul_paged_sweep_mla_decode_attention(
+                c["qa"], c["qr"], c["cp"], c["rp"], layer, *rest, c["frames"],
+                c["offs"], scale=scale, cfg=cfg)
+            torch.cuda.synchronize()
+            want = PA.paged_sweep_mla_decode_attention_ref(
+                c["qa"], c["qr"], cp0, rp0, layer, *rest, c["frames"],
+                c["offs"], scale=scale)
+            err3 = (out3.float() - want.float()).abs().max().item()
+            err4 = (out4.float() - want.float()).abs().max().item()
+            _check(out3, want, f"{label} d={d}: K3")
+            _check(out4, want, f"{label} d={d}: K4")
+            if not torch.equal(out3, out4):
+                raise AssertionError(f"{label} d={d}: K3 out != K4 out bitwise")
+            if not (torch.equal(c["cp"], cp0) and torch.equal(c["rp"], rp0)):
+                raise AssertionError(f"{label} d={d}: K3 commit differs from "
+                                     "the plain version's")
+            if label == "mixed" and cfg is ring[0]:
+                _mla_planted_faults(dict(c, cp=cp0, rp=rp0), want, layer, scale)
+            del cp0, rp0
+            results["k3"].append(err3)
+            results["k4"].append(err4)
+            print(f"[kernels-mla] {label} d={d}: max|K3-plain| {err3:.3e} "
+                  f"max|K4-plain| {err4:.3e} (limit: two bf16 ulps of each "
+                  "row's largest value) K3==K4 bitwise")
+        del c
+    # timing at the mixed case's shapes with the engine distance
+    c = _mla_case(gen, dev, cases[0][1])
+    cfg = PULConfig(distance=d_eng)
+    rest = (c["pt"], c["lens"], c["cn"], c["rn"])
+    args3 = (c["qa"], c["qr"], c["cp"], c["rp"], 2, *rest, c["frames"],
+             c["offs"])
+    args4 = (c["qa"], c["qr"], c["cp"][2], c["rp"][2], *rest)
+    k3_ms = _time_ms(lambda: PA.pul_paged_sweep_mla_decode_attention(
+        *args3, scale=scale, cfg=cfg))
+    k4_ms = _time_ms(lambda: PA.pul_paged_mla_decode_attention(
+        *args4, scale=scale, cfg=cfg))
+    plain3_ms = _time_ms(lambda: PA.paged_sweep_mla_decode_attention_ref(
+        *args3, scale=scale), reps=10)
+    plain4_ms = _time_ms(lambda: PA.paged_mla_decode_attention_ref(
+        *args4, scale=scale), reps=10)
+    # load balance: with about one block per SM, a time near the mixed case's
+    # with every row at the longest length means the longest row sets it
+    f = _mla_case(gen, dev, [1000] * len(cases[0][1]))
+    full_ms = _time_ms(lambda: PA.pul_paged_mla_decode_attention(
+        f["qa"], f["qr"], f["cp"][2], f["rp"][2], f["pt"], f["lens"], f["cn"],
+        f["rn"], scale=scale, cfg=cfg))
+    del f
+    print(f"[kernels-mla] K4 with every row at length 1000: {full_ms:.4f} ms "
+          f"(mixed case: {k4_ms:.4f} ms)")
+    out = {}
+    for key, ms, plain_ms, commit in (("k3", k3_ms, plain3_ms, True),
+                                      ("k4", k4_ms, plain4_ms, False)):
+        bound_ms, bound_by, nbytes, flops, fp32_ms = _mla_bound(c, commit)
+        print(f"[kernels-mla] B=8 lengths {c['lens'].tolist()} d={d_eng}: "
+              f"{key.upper()} {ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {flops} flops at "
+              f"the bf16 peak); the same flops on the fp32 CUDA cores "
+              f"{fp32_ms:.5f} ms")
+        out[key] = dict(max_abs_err=max(results[key]), ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by)
+    return out
+
+
 class _CheckedEngine(PagedServingEngine):
     """The engine with every emitted logit row checked for finiteness."""
 
@@ -356,9 +534,11 @@ def warm_up(cfg, params, device="cuda"):
 
 
 def phase_serving(cfg, params, *, sweep, device="cuda"):
-    """Serve the request script through K1 (sweep) or K2 (per layer), with
-    one preempt/resume mid-stream."""
-    key = "k1" if sweep else "k2"
+    """Serve the request script through the sweep kernel (K1; K3 for MLA)
+    or the per-layer one (K2; K4), with one preempt/resume mid-stream."""
+    pair = ("k3", "k4") if cfg.attn_type == "mla" else ("k1", "k2")
+    key = pair[0] if sweep else pair[1]
+    tag = "[serving-mla]" if cfg.attn_type == "mla" else "[serving]"
     layers = cfg.num_layers
     eng = _engine(cfg, params, sweep, device)
     for r in _requests(cfg.vocab_size):
@@ -397,14 +577,15 @@ def phase_serving(cfg, params, *, sweep, device="cuda"):
     if launches[key] != layers * m.decode_steps:
         raise AssertionError(f"{key} launched {launches[key]} times, expected "
                              f"{layers} x {m.decode_steps} decode steps")
-    other = "k2" if sweep else "k1"
-    if launches[other]:
-        raise AssertionError(f"{other} launched on the {key} path")
+    others = [k for k, n in launches.items() if n and k != key]
+    if others:
+        raise AssertionError(f"{others} launched on the {key} path")
     if pm.page_faults < 1 or pm.shared_hits < 1:
         raise AssertionError(f"page_faults {pm.page_faults}, shared_hits "
                              f"{pm.shared_hits}: the cold tier or prefix "
                              "sharing did not run")
-    stats = {"path": "sweep (K1)" if sweep else "per-layer (K2)",
+    stats = {"model": cfg.name, "layers": layers,
+             "path": f"{'sweep' if sweep else 'per-layer'} ({key.upper()})",
              "ticks": m.ticks, "decode_steps": m.decode_steps,
              "prefills": m.prefills, "tokens": m.tokens_emitted,
              "launches": launches[key], "wall_s": wall,
@@ -416,19 +597,29 @@ def phase_serving(cfg, params, *, sweep, device="cuda"):
              "shared_hits": pm.shared_hits,
              "bytes_hot_written": pm.bytes_hot_written,
              "preload_distance": eng.pul_distance}
-    print("[serving] " + json.dumps(stats))
+    print(f"{tag} " + json.dumps(stats))
     del eng
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     return out, stats
 
 
-def profile_decode():
+def smoke_config(arch):
+    """The smoke's configuration of `arch`: full width; deepseek-v2's depth
+    cut to MLA_LAYERS (the dense layer 0 and 5 MoE layers)."""
+    cfg = get_config(arch)
+    if arch == DEEPSEEK:
+        cfg = dataclasses.replace(cfg, num_layers=MLA_LAYERS)
+    return cfg
+
+
+def profile_decode(arch="qwen3-1.7b"):
     """One-off, not a phase of the smoke: where a decode tick's time goes.
-    torch.profiler over 4 pure decode ticks of the sweep path at full width
-    (8 requests, all admitted at tick 0). Prints one [profile] line."""
+    torch.profiler over 4 pure decode ticks of the sweep path at the smoke
+    configuration of `arch` (8 requests, all admitted at tick 0). Prints
+    one [profile] line."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config("qwen3-1.7b")
+    cfg = smoke_config(arch)
     params = init_params(cfg, seed=0, device="cuda")
     warm_up(cfg, params)
     eng = _engine(cfg, params, True, "cuda")
@@ -460,7 +651,8 @@ def profile_decode():
     ops = sum(1 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CPU
               and e.name.startswith("aten::") and e.cpu_parent is None)
-    stats = {"smi": _smi("name,power.limit"), "ticks": ticks,
+    stats = {"smi": _smi("name,power.limit"), "model": cfg.name,
+             "layers": cfg.num_layers, "ticks": ticks,
              "wall_ms_per_tick": wall * 1e3 / ticks,
              "device_busy_ms_per_tick": busy / ticks,
              "device_idle_share": 1.0 - busy / (wall * 1e3),
@@ -469,6 +661,24 @@ def profile_decode():
              "top_kernels_ms_per_tick": [(n[:60], ms / ticks) for n, ms in top]}
     print("[profile] " + json.dumps(stats))
     return stats
+
+
+def _serve_both_paths(cfg, params):
+    """The request script through the sweep and then the per-layer kernel
+    path; their token streams must be bitwise equal."""
+    warm_up(cfg, params)
+    out1, s1 = phase_serving(cfg, params, sweep=True)
+    out2, s2 = phase_serving(cfg, params, sweep=False)
+    tag = "[serving-mla]" if cfg.attn_type == "mla" else "[serving]"
+    if out1 != out2:
+        raise AssertionError(f"{cfg.name}: per-layer ({s2['path']}) tokens "
+                             f"differ from the sweep ({s1['path']}) tokens")
+    if s1["bytes_hot_written"] != s2["bytes_hot_written"]:
+        raise AssertionError(f"{cfg.name}: bytes_hot_written differs between "
+                             "the paths")
+    print(f"{tag} {s2['path']} tokens == {s1['path']} tokens bitwise over "
+          f"{sum(len(v) for v in out1.values())} tokens")
+    return s1, s2
 
 
 def main():
@@ -486,27 +696,45 @@ def main():
     phase_device()
     phase_build()
     kern = phase_kernels()
-    cfg = get_config("qwen3-1.7b")
+    kern.update(phase_kernels_mla())
+    print(f"[done] kernels {time.perf_counter() - t0:.1f} s")
+
+    cfg = smoke_config("qwen3-1.7b")
     params = init_params(cfg, seed=0, device="cuda")
-    warm_up(cfg, params)
-    out1, s1 = phase_serving(cfg, params, sweep=True)
-    out2, s2 = phase_serving(cfg, params, sweep=False)
-    if out1 != out2:
-        raise AssertionError("per-layer (K2) tokens differ from the sweep "
-                             "(K1) tokens")
-    if s1["bytes_hot_written"] != s2["bytes_hot_written"]:
-        raise AssertionError("bytes_hot_written differs between the paths")
-    print(f"[serving] K2 tokens == K1 tokens bitwise over "
-          f"{sum(len(v) for v in out1.values())} tokens")
+    stats = dict(zip(("k1", "k2"), _serve_both_paths(cfg, params)))
+    del params                     # free qwen3 before deepseek's ~43 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[done] serving {time.perf_counter() - t0:.1f} s")
+
+    cfg = smoke_config(DEEPSEEK)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    weights = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    print(f"[serving-mla] {cfg.name}: {cfg.num_layers} of 60 layers (dense "
+          f"layer 0 + {cfg.num_groups} MoE), {weights / 1e9:.2f} GB of "
+          f"weights, init {time.perf_counter() - t1:.1f} s; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    stats.update(zip(("k3", "k4"), _serve_both_paths(cfg, params)))
+    print(f"[serving-mla] peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
     print(f"[done] {time.perf_counter() - t0:.1f} s")
+
     rows = []
-    for key, stats, name, line in (
-            ("k1", s1, "pul_paged_sweep_decode_attention", 406),
-            ("k2", s2, "pul_paged_decode_attention", 152)):
+    for key, name, source, line in (
+            ("k1", "pul_paged_sweep_decode_attention", "pul_paged_decode", 406),
+            ("k2", "pul_paged_decode_attention", "pul_paged_decode", 152),
+            ("k3", "pul_paged_sweep_mla_decode_attention",
+             "pul_paged_mla_decode", 553),
+            ("k4", "pul_paged_mla_decode_attention", "pul_paged_mla_decode",
+             272)):
         rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/csrc/pul_paged_decode.cu",
+                     "source": f"src/repro_torch/csrc/{source}.cu",
                      "replaces": f"src/repro/kernels/pul_attention.py:{line}",
-                     "launches": stats["launches"],
+                     "launches": stats[key]["launches"],
                      **{k: kern[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by")},

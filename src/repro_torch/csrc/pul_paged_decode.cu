@@ -37,7 +37,8 @@
 //     336 KB, beyond the 227 KB a block may use. The host side clamps
 //     distance and slots to shared memory (ring_plan in
 //     kernels/pul_attention.py, the counterpart of ring_scratch's VMEM check)
-//     and to kMaxDistance, the depth of the cp.async.wait_group table below.
+//     and to kMaxDistance, the depth of the cp.async.wait_group table
+//     (pul_ring.cuh, the ring helpers both paged decode sources share).
 //
 // The fp32 online softmax keeps the TPU kernel's constants: NEG_INF = -2e38
 // for masked logits, l >= 1e-30 at the end, and the current token folded in
@@ -53,17 +54,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pul_ring.cuh"
+
 namespace {
+
+using namespace pul;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -2.0e38f;
-constexpr int kMaxDistance = 32;
-// dynamic shared memory one block may use on Hopper (227 KB); the host side's
-// SMEM_LIMIT_BYTES
-constexpr int kMaxSmemBytes = 232448;
-
-typedef __nv_bfloat16 bf16;
 
 struct Params {
   const bf16* q;        // (B, K, G, hd)
@@ -81,51 +79,6 @@ struct Params {
   int window;              // <= 0: none
   int distance, slots, sequential;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp.async.wait_group takes an immediate; the distance is a runtime value
-__device__ __forceinline__ void cp_async_wait_dyn(int n) {
-  switch (n) {
-#define PUL_WAIT_CASE(i) \
-  case i:                \
-    cp_async_wait<i>();  \
-    break;
-    PUL_WAIT_CASE(0) PUL_WAIT_CASE(1) PUL_WAIT_CASE(2) PUL_WAIT_CASE(3)
-    PUL_WAIT_CASE(4) PUL_WAIT_CASE(5) PUL_WAIT_CASE(6) PUL_WAIT_CASE(7)
-    PUL_WAIT_CASE(8) PUL_WAIT_CASE(9) PUL_WAIT_CASE(10) PUL_WAIT_CASE(11)
-    PUL_WAIT_CASE(12) PUL_WAIT_CASE(13) PUL_WAIT_CASE(14) PUL_WAIT_CASE(15)
-    PUL_WAIT_CASE(16) PUL_WAIT_CASE(17) PUL_WAIT_CASE(18) PUL_WAIT_CASE(19)
-    PUL_WAIT_CASE(20) PUL_WAIT_CASE(21) PUL_WAIT_CASE(22) PUL_WAIT_CASE(23)
-    PUL_WAIT_CASE(24) PUL_WAIT_CASE(25) PUL_WAIT_CASE(26) PUL_WAIT_CASE(27)
-    PUL_WAIT_CASE(28) PUL_WAIT_CASE(29) PUL_WAIT_CASE(30) PUL_WAIT_CASE(31)
-    PUL_WAIT_CASE(32)
-#undef PUL_WAIT_CASE
-    default:
-      cp_async_wait<0>();
-      break;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
 
 __device__ __forceinline__ float cap(float x, float softcap) {
   if (softcap > 0.f) return __fmul_rn(softcap, tanhf(__fdiv_rn(x, softcap)));
@@ -317,9 +270,8 @@ int launch(const Params& p, int B, int smem_bytes, cudaStream_t stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (smem_bytes > kMaxSmemBytes || p.distance < 1 ||
-      p.distance > kMaxDistance || p.slots < p.distance ||
-      (p.sequential && p.slots < p.distance + 1) || (p.P * p.hd * 2) % 16)
+  if (!ring_ok(p.distance, p.slots, p.sequential, smem_bytes) ||
+      (p.P * p.hd * 2) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   kern<<<dim3(B, p.K), kThreads, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());

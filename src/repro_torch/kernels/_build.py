@@ -7,8 +7,9 @@ is compiled on its own into a shared library:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so \\
          src/repro_torch/csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads the existing build. The build
+Sources may include the shared headers ``csrc/*.cuh``. The library name
+carries a hash of the source, the headers and the flags, so a changed source
+or header rebuilds and an unchanged one loads the existing build. The build
 directory is ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``). Nothing here runs at import time: the CPU tests import the
 kernel modules without nvcc or a card.
@@ -46,8 +47,9 @@ def _nvcc() -> str:
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless this exact source is built."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": ""})

@@ -1,7 +1,7 @@
-"""Paged decode attention of the serving main path: K1 and K2.
+"""Paged decode attention of the serving main path: K1-K4.
 
-Two kernels, both CUDA C++ for Hopper in ``csrc/pul_paged_decode.cu`` (one
-templated body, see the note at the head of that file):
+Four kernels, CUDA C++ for Hopper, in two sources (each pair one templated
+body, see the note at the head of each file):
 
   * :func:`pul_paged_sweep_decode_attention` (K1) replaces the reference's
     ``kernels/pul_attention.py::pul_paged_sweep_decode_attention``: one layer
@@ -13,17 +13,21 @@ templated body, see the note at the head of that file):
   * :func:`pul_paged_decode_attention` (K2) replaces
     ``pul_paged_decode_attention``: the same attention over one layer's page
     frames, with an optional current token and no commit.
+    K1/K2: ``csrc/pul_paged_decode.cu``.
+  * :func:`pul_paged_sweep_mla_decode_attention` (K3) and
+    :func:`pul_paged_mla_decode_attention` (K4) are the absorbed-MLA twins
+    (deepseek-v2) over compressed-KV planes ``(L, NF, P, kvr)`` and
+    ``(L, NF, P, dr)``: ``csrc/pul_paged_mla_decode.cu``.
 
-Beside each kernel is its plain PyTorch version
-(:func:`paged_sweep_decode_attention_ref`, :func:`paged_decode_attention_ref`):
-fp32 math on gathered pages plus an ``index_put_`` commit. A wrapper uses the
-plain version only for tensors on the CPU (the CPU tests); for CUDA tensors
-it launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
+Beside each kernel is its plain PyTorch version (``*_ref``): fp32 math on
+gathered pages plus an ``index_put_`` commit. A wrapper uses the plain
+version only for tensors on the CPU (the CPU tests); for CUDA tensors it
+launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
 kernel, so a run can show the main path went through them.
 
 The in-kernel PUL ring is budgeted against Hopper's shared memory by
-:func:`ring_plan` (the counterpart of the reference's ``ring_scratch`` VMEM
-check).
+:func:`ring_plan` and :func:`mla_ring_plan` (the counterparts of the
+reference's ``ring_scratch`` VMEM check).
 """
 from __future__ import annotations
 
@@ -41,11 +45,13 @@ NEG_INF = -2.0e38
 SMEM_LIMIT_BYTES = 232448
 #: deepest preload distance the kernel's cp.async.wait_group table covers
 MAX_RING_DISTANCE = 32
-#: kernel launches so far, by kernel ("k1": sweep, "k2": per-layer)
-LAUNCHES = {"k1": 0, "k2": 0}
+#: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
+HEAD_BLOCK = 8
+#: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer)
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
 
-_THREADS = 128
-_SOURCE = "pul_paged_decode"
+#: CUDA sources under csrc/: K1/K2, and the MLA pair K3/K4
+SOURCES = ("pul_paged_decode", "pul_paged_mla_decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,27 +61,51 @@ class RingPlan:
     smem_bytes: int     # dynamic shared memory of one block
 
 
-def ring_plan(cfg: PULConfig, *, G: int, P: int, hd: int,
-              itemsize: int = 2) -> RingPlan:
-    """Clamp a PULConfig's ring to what one Hopper block can hold.
-
-    The kernel keeps, besides the ring, q and the fp32 accumulator (G, hd),
-    the page's logits (G, P) and m/l/corr (G,) in shared memory. Distance is
+def _plan(cfg: PULConfig, aux: int, slot: int, what: str) -> RingPlan:
+    """Clamp a PULConfig's ring of `slot`-byte slots beside `aux` bytes of
+    other shared memory to what one Hopper block can hold. Distance is
     clamped to the slots that fit and to ``MAX_RING_DISTANCE``; slots follow
     ``PULConfig.num_slots`` (2d for BATCH, d + 1 for SEQUENTIAL) within the
     same budget. Raises when not even one slot fits."""
-    aux = (2 * G * hd + G * P + 3 * G) * 4
-    pair = 2 * P * hd * itemsize
-    max_slots = (SMEM_LIMIT_BYTES - aux) // pair
+    max_slots = (SMEM_LIMIT_BYTES - aux) // slot
     seq = cfg.strategy is IssueStrategy.SEQUENTIAL
     d = min(cfg.distance, MAX_RING_DISTANCE, max_slots - (1 if seq else 0))
     if d < 1:
         raise ValueError(
-            f"a ({P}, {hd}) page slab pair of {pair} B does not fit the "
-            f"{SMEM_LIMIT_BYTES} B of shared memory a Hopper block may use")
+            f"{what} of {slot} B does not fit the {SMEM_LIMIT_BYTES} B of "
+            "shared memory a Hopper block may use")
     want = cfg.slots if cfg.slots is not None else (d + 1 if seq else 2 * d)
     slots = min(max(want, d + 1 if seq else d), max_slots)
-    return RingPlan(d, slots, slots * pair + aux)
+    return RingPlan(d, slots, slots * slot + aux)
+
+
+def ring_plan(cfg: PULConfig, *, G: int, P: int, hd: int,
+              itemsize: int = 2) -> RingPlan:
+    """K1/K2's ring: a slot holds one page's K and V slab; besides the ring
+    the block keeps q and the fp32 accumulator (G, hd), the page's logits
+    (G, P) and m/l/corr (G,) in shared memory."""
+    aux = (2 * G * hd + G * P + 3 * G) * 4
+    return _plan(cfg, aux, 2 * P * hd * itemsize,
+                 f"a ({P}, {hd}) page slab pair")
+
+
+def head_block(H: int) -> int:
+    """Query heads per K3/K4 block: the largest divisor of H up to
+    HEAD_BLOCK (8 at deepseek-v2's 128 heads)."""
+    return math.gcd(H, HEAD_BLOCK)
+
+
+def mla_ring_plan(cfg: PULConfig, *, H: int, P: int, kvr: int, dr: int,
+                  itemsize: int = 2) -> RingPlan:
+    """K3/K4's ring: a slot holds one page's (P, kvr) c_kv and (P, dr) k_rope
+    slab; besides the ring a block of Hb = head_block(H) heads keeps q_abs
+    and the fp32 accumulator (Hb, kvr), q_rope (Hb, dr), the page's logits
+    (Hb, P) and m/l/corr (Hb,) in fp32. At deepseek-v2 width (Hb = 8, P = 16)
+    10 slots of 18,432 B fit."""
+    Hb = head_block(H)
+    aux = (2 * Hb * kvr + Hb * dr + Hb * P + 3 * Hb) * 4
+    return _plan(cfg, aux, P * (kvr + dr) * itemsize,
+                 f"a ({P}, {kvr}) + ({P}, {dr}) page slab pair")
 
 
 # ---------------------------------------------------------------------- #
@@ -146,25 +176,87 @@ def paged_sweep_decode_attention_ref(q, k_planes, v_planes, layer: int,
     return out
 
 
+def paged_mla_decode_attention_ref(q_abs, q_rope, ckv_pages, kr_pages,
+                                   page_tables, lengths, c_new, r_new, *,
+                                   scale: float) -> torch.Tensor:
+    """Plain version of K4: fp32 absorbed-MLA attention over the gathered
+    pages.
+
+    q_abs (B, H, kvr); q_rope (B, H, dr); ckv_pages (NP, P, kvr) and
+    kr_pages (NP, P, dr); page_tables (B, n_pages); lengths (B,); c_new /
+    r_new (B, kvr) / (B, dr), the current token, always visible (None only
+    to plant the fault of a kernel that drops it; nothing visible then
+    gives 0). Logits are (q_abs . c + q_rope . r) * scale over positions
+    < lengths[b]; the compressed rows c are also the values. Returns
+    (B, H, kvr)."""
+    B, H, kvr = q_abs.shape
+    P = ckv_pages.shape[1]
+    dr = q_rope.shape[-1]
+    S = page_tables.shape[1] * P
+    pt = page_tables.long()
+    cd = ckv_pages[pt].reshape(B, S, kvr).float()
+    rd = kr_pages[pt].reshape(B, S, dr).float()
+    jk = torch.arange(S, device=q_abs.device)[None, :]
+    vis = jk < lengths.to(q_abs.device).long()[:, None]
+    if c_new is not None:
+        cd = torch.cat([cd, c_new.float()[:, None]], dim=1)     # (B, S+1, kvr)
+        rd = torch.cat([rd, r_new.float()[:, None]], dim=1)
+        vis = torch.cat([vis, torch.ones_like(vis[:, :1])], dim=1)
+    logits = (torch.einsum("bhr,bsr->bhs", q_abs.float(), cd)
+              + torch.einsum("bhd,bsd->bhs", q_rope.float(), rd)) * scale
+    vis = vis[:, None, :]
+    logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(logits - m), torch.zeros_like(logits))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhs,bsr->bhr", p, cd) / l.clamp_min(1e-30)
+    return out.to(q_abs.dtype)
+
+
+def paged_sweep_mla_decode_attention_ref(q_abs, q_rope, ckv_planes, kr_planes,
+                                         layer: int, page_tables, lengths,
+                                         c_new, r_new, frames, offsets, *,
+                                         scale: float) -> torch.Tensor:
+    """Plain version of K3: K4's attention over plane row `layer`, then the
+    commit of c_new/r_new at (layer, frames[b], offsets[b]) in place."""
+    out = paged_mla_decode_attention_ref(
+        q_abs, q_rope, ckv_planes[layer], kr_planes[layer], page_tables,
+        lengths, c_new, r_new, scale=scale)
+    idx = (frames.long().to(ckv_planes.device),
+           offsets.long().to(ckv_planes.device))
+    ckv_planes[layer].index_put_(idx, c_new.to(ckv_planes.dtype))
+    kr_planes[layer].index_put_(idx, r_new.to(kr_planes.dtype))
+    return out
+
+
 # ---------------------------------------------------------------------- #
 # kernel wrappers
 # ---------------------------------------------------------------------- #
-_LIB = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C signature of every entry point, by source
+_SIGNATURES = {
+    "pul_paged_decode": {
+        "pul_paged_sweep_decode": [_P] * 10 + [_I] * 8 + [_F, _F] + [_I] * 5 + [_P],
+        "pul_paged_decode": [_P] * 8 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
+    },
+    "pul_paged_mla_decode": {
+        "pul_paged_sweep_mla_decode": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
+        "pul_paged_mla_decode": [_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
+    },
+}
+_LIBS = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
+def _lib(source: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<source>.cu``, its signatures set."""
+    if source not in _LIBS:
         from repro_torch.kernels import _build
-        lib = _build.load(_SOURCE)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.pul_paged_sweep_decode.argtypes = (
-            [P] * 10 + [I] * 8 + [F, F] + [I] * 5 + [P])
-        lib.pul_paged_sweep_decode.restype = I
-        lib.pul_paged_decode.argtypes = [P] * 8 + [I] * 7 + [F, F] + [I] * 5 + [P]
-        lib.pul_paged_decode.restype = I
-        _LIB = lib
-    return _LIB
+        lib = _build.load(source)
+        for fn, argtypes in _SIGNATURES[source].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        _LIBS[source] = lib
+    return _LIBS[source]
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -235,7 +327,7 @@ def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
     NP, K, P, _ = k_pages.shape
     plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
     out = torch.empty_like(q)
-    rc = _lib().pul_paged_decode(
+    rc = _lib("pul_paged_decode").pul_paged_decode(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_tables),
         _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(out),
         B, K, H // K, P, hd, page_tables.shape[1], NP,
@@ -280,7 +372,7 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
     _check("offsets", offsets, (B,), torch.int32, q.device)
     plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
     out = torch.empty_like(q)
-    rc = _lib().pul_paged_sweep_decode(
+    rc = _lib("pul_paged_decode").pul_paged_sweep_decode(
         _ptr(q), _ptr(k_planes), _ptr(v_planes), _ptr(page_tables),
         _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(frames), _ptr(offsets),
         _ptr(out), B, K, H // K, P, hd, page_tables.shape[1], NF, int(layer),
@@ -292,4 +384,103 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _raise_on(rc, "pul_paged_sweep_decode")
     LAUNCHES["k1"] += 1
+    return out
+
+
+def _check_mla(q_abs, q_rope, ckv, kr, page_tables, lengths, c_new, r_new):
+    if q_abs.device.type != "cuda":
+        raise ValueError(f"the paged decode kernels run on CUDA tensors, got "
+                         f"{q_abs.device}")
+    B, H, kvr = q_abs.shape
+    dr = q_rope.shape[-1]
+    if kvr % 8 or dr % 8:
+        raise ValueError(f"a bf16 row of {kvr} (c_kv) or {dr} (k_rope) values "
+                         "is not a whole number of 16-byte cp.async granules")
+    dev = q_abs.device
+    _check("q_abs", q_abs, (B, H, kvr), torch.bfloat16, dev)
+    _check("q_rope", q_rope, (B, H, dr), torch.bfloat16, dev)
+    _check("c_kv planes", ckv, (*ckv.shape[:-1], kvr), torch.bfloat16, dev)
+    _check("k_rope planes", kr, (*ckv.shape[:-1], dr), torch.bfloat16, dev)
+    _check("page_tables", page_tables, (B, page_tables.shape[1]), torch.int32,
+           dev)
+    _check("lengths", lengths, (B,), torch.int32, dev)
+    _check("c_new", c_new, (B, kvr), torch.bfloat16, dev)
+    _check("r_new", r_new, (B, dr), torch.bfloat16, dev)
+
+
+def pul_paged_mla_decode_attention(q_abs, q_rope, ckv_pages, kr_pages,
+                                   page_tables, lengths, c_new, r_new, *,
+                                   scale: float,
+                                   cfg: PULConfig = PULConfig()) -> torch.Tensor:
+    """K4: absorbed-MLA decode attention straight over one layer's
+    compressed-KV page frames.
+
+    q_abs (B, H, kvr): queries absorbed into the compressed space; q_rope
+    (B, H, dr); ckv_pages (NP, P, kvr) and kr_pages (NP, P, dr); page_tables
+    (B, n_pages) int32; lengths (B,) int32; c_new / r_new (B, kvr) / (B, dr),
+    the current token, folded in after the page stream. Returns o_c
+    (B, H, kvr); the caller applies the absorbed v up-projection. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if q_abs.device.type == "cpu":
+        return paged_mla_decode_attention_ref(
+            q_abs, q_rope, ckv_pages, kr_pages, page_tables, lengths, c_new,
+            r_new, scale=scale)
+    _check_mla(q_abs, q_rope, ckv_pages, kr_pages, page_tables, lengths,
+               c_new, r_new)
+    B, H, kvr = q_abs.shape
+    NP, P, _ = ckv_pages.shape
+    dr = q_rope.shape[-1]
+    plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
+    out = torch.empty_like(q_abs)
+    rc = _lib("pul_paged_mla_decode").pul_paged_mla_decode(
+        _ptr(q_abs), _ptr(q_rope), _ptr(ckv_pages), _ptr(kr_pages),
+        _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new), _ptr(out),
+        B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NP, scale,
+        plan.distance, plan.slots,
+        int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
+        ctypes.c_void_p(torch.cuda.current_stream(q_abs.device).cuda_stream))
+    _raise_on(rc, "pul_paged_mla_decode")
+    LAUNCHES["k4"] += 1
+    return out
+
+
+def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
+                                         layer: int, page_tables, lengths,
+                                         c_new, r_new, frames, offsets, *,
+                                         scale: float,
+                                         cfg: PULConfig = PULConfig()
+                                         ) -> torch.Tensor:
+    """K3: absorbed-MLA layer step of the single-sweep paged decode.
+
+    ckv_planes (L, NF, P, kvr), kr_planes (L, NF, P, dr): the ENTIRE
+    per-layer compressed store; layer: the plane row to read; c_new / r_new
+    (B, kvr) / (B, dr) are merged into the online softmax AND written to
+    (layer, frames[b], offsets[b]); frames/offsets (B,) int32 (the TRASH
+    frame for inactive slots). Returns o_c (B, H, kvr); the planes are
+    updated in place."""
+    if q_abs.device.type == "cpu":
+        return paged_sweep_mla_decode_attention_ref(
+            q_abs, q_rope, ckv_planes, kr_planes, layer, page_tables, lengths,
+            c_new, r_new, frames, offsets, scale=scale)
+    _check_mla(q_abs, q_rope, ckv_planes, kr_planes, page_tables, lengths,
+               c_new, r_new)
+    B, H, kvr = q_abs.shape
+    L, NF, P, _ = ckv_planes.shape
+    dr = q_rope.shape[-1]
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside the planes' {L} layers")
+    _check("frames", frames, (B,), torch.int32, q_abs.device)
+    _check("offsets", offsets, (B,), torch.int32, q_abs.device)
+    plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
+    out = torch.empty_like(q_abs)
+    rc = _lib("pul_paged_mla_decode").pul_paged_sweep_mla_decode(
+        _ptr(q_abs), _ptr(q_rope), _ptr(ckv_planes), _ptr(kr_planes),
+        _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new),
+        _ptr(frames), _ptr(offsets), _ptr(out),
+        B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NF, int(layer),
+        scale, plan.distance, plan.slots,
+        int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
+        ctypes.c_void_p(torch.cuda.current_stream(q_abs.device).cuda_stream))
+    _raise_on(rc, "pul_paged_sweep_mla_decode")
+    LAUNCHES["k3"] += 1
     return out

@@ -44,6 +44,12 @@ def _std(p: Param) -> float:
     return p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan, 1))
 
 
+#: leaves above this many elements draw their fp32 normals one leading-axis
+#: row at a time, so the fp32 temporary of a stacked expert tensor (5 GB per
+#: deepseek-v2 MoE layer) never exists for all layers at once
+CHUNKED_INIT_ELEMENTS = 2**30
+
+
 def _init_leaf(gen: torch.Generator, p: Param, device) -> torch.Tensor:
     if p.init == "zeros":
         return torch.zeros(p.shape, dtype=p.dtype, device=device)
@@ -51,8 +57,16 @@ def _init_leaf(gen: torch.Generator, p: Param, device) -> torch.Tensor:
         return torch.ones(p.shape, dtype=p.dtype, device=device)
     if p.init not in ("embed", "fan_in", "normal"):
         raise ValueError(f"unknown init {p.init}")
-    x = torch.randn(p.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * _std(p)).to(p.dtype)
+    std = _std(p)
+    if p.size <= CHUNKED_INIT_ELEMENTS:
+        x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (x * std).to(p.dtype)
+    out = torch.empty(p.shape, dtype=p.dtype, device=device)
+    for row in out:
+        row.copy_(torch.randn(row.shape, generator=gen, dtype=torch.float32,
+                              device=device) * std)
+    return out
 
 
 def flatten(tree: Dict[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:

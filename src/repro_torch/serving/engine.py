@@ -11,11 +11,11 @@ Decode is kernel-true: attention streams straight over the page frames, the
 page table acting as the preload trace, with the current token's K/V merged
 into the online softmax in-kernel. Two equivalent paths:
 
-  * ``sweep_decode=True`` (default): every layer runs the sweep kernel (K1)
-    over the full per-layer planes and commits the token's rows in its
-    epilogue, in place;
-  * ``sweep_decode=False``: every layer runs the per-layer kernel (K2) over
-    its own frames and the engine commits the rows afterwards
+  * ``sweep_decode=True`` (default): every layer runs the sweep kernel (K1;
+    K3 for MLA models) over the full per-layer planes and commits the
+    token's rows in its epilogue, in place;
+  * ``sweep_decode=False``: every layer runs the per-layer kernel (K2; K4
+    for MLA) over its own frames and the engine commits the rows afterwards
     (``KVPagePool.write_rows``) — the parity baseline. Both paths give
     bitwise-identical token streams.
 

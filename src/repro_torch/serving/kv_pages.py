@@ -6,9 +6,11 @@ a pool of physical frames across two tiers:
 
   * the **hot tier** — per-layer page *planes* on the device, the arrays the
     decode kernels read: attention leaves are ``(L, NF, K, P, hd)`` (layer,
-    frame, kv head, page token, head dim). A layer's frames are plane row
-    ``layer`` (a view, no copy), and the sweep kernel walks all layers of a
-    plane with a layer index;
+    frame, kv head, page token, head dim) and MLA's compressed leaves
+    ``(L, NF, P, feat)``, with L the leaf's layer extent (1 for an unscanned
+    dense layer). A layer's frames are plane row ``layer`` (a view, no
+    copy), and the sweep kernel walks all layers of a plane with a layer
+    index;
   * the **cold tier** — host tensors (pinned when the planes are on a GPU)
     that evicted pages spill to, in the packed ``(P, F)`` row format (token t
     of a page is one row of every layer's K and V), so UNLOAD/PRELOAD byte
@@ -51,8 +53,9 @@ from repro_torch.core.pul import (
 )
 from repro_torch.obs.tracer import NULL_TRACER
 
-# kv-bearing cache leaves (pageable when the seq axis matches max_seq)
-_KV_LEAF_KEYS = ("k", "v")
+# kv-bearing cache leaves (pageable when the seq axis matches max_seq):
+# standard attention and MLA's compressed cache
+_KV_LEAF_KEYS = ("k", "v", "c_kv", "k_rope")
 
 #: Version of the KV store-layout protocol (the reference's v2 planes).
 KV_LAYOUT_VERSION = 2
@@ -61,7 +64,8 @@ KV_LAYOUT_VERSION = 2
 @dataclasses.dataclass(frozen=True)
 class _LeafEntry:
     keys: Tuple[str, ...]       # dict path into the cache tree
-    shape: Tuple[int, ...]      # full leaf shape (L, B, S, K, hd)
+    shape: Tuple[int, ...]      # full leaf shape
+    grouped: bool               # True: (L, B, S, feat...); False: (B, S, feat...)
     nfeat: int                  # packed per-token features of this leaf
     offset: int                 # column offset in the packed row
 
@@ -72,21 +76,24 @@ class _LeafEntry:
 
     @property
     def feat(self) -> Tuple[int, ...]:
-        """Per-token feature dims: (K, hd)."""
-        return self.shape[3:]
+        """Per-token feature dims: (K, hd) for attention, (f,) for MLA."""
+        return self.shape[3:] if self.grouped else self.shape[2:]
 
     @property
     def layers(self) -> int:
-        return self.shape[0]
+        """Leading layer extent of this entry's plane (1 when unscanned)."""
+        return self.shape[0] if self.grouped else 1
 
 
 class PackedKVLayout:
     """Mapping between a model's cache tree and its paged KV store (v2).
 
-    The cache tree's pageable leaves are stacked over layers,
-    ``(L, B, S, K, hd)``. Token t of slot b packs into row (b, t): the
+    The scanned block's pageable leaves are stacked over layers,
+    ``(L, B, S, feat...)`` ("grouped"); an unscanned dense layer's are
+    ``(B, S, feat...)``. Token t of slot b packs into row (b, t): the
     concatenation over pageable leaves (sorted by path) of that token's
-    features across all layers and kv heads — the cold tier's format.
+    features across all layers — the cold tier's format, column for column
+    the reference's.
     """
 
     layout_version = KV_LAYOUT_VERSION
@@ -100,10 +107,14 @@ class PackedKVLayout:
         self.entries: List[_LeafEntry] = []
         off = 0
         for keys, (shape, _) in sorted(_leaves(spec)):
-            if keys[-1] not in _KV_LEAF_KEYS or shape[2] != max_seq:
+            grouped = keys[0] == "groups"
+            seq_ax = 2 if grouped else 1
+            if (keys[-1] not in _KV_LEAF_KEYS or len(shape) <= seq_ax
+                    or shape[seq_ax] != max_seq):
                 continue
             nfeat = int(np.prod(shape)) // (batch * max_seq)
-            self.entries.append(_LeafEntry(keys, tuple(shape), nfeat, off))
+            self.entries.append(_LeafEntry(keys, tuple(shape), grouped, nfeat,
+                                           off))
             off += nfeat
         self.features = off
 
@@ -119,9 +130,10 @@ class PackedKVLayout:
         """Cache tree -> (B, S, F) packed KV rows (S = the tree's seq size)."""
         outs = []
         for e in self.entries:
-            leaf = self._get(tree, e.keys)          # (L, B, S, K, hd)
-            Lr, B, S = leaf.shape[:3]
-            outs.append(leaf.permute(1, 2, 0, 3, 4).reshape(B, S, -1))
+            leaf = self._get(tree, e.keys)
+            if e.grouped:                   # (L, B, S, feat...) -> (B, S, L, ...)
+                leaf = leaf.movedim(0, 2)
+            outs.append(leaf.reshape(*leaf.shape[:2], -1))
         return torch.cat(outs, dim=-1)
 
     def unpack_into(self, tree: Any, packed: torch.Tensor) -> Any:
@@ -130,7 +142,10 @@ class PackedKVLayout:
         new = _copy_tree(tree)
         for e in self.entries:
             cols = packed[..., e.offset:e.offset + e.nfeat]
-            leaf = cols.reshape(B, S, e.layers, *e.feat).permute(2, 0, 1, 3, 4)
+            if e.grouped:
+                leaf = cols.reshape(B, S, e.layers, *e.feat).movedim(2, 0)
+            else:
+                leaf = cols.reshape(B, S, *e.feat)
             node = new
             for k in e.keys[:-1]:
                 node = node.setdefault(k, {})
@@ -138,12 +153,15 @@ class PackedKVLayout:
         return new
 
     def token_rows(self, new_tree: Any) -> torch.Tensor:
-        """A per-layer decode step's new-token leaves ((L, B, K, hd) each)
-        packed into (B, F) rows for :meth:`commit_token`."""
+        """A per-layer decode step's new-token leaves ((L, B, feat...) each,
+        (B, feat...) for an unscanned layer) packed into (B, F) rows for
+        :meth:`commit_token`."""
         outs = []
         for e in self.entries:
             leaf = self._get(new_tree, e.keys)
-            outs.append(leaf.permute(1, 0, 2, 3).reshape(leaf.shape[1], -1))
+            if e.grouped:
+                leaf = leaf.movedim(0, 1)
+            outs.append(leaf.reshape(leaf.shape[0], -1))
         return torch.cat(outs, dim=-1)
 
     # ------------------------------------------------------------------ #
@@ -151,8 +169,10 @@ class PackedKVLayout:
     # ------------------------------------------------------------------ #
     def plane_shape(self, e: _LeafEntry, n_frames: int,
                     page_tokens: int) -> Tuple[int, ...]:
-        K, hd = e.feat
-        return (e.layers, n_frames, K, page_tokens, hd)
+        feat = e.feat
+        if len(feat) == 2:                  # attention: (L, NF, K, P, hd)
+            return (e.layers, n_frames, feat[0], page_tokens, feat[1])
+        return (e.layers, n_frames, page_tokens, *feat)   # MLA: (L, NF, P, f)
 
     def init_planes(self, n_frames: int, page_tokens: int, dtype,
                     device) -> Dict[str, torch.Tensor]:
@@ -164,18 +184,24 @@ class PackedKVLayout:
 
     def layer_view(self, planes: Dict[str, torch.Tensor],
                    layer: int) -> Dict[str, torch.Tensor]:
-        """One layer's (NF, K, P, hd) page frames per plane — a view."""
-        return {e.plane_key: planes[e.plane_key][layer] for e in self.entries}
+        """One layer's page frames per plane — a view: (NF, K, P, hd) for
+        attention, (NF, P, f) for MLA. Unscanned (L == 1) entries ignore
+        `layer`."""
+        return {e.plane_key: planes[e.plane_key][layer if e.layers > 1 else 0]
+                for e in self.entries}
 
     def page_view_tree(self, planes: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """A cache tree whose pageable leaves ARE the planes (not copies):
-        what the per-layer decode path addresses, layer by layer."""
+        what the per-layer decode path addresses, layer by layer. Grouped
+        leaves keep their leading layer axis; unscanned leaves drop their
+        singleton one."""
         tree: Dict[str, Any] = {}
         for e in self.entries:
             node = tree
             for k in e.keys[:-1]:
                 node = node.setdefault(k, {})
-            node[e.keys[-1]] = planes[e.plane_key]
+            plane = planes[e.plane_key]
+            node[e.keys[-1]] = plane if e.grouped else plane[0]
         return tree
 
     def commit_token(self, planes: Dict[str, torch.Tensor], rows: torch.Tensor,
@@ -187,18 +213,26 @@ class PackedKVLayout:
         for e in self.entries:
             plane = planes[e.plane_key]
             vals = rows[:, e.offset:e.offset + e.nfeat].reshape(
-                B, e.layers, *e.feat).to(plane.dtype)          # (B, L, K, hd)
-            # advanced indices (frames @ axis 1, offsets @ axis 3) split by a
-            # slice: the broadcast B axis leads the indexed view
-            plane[:, frames, :, offsets, :] = vals
+                B, e.layers, *e.feat).to(plane.dtype)          # (B, L, feat...)
+            if len(e.feat) == 2:
+                # advanced indices (frames @ axis 1, offsets @ axis 3) split
+                # by a slice: the broadcast B axis leads the indexed view
+                plane[:, frames, :, offsets, :] = vals
+            else:
+                # adjacent advanced indices keep their place: (L, B, f)
+                plane[:, frames, offsets, :] = vals.movedim(0, 1)
 
     def read_frame_packed(self, planes: Dict[str, torch.Tensor],
                           frame: int) -> torch.Tensor:
         """One frame's packed (P, F) rows, on the planes' device."""
         cols = []
         for e in self.entries:
-            sl = planes[e.plane_key][:, frame]              # (L, K, P, hd)
-            cols.append(sl.permute(2, 0, 1, 3).reshape(sl.shape[2], -1))
+            sl = planes[e.plane_key][:, frame]
+            if len(e.feat) == 2:            # (L, K, P, hd) -> (P, L, K, hd)
+                sl = sl.permute(2, 0, 1, 3)
+            else:                           # (L, P, f) -> (P, L, f)
+                sl = sl.permute(1, 0, 2)
+            cols.append(sl.reshape(sl.shape[0], -1))
         return torch.cat(cols, dim=-1)
 
     def write_frame_packed(self, planes: Dict[str, torch.Tensor], frame: int,
@@ -209,7 +243,11 @@ class PackedKVLayout:
             plane = planes[e.plane_key]
             cols = rows[:, e.offset:e.offset + e.nfeat].to(
                 device=plane.device, dtype=plane.dtype)
-            plane[:, frame] = cols.reshape(P, e.layers, *e.feat).permute(1, 2, 0, 3)
+            vals = cols.reshape(P, e.layers, *e.feat)
+            if len(e.feat) == 2:            # (P, L, K, hd) -> (L, K, P, hd)
+                plane[:, frame] = vals.permute(1, 2, 0, 3)
+            else:                           # (P, L, f) -> (L, P, f)
+                plane[:, frame] = vals.permute(1, 0, 2)
 
 
 def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):

@@ -11,6 +11,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 _IMPORT = re.compile(
@@ -41,7 +43,21 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25     # every module, not a stub
+    assert int(proc.stdout.split()[-1]) >= 28     # every module, not a stub
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.configs.deepseek_v2_236b", "repro_torch.models.mla",
+    "repro_torch.models.moe", "repro_torch.kernels.pul_attention"])
+def test_mla_slice_module_imports_with_jax_blocked(module):
+    """The deepseek slice's modules on their own, jax and repro blocked."""
+    probe = ("import importlib, sys\n"
+             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+             f"importlib.import_module({module!r})\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_no_port_source_imports_jax_or_the_reference():
@@ -64,7 +80,6 @@ def test_import_pattern_catches_what_it_must():
 def test_chip_smoke_fails_without_cuda():
     """Without a card the smoke script exits non-zero and prints no result."""
     if __import__("torch").cuda.is_available():
-        import pytest
         pytest.skip("a card is present")
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                           cwd=ROOT, capture_output=True, text=True,

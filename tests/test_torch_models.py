@@ -1,4 +1,5 @@
-"""Port model (repro_torch.models) vs the reference, reduced qwen3-1.7b.
+"""Port model (repro_torch.models) vs the reference, reduced qwen3-1.7b and
+reduced deepseek-v2-236b (MLA + MoE, an unscanned dense layer 0).
 
 The reference's JAX init (PRNGKey(0)) is flattened by path, exported as
 float32 numpy and loaded into the port through ``models.bridge``. Prefill
@@ -18,14 +19,17 @@ import torch.nn.functional as F
 
 from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
+from repro.models import moe as ref_moe
 from repro_torch.configs import get_config
 from repro_torch.models import build_model, init_params
 from repro_torch.models import module as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models.bridge import params_from_reference
 from repro_torch.serving.kv_pages import PackedKVLayout
 
 ARCH = "qwen3-1.7b"
+DEEPSEEK = "deepseek-v2-236b"
 REL = 2e-2
 B, BUCKET, S, P = 2, 16, 32, 8
 LENGTHS = [16, 11]
@@ -39,12 +43,11 @@ def _flat_reference_params(params):
     return flat
 
 
-@pytest.fixture(scope="module")
-def pair():
-    ref_cfg = dataclasses.replace(ref_get_config(ARCH).reduced(), paged_kv=True)
+def _make_pair(arch):
+    ref_cfg = dataclasses.replace(ref_get_config(arch).reduced(), paged_kv=True)
     ref_model = ref_build_model(ref_cfg)
     ref_params = ref_model.init(jax.random.PRNGKey(0))
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     params = params_from_reference(_flat_reference_params(ref_params), cfg,
                                    device="cpu")
     rng = np.random.default_rng(0)
@@ -54,6 +57,16 @@ def pair():
     forced = rng.integers(1, cfg.vocab_size, size=(4, B)).astype(np.int32)
     return dict(ref_model=ref_model, ref_params=ref_params, cfg=cfg,
                 model=build_model(cfg, params), tokens=tokens, forced=forced)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _make_pair(ARCH)
+
+
+@pytest.fixture(scope="module")
+def ds_pair():
+    return _make_pair(DEEPSEEK)
 
 
 def _close(got, want, what):
@@ -119,8 +132,9 @@ def _reference_forced_decode(pair):
     _, caches = ref_model.prefill(
         ref_params, {"tokens": jnp.asarray(pair["tokens"]),
                      "lengths": jnp.asarray(lens)}, max_seq=S)
-    g = caches["groups"]["0:global"]
-    g["idx"] = jnp.broadcast_to(jnp.asarray(lens), g["idx"].shape)
+    # every block's fill level: the per-slot prompt lengths
+    for blk in [*caches["groups"].values(), *caches.get("dense", {}).values()]:
+        blk["idx"] = jnp.broadcast_to(jnp.asarray(lens), blk["idx"].shape)
     out = []
     for s, tok in enumerate(pair["forced"]):
         logits, caches = ref_model.decode_step(
@@ -198,3 +212,100 @@ def test_cuda_default_raises_without_a_card():
         pytest.skip("a card is present: the CUDA default is legal here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(get_config(ARCH).reduced())
+
+
+# ---------------------------------------------------------------- deepseek
+def test_deepseek_bridge_loads_dense_moe_and_mla_leaves(ds_pair):
+    flat = dict(M.flatten(ds_pair["model"].params))
+    spec = dict(M.flatten(T.model_params(ds_pair["cfg"])))
+    assert set(flat) == set(spec)
+    for path, p in spec.items():
+        assert tuple(flat[path].shape) == p.shape and flat[path].dtype == p.dtype
+    assert flat["groups/0:moe/mlp/router"].dtype == torch.float32
+    assert flat["groups/0:moe/mlp/w_gate"].dim() == 4         # (L, E, D, F)
+    assert "groups/0:moe/mlp/shared/w_down" in flat
+    assert "dense/0/attn/wkv_b" in flat and "dense/0/mlp/w_up" in flat
+
+
+def test_deepseek_full_width_parameter_count_matches_reference():
+    want = ref_build_model(ref_get_config(DEEPSEEK)).num_params()
+    assert M.count_params(T.model_params(get_config(DEEPSEEK))) == want
+
+
+def test_deepseek_prefill_logits_and_caches_match_reference(ds_pair):
+    toks, lens = ds_pair["tokens"], np.asarray(LENGTHS, np.int32)
+    want_logits, want_caches = ds_pair["ref_model"].prefill(
+        ds_pair["ref_params"], {"tokens": jnp.asarray(toks),
+                                "lengths": jnp.asarray(lens)}, max_seq=S)
+    got_logits, got_caches = ds_pair["model"].prefill(
+        torch.as_tensor(toks, dtype=torch.long), torch.as_tensor(lens),
+        max_seq=S)
+    _close(got_logits.numpy(), want_logits, "prefill logits")
+    for keys in (("groups", "0:moe"), ("dense", "0")):
+        for leaf in ("c_kv", "k_rope"):
+            want = np.asarray(want_caches[keys[0]][keys[1]][leaf]
+                              .astype(jnp.float32))
+            got = got_caches[keys[0]][keys[1]][leaf].float().numpy()
+            assert got.shape == want.shape
+            for b, n in enumerate(LENGTHS):
+                _close(got[..., b, :n, :], want[..., b, :n, :],
+                       f"prefill cache {'/'.join(keys)}/{leaf}")
+
+
+def test_deepseek_teacher_forced_paged_decode_matches_reference(ds_pair):
+    """K3 (sweep) and K4 (per-layer) paths, through their plain versions,
+    against the reference's absorbed dense decode; the two paths agree
+    bitwise and leave the same planes."""
+    want = _reference_forced_decode(ds_pair)
+    got_sweep, planes_sweep = _port_forced_decode(ds_pair, sweep=True)
+    got_layer, planes_layer = _port_forced_decode(ds_pair, sweep=False)
+    for s, (w, g) in enumerate(zip(want, got_sweep)):
+        _close(g, w, f"decode step {s} logits")
+    for a, b in zip(got_sweep, got_layer):
+        np.testing.assert_array_equal(a, b)
+    assert sorted(planes_sweep) == ["dense/0/c_kv", "dense/0/k_rope",
+                                    "groups/0:moe/c_kv", "groups/0:moe/k_rope"]
+    for k in planes_sweep:
+        assert torch.equal(planes_sweep[k], planes_layer[k])
+
+
+def _moe_layer(ds_pair, cfg_change):
+    ref_cfg = dataclasses.replace(ds_pair["ref_model"].cfg, **cfg_change)
+    cfg = dataclasses.replace(ds_pair["cfg"], **cfg_change)
+    ref_p = jax.tree.map(lambda a: a[0], ds_pair["ref_params"]["groups"]["0:moe"]["mlp"])
+    p = T._layer(ds_pair["model"].params["groups"]["0:moe"]["mlp"], 0)
+    return ref_cfg, cfg, ref_p, p
+
+
+@pytest.mark.parametrize("tokens,capacity_factor", [
+    (8, 1.25),      # a decode batch: capacity 8, nothing drops
+    (64, 1.25),     # a prefill group
+    (64, 0.25),     # capacity 8 for 128 routed slots: tokens drop
+], ids=["decode", "prefill", "drops"])
+def test_moe_gather_matches_reference(ds_pair, tokens, capacity_factor):
+    ref_cfg, cfg, ref_p, p = _moe_layer(
+        ds_pair, dict(capacity_factor=capacity_factor))
+    rng = np.random.default_rng(tokens)
+    x = (rng.standard_normal((2, tokens // 2, cfg.d_model)) * 0.5).astype(
+        np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    want, want_aux = ref_moe.moe_apply(ref_p, jnp.asarray(x).astype(jnp.bfloat16),
+                                       cfg=ref_cfg)
+    got, aux = MOE.moe_apply(p, xb, cfg=cfg)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)), "moe y")
+    np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-5)
+    # the drop case really drops, and the same slots on both sides
+    ids, _, _ = MOE._route(p, xb.reshape(tokens, -1), cfg)
+    most = int(torch.bincount(ids.reshape(-1), minlength=cfg.num_experts).max())
+    C = MOE._capacity(cfg, tokens)
+    assert C == ref_moe._capacity(ref_cfg, tokens)
+    assert (most > C) == (capacity_factor < 1)
+
+
+def test_moe_einsum_backend_is_not_ported(ds_pair):
+    _, cfg, _, p = _moe_layer(ds_pair, dict(moe_backend="einsum"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MOE.moe_apply(p, torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16),
+                      cfg=cfg)
+    with pytest.raises(NotImplementedError, match="einsum"):
+        T.model_params(cfg)

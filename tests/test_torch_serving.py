@@ -1,4 +1,6 @@
-"""Port serving stack (repro_torch.serving) vs the reference, reduced qwen3.
+"""Port serving stack (repro_torch.serving) vs the reference, reduced qwen3
+and reduced deepseek-v2 (MLA + MoE: the K3/K4 paths, an unscanned dense
+layer's planes).
 
 The same request script runs through the reference's PagedServingEngine
 (kernel-true fused sweep, Pallas in interpret mode) and the port's (plain
@@ -47,6 +49,7 @@ from repro_torch.serving import (
 )
 
 ARCH = "qwen3-1.7b"
+DEEPSEEK = "deepseek-v2-236b"
 REL = 2e-2
 # the reference's page-pool tiers, in the port's types
 TIERS = dict(fast_tier=MemoryTier(**dataclasses.asdict(HBM)),
@@ -56,17 +59,26 @@ BASE = dict(batch_slots=2, max_seq=64, page_tokens=8,
             prefill_buckets=(8, 16, 32), use_paged_kernel=True)
 
 
-@pytest.fixture(scope="module")
-def models():
-    ref_cfg = ref_get_config(ARCH).reduced()
+def _models(arch):
+    ref_cfg = ref_get_config(arch).reduced()
     ref_params = ref_build_model(
         dataclasses.replace(ref_cfg, paged_kv=True)).init(jax.random.PRNGKey(0))
     flat = {"/".join(str(getattr(p, "key", p)) for p in path):
             np.asarray(leaf.astype(jnp.float32))
             for path, leaf in jax.tree_util.tree_flatten_with_path(ref_params)[0]}
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     return ref_cfg, ref_params, cfg, params_from_reference(flat, cfg,
                                                            device="cpu")
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models(ARCH)
+
+
+@pytest.fixture(scope="module")
+def ds_models():
+    return _models(DEEPSEEK)
 
 
 class _RefRecorder(RefEngine):
@@ -141,8 +153,10 @@ def _port_engine(cfg, params, sweep, **kw):
         **{**BASE, **kw}, sweep_decode=sweep, device="cpu", **TIERS))
 
 
-@pytest.mark.parametrize("script", sorted(SCRIPTS))
-def test_engine_matches_reference_engine(models, script):
+def _engine_parity(models, script):
+    """The script through the reference engine (fused sweep) and the port's
+    sweep and per-layer engines: equal counters, equal tokens up to the
+    reference's first near-tie, and the port's two paths bitwise equal."""
     ref_cfg, ref_params, cfg, params = models
     drive, kw = SCRIPTS[script]
     ref = _RefRecorder(ref_cfg, ref_params, RefEngineConfig(
@@ -167,6 +181,18 @@ def test_engine_matches_reference_engine(models, script):
     layer = _port_engine(cfg, params, False, **kw)
     assert drive(layer, Request) == got
     assert _counters(layer) == _counters(port)
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_engine_matches_reference_engine(models, script):
+    _engine_parity(models, script)
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
+def test_deepseek_engine_matches_reference_engine(ds_models, script):
+    """MLA + MoE through K3 (sweep) and K4 (per layer). MoE dispatch mixes
+    the batch, so both engines run the same script at the same slots."""
+    _engine_parity(ds_models, script)
 
 
 def test_fcfs_script_exercises_sharing_replay_and_cold_tier(models):
@@ -230,6 +256,61 @@ def test_layout_plane_methods_match_reference(layouts):
             ref.layer_view(jp, 1)[k]))
 
 
+@pytest.fixture(scope="module")
+def ds_layouts():
+    ref_cfg = dataclasses.replace(ref_get_config(DEEPSEEK).reduced(),
+                                  paged_kv=True)
+    cfg = dataclasses.replace(get_config(DEEPSEEK).reduced(), paged_kv=True)
+    return RefLayout(ref_cfg, 2, 16), PackedKVLayout(cfg, 2, 16)
+
+
+def test_deepseek_layout_geometry_matches_reference(ds_layouts):
+    """The dense layer's ungrouped (L = 1) MLA planes and the MoE groups'
+    (L, NF, P, f) planes, in the reference's column order."""
+    ref, port = ds_layouts
+    test_layout_geometry_matches_reference(ds_layouts)
+    assert [(e.grouped, e.layers, port.plane_shape(e, 6, 8))
+            for e in port.entries] == \
+        [(e.grouped, e.layers, ref.plane_shape(e, 6, 8)) for e in ref.entries]
+    assert [e.plane_key for e in port.entries] == [
+        "dense/0/c_kv", "dense/0/k_rope", "groups/0:moe/c_kv",
+        "groups/0:moe/k_rope"]
+
+
+def test_deepseek_layout_plane_methods_match_reference(ds_layouts):
+    test_layout_plane_methods_match_reference(ds_layouts)
+    ref, port = ds_layouts
+    planes = port.init_planes(4, 8, torch.float32, "cpu")
+    views = port.page_view_tree(planes)
+    assert views["dense"]["0"]["c_kv"].shape == (4, 8, 32)        # layer dropped
+    assert views["groups"]["0:moe"]["c_kv"].shape == (2, 4, 8, 32)
+
+
+def test_deepseek_layout_pack_and_token_rows_match_reference(ds_layouts):
+    ref, port = ds_layouts
+    rng = np.random.default_rng(2)
+    tree, rows_tree = {}, {}
+    for e in port.entries:
+        full = rng.standard_normal(e.shape).astype(np.float32)
+        tok = full[:, :, 0] if e.grouped else full[:, 0]
+        for t, leaf in ((tree, full), (rows_tree, tok)):
+            t.setdefault(e.keys[0], {}).setdefault(e.keys[1], {})[e.keys[2]] = leaf
+    as_t = lambda t: {a: {b: {c: torch.from_numpy(v) for c, v in d.items()}
+                          for b, d in m.items()} for a, m in t.items()}
+    packed = port.pack(as_t(tree))
+    np.testing.assert_array_equal(
+        packed.numpy(), np.asarray(ref.pack(jax.tree.map(jnp.asarray, tree))))
+    np.testing.assert_array_equal(
+        port.token_rows(as_t(rows_tree)).numpy(),
+        np.asarray(ref._pack_new_rows_impl(jax.tree.map(jnp.asarray, rows_tree))))
+    back = port.unpack_into({}, packed)
+    for e in port.entries:
+        np.testing.assert_array_equal(
+            PackedKVLayout._get(back, e.keys).float().numpy(),
+            torch.from_numpy(PackedKVLayout._get(tree, e.keys)).to(
+                torch.bfloat16).float().numpy())
+
+
 def test_layout_pack_unpack_roundtrip_matches_reference(layouts):
     ref, port = layouts
     rng = np.random.default_rng(1)
@@ -275,6 +356,18 @@ def test_full_width_distance_on_h100_tiers():
                                tier=PageConfig().slow_tier, pe=PageConfig().pe,
                                gqa_group=2)
     assert plan.cfg.distance == 4 and plan.bound == "bandwidth"
+
+
+@pytest.mark.parametrize("layers,want", [(6, 28), (60, 8)])
+def test_full_width_mla_distance_on_h100_tiers(layers, want):
+    """deepseek-v2's packed page (layers x (512 + 64) features) is small, so
+    the restore planner asks for a deep ring: d* = 28 at the smoke's six
+    layers, 8 at sixty. The engine passes it to K3/K4, whose ring plan
+    clamps it to the 10 slots a block holds at that width."""
+    plan = plan_kv_page_stream(page_tokens=16, kv_features=layers * 576,
+                               tier=PageConfig().slow_tier, pe=PageConfig().pe,
+                               gqa_group=1)
+    assert plan.cfg.distance == want
 
 
 def test_pool_rejects_slabs_off_the_cp_async_granule():
@@ -337,3 +430,16 @@ def test_serve_cli_runs_on_cpu():
                     "--page-tokens", "8", "--device", "cpu", "--no-sweep"])
     out = buf.getvalue()
     assert "per-layer decode" in out and "12 tokens" in out
+
+
+@pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
+def test_serve_cli_runs_deepseek_on_cpu(sweep):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--arch", DEEPSEEK, "--reduced", "--requests", "3",
+                    "--max-new", "4", "--slots", "2", "--max-seq", "32",
+                    "--page-tokens", "8", "--device", "cpu",
+                    *([] if sweep else ["--no-sweep"])])
+    out = buf.getvalue()
+    # 3 layers x (32 c_kv + 8 k_rope) packed features per token
+    assert "120 packed features" in out and "12 tokens" in out
