@@ -14,20 +14,31 @@ exit code is not 0:
                      planted faults that the limit must reject, times, bounds
                      and plain times
   4. kernels-mla  -- the same for K3/K4 at deepseek-v2 widths
-  5. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
+  5. kernels-gather -- the PUL gather K5 against its plain version, bitwise,
+                     at the qwen3 and deepseek serving page geometries (with
+                     planted faults) and in three types at three distances;
+                     times, byte bounds, plain and index_select times
+  6. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
                      same script through K2 (per layer): bitwise-equal tokens
-  6. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
+  7. serving-assembly -- the same model and script on the assembly path,
+                     through K5 and then through plain indexing: bitwise-equal
+                     tokens; one decode step's logits against K1's
+  8. serving-dense -- the same model and requests on the dense ServingEngine
+  9. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
                      dense layer 0 and 5 MoE layers), the same script through
                      K3 and then K4: bitwise-equal tokens
-  7. summary      -- one JSON line listing the kernels
-  8. last line: {"ok": true, "device": {...}}
+ 10. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
+                     as in phase 7, one decode step against K3's
+ 11. summary      -- one JSON line listing the kernels
+ 12. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
 one-off measurement, not a phase:
 
     python3 -c "import chip_smoke; chip_smoke.profile_decode()"
     python3 -c "import chip_smoke; chip_smoke.profile_decode('deepseek-v2-236b')"
+    python3 -c "import chip_smoke; chip_smoke.profile_decode(path='assembly')"
 
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
@@ -54,12 +65,15 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import IssueStrategy, PULConfig  # noqa: E402
 from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
 from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import SOURCES, _build  # noqa: E402
 from repro_torch.kernels import pul_attention as PA  # noqa: E402
+from repro_torch.kernels.pul_gather import (  # noqa: E402
+    gather_ref, gather_ring_plan, page_gather_ref, pul_gather, pul_page_gather)
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    PagedEngineConfig, PagedServingEngine, Request)
+    EngineConfig, PagedEngineConfig, PagedServingEngine, Request,
+    ServingEngine)
 
 # qwen3-1.7b widths and the serving geometry of the serving phases
 H, KV, HD, P, L = 16, 8, 128, 16, 28
@@ -156,12 +170,12 @@ def phase_device():
 def phase_build():
     """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(PA.SOURCES)) as pool:
-        paths = list(pool.map(_build.build, PA.SOURCES))
-    for source in PA.SOURCES:
-        PA._lib(source)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
+    for source in SOURCES:
+        _build.load(source)
     secs = time.perf_counter() - t0
-    for source, path in zip(PA.SOURCES, paths):
+    for source, path in zip(SOURCES, paths):
         info = _build.BUILD_INFO[source]
         ptxas = " | ".join(line.strip() for line in
                            str(info["ptxas"]).splitlines()
@@ -489,12 +503,110 @@ def phase_kernels_mla():
     return out
 
 
+# ---------------------------------------------------------------------- #
+def phase_kernels_gather():
+    """K5 against its plain version, bitwise: the general gather in three
+    types at three distances and both issue orders, then the page form at
+    the qwen3 and deepseek serving geometries (8 slots x 64 pages of the
+    engine's 516 frames), with planted faults, times and bounds."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        table = (torch.randn((64, 256), generator=gen, device=dev)
+                 * 100).to(dtype)
+        trace = torch.randint(0, 64, (40,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        want = gather_ref(table, trace)
+        for d in (1, 2, 8):
+            for strategy in IssueStrategy:
+                got = pul_gather(table, trace,
+                                 cfg=PULConfig(distance=d, strategy=strategy))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"pul_gather {dtype} d={d} "
+                                         f"{strategy.name}: not bitwise equal")
+    print("[kernels-gather] pul_gather (64, 256), 40 requests, f32/bf16/int32,"
+          " d in {1, 2, 8}, BATCH and SEQUENTIAL: bitwise equal")
+    n_pages = MAX_SEQ // P
+    NF = SLOTS * n_pages + 4            # the engine's hot frames (516)
+    out = {}
+    for label, F, gqa in (("qwen3", 2 * L * KV * HD, H // KV),
+                          ("deepseek", MLA_LAYERS * (KVR + DR), 1)):
+        cfg = PULConfig(distance=engine_distance(F, gqa))
+        plan = gather_ring_plan(cfg, rows_per_req=P, row_bytes=F * 2)
+        store = torch.randn((NF, P, F), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+        seed0 = torch.Generator(device=dev)
+        seed0.manual_seed(0)
+        pt = torch.randperm(NF, generator=seed0, device=dev)[
+            :SLOTS * n_pages].reshape(SLOTS, n_pages).to(torch.int32)
+        got = pul_page_gather(store, pt, cfg=cfg)
+        torch.cuda.synchronize()
+        want = page_gather_ref(store, pt)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: K5 differs from the plain gather")
+        err = max((got[b].float() - want[b].float()).abs().max().item()
+                  for b in range(SLOTS))
+        neighbour = pt.clone()
+        neighbour[3, 17] = (neighbour[3, 17] + 1) % NF
+        short = want.clone().view(SLOTS, n_pages, P, F)
+        short[:, :, P - 1] = 0
+        faults = {"one page read from its neighbouring frame":
+                  page_gather_ref(store, neighbour),
+                  "the last row of every page left out":
+                  short.view_as(want)}
+        for what, bad in faults.items():
+            if torch.equal(bad, got):
+                raise AssertionError(f"{label}: the bitwise check lets a "
+                                     f"planted fault through: {what}")
+        planted = ", ".join(faults)
+        del faults, short, want, got
+        ms = _time_ms(lambda: pul_page_gather(store, pt, cfg=cfg))
+        plain_ms = _time_ms(lambda: page_gather_ref(store, pt), reps=10)
+        flat = pt.reshape(-1)
+        library_ms = _time_ms(lambda: torch.index_select(store, 0, flat),
+                              reps=10)
+        nbytes = 2 * SLOTS * n_pages * P * F * 2 + pt.numel() * 4
+        bound_ms = nbytes / HBM_PEAK * 1e3
+        print(f"[kernels-gather] {label} store {tuple(store.shape)} bf16, page "
+              f"table {tuple(pt.shape)}: K5 {ms:.4f} ms (ring: d={plan.distance}"
+              f" of the engine's {cfg.distance}, {plan.slots} slots, tiles of "
+              f"{plan.tile_bytes} B x {plan.n_tiles}); plain {plain_ms:.4f} ms; "
+              f"index_select {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
+              f"(bytes: {nbytes} B); planted faults rejected: {planted}")
+        out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=library_ms)
+        del store
+        torch.cuda.empty_cache()
+    return out
+
+
 class _CheckedEngine(PagedServingEngine):
-    """The engine with every emitted logit row checked for finiteness."""
+    """The engine with every emitted logit row checked for finiteness, each
+    token's top-2 logit gap recorded, and the logits of decode steps kept
+    (by request, the last step's)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.gaps, self.decode_logits, self._decoding = {}, {}, False
+
+    def _decode_step(self):
+        self._decoding = True
+        try:
+            return super()._decode_step()
+        finally:
+            self._decoding = False
 
     def _emit_token(self, slot, logits):
         if not np.isfinite(logits).all():
             raise AssertionError(f"non-finite logits for slot {slot}")
+        rid = self.slot_req[slot].rid
+        top = np.sort(logits)[-2:]
+        self.gaps.setdefault(rid, []).append(
+            (float(top[1] - top[0]), float(np.abs(logits).max())))
+        if self._decoding:
+            self.decode_logits[rid] = logits
         super()._emit_token(slot, logits)
 
 
@@ -514,33 +626,55 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def _engine(cfg, params, sweep, device):
+#: the paged engine's decode paths: the kernel-true sweep (K1; K3 for MLA)
+#: and per-layer (K2; K4) paths, and assembly through K5 or plain indexing
+PATHS = {
+    "sweep": dict(use_paged_kernel=True, sweep_decode=True),
+    "per-layer": dict(use_paged_kernel=True, sweep_decode=False),
+    "assembly": dict(use_paged_kernel=False, use_pallas_gather=True),
+    "assembly-plain": dict(use_paged_kernel=False, use_pallas_gather=False),
+}
+
+
+def _engine(cfg, params, path, device):
     return _CheckedEngine(cfg, params, PagedEngineConfig(
         batch_slots=SLOTS, max_seq=MAX_SEQ, page_tokens=P,
-        prefill_buckets=(128, 256, 512), use_paged_kernel=True,
-        sweep_decode=sweep, device=device))
+        prefill_buckets=(128, 256, 512), device=device, **PATHS[path]))
 
 
-def warm_up(cfg, params, device="cuda"):
-    """One short request per prefill bucket through both decode paths, so
+def _path_kernel(cfg, path):
+    """(the kernel the path launches, launches per decode step)."""
+    mla = cfg.attn_type == "mla"
+    return {"sweep": ("k3" if mla else "k1", cfg.num_layers),
+            "per-layer": ("k4" if mla else "k2", cfg.num_layers),
+            "assembly": ("k5", 1), "assembly-plain": (None, 0)}[path]
+
+
+def warm_up(cfg, params, device="cuda", paths=("sweep", "per-layer")):
+    """One short request per prefill bucket through each decode path, so
     the timed runs below pay no first-call cost (library handles, kernel
     module load, allocator growth)."""
-    for sweep in (True, False):
-        eng = _engine(cfg, params, sweep, device)
+    for path in paths:
+        eng = _engine(cfg, params, path, device)
         for i, n in enumerate((100, 200, 400)):
             eng.submit(Request(rid=i, prompt=[1 + i] * n, max_new_tokens=3))
         eng.run()
     _sync(device)
 
 
-def phase_serving(cfg, params, *, sweep, device="cuda"):
-    """Serve the request script through the sweep kernel (K1; K3 for MLA)
-    or the per-layer one (K2; K4), with one preempt/resume mid-stream."""
-    pair = ("k3", "k4") if cfg.attn_type == "mla" else ("k1", "k2")
-    key = pair[0] if sweep else pair[1]
-    tag = "[serving-mla]" if cfg.attn_type == "mla" else "[serving]"
-    layers = cfg.num_layers
-    eng = _engine(cfg, params, sweep, device)
+def _tag(cfg, path):
+    base = "serving-mla" if cfg.attn_type == "mla" else "serving"
+    return f"[{base}-assembly]" if path.startswith("assembly") else f"[{base}]"
+
+
+def phase_serving(cfg, params, *, path, device="cuda"):
+    """Serve the request script on one decode path (PATHS): through the
+    sweep kernel (K1; K3 for MLA), the per-layer one (K2; K4), or assembly
+    through K5 or plain indexing, with one preempt/resume mid-stream.
+    Returns (tokens by request, stats, the engine's top-2 gaps)."""
+    key, per_step = _path_kernel(cfg, path)
+    tag = _tag(cfg, path)
+    eng = _engine(cfg, params, path, device)
     for r in _requests(cfg.vocab_size):
         eng.submit(r)
     decode_ms = []              # host time of ticks that ran no prefill
@@ -574,21 +708,21 @@ def phase_serving(cfg, params, *, sweep, device="cuda"):
     if sorted(out) != list(range(12)) or any(len(v) != 24 for v in out.values()):
         raise AssertionError(f"not every request finished: "
                              f"{ {k: len(v) for k, v in out.items()} }")
-    if launches[key] != layers * m.decode_steps:
+    if key is not None and launches[key] != per_step * m.decode_steps:
         raise AssertionError(f"{key} launched {launches[key]} times, expected "
-                             f"{layers} x {m.decode_steps} decode steps")
+                             f"{per_step} x {m.decode_steps} decode steps")
     others = [k for k, n in launches.items() if n and k != key]
     if others:
-        raise AssertionError(f"{others} launched on the {key} path")
+        raise AssertionError(f"{others} launched on the {path} path")
     if pm.page_faults < 1 or pm.shared_hits < 1:
         raise AssertionError(f"page_faults {pm.page_faults}, shared_hits "
                              f"{pm.shared_hits}: the cold tier or prefix "
                              "sharing did not run")
-    stats = {"model": cfg.name, "layers": layers,
-             "path": f"{'sweep' if sweep else 'per-layer'} ({key.upper()})",
+    stats = {"model": cfg.name, "layers": cfg.num_layers,
+             "path": f"{path} ({key.upper() if key else 'no kernel'})",
              "ticks": m.ticks, "decode_steps": m.decode_steps,
              "prefills": m.prefills, "tokens": m.tokens_emitted,
-             "launches": launches[key], "wall_s": wall,
+             "launches": launches[key] if key else 0, "wall_s": wall,
              "tokens_per_s": m.tokens_emitted / wall,
              "ms_per_tick": wall / m.ticks * 1e3,
              "decode_tick_ms_median": statistics.median(decode_ms),
@@ -598,10 +732,11 @@ def phase_serving(cfg, params, *, sweep, device="cuda"):
              "bytes_hot_written": pm.bytes_hot_written,
              "preload_distance": eng.pul_distance}
     print(f"{tag} " + json.dumps(stats))
+    gaps = eng.gaps
     del eng
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return out, stats
+    return out, stats, gaps
 
 
 def smoke_config(arch):
@@ -613,16 +748,16 @@ def smoke_config(arch):
     return cfg
 
 
-def profile_decode(arch="qwen3-1.7b"):
+def profile_decode(arch="qwen3-1.7b", path="sweep"):
     """One-off, not a phase of the smoke: where a decode tick's time goes.
-    torch.profiler over 4 pure decode ticks of the sweep path at the smoke
-    configuration of `arch` (8 requests, all admitted at tick 0). Prints
-    one [profile] line."""
+    torch.profiler over 4 pure decode ticks of one decode path (PATHS) at
+    the smoke configuration of `arch` (8 requests, all admitted at tick 0).
+    Prints one [profile] line."""
     from torch.profiler import ProfilerActivity, profile
     cfg = smoke_config(arch)
     params = init_params(cfg, seed=0, device="cuda")
-    warm_up(cfg, params)
-    eng = _engine(cfg, params, True, "cuda")
+    warm_up(cfg, params, paths=(path,))
+    eng = _engine(cfg, params, path, "cuda")
     for r in _requests(cfg.vocab_size)[:8]:
         eng.submit(r)
     for _ in range(3):
@@ -652,7 +787,7 @@ def profile_decode(arch="qwen3-1.7b"):
               if e.device_type == torch.autograd.DeviceType.CPU
               and e.name.startswith("aten::") and e.cpu_parent is None)
     stats = {"smi": _smi("name,power.limit"), "model": cfg.name,
-             "layers": cfg.num_layers, "ticks": ticks,
+             "layers": cfg.num_layers, "path": path, "ticks": ticks,
              "wall_ms_per_tick": wall * 1e3 / ticks,
              "device_busy_ms_per_tick": busy / ticks,
              "device_idle_share": 1.0 - busy / (wall * 1e3),
@@ -663,22 +798,113 @@ def profile_decode(arch="qwen3-1.7b"):
     return stats
 
 
-def _serve_both_paths(cfg, params):
-    """The request script through the sweep and then the per-layer kernel
-    path; their token streams must be bitwise equal."""
-    warm_up(cfg, params)
-    out1, s1 = phase_serving(cfg, params, sweep=True)
-    out2, s2 = phase_serving(cfg, params, sweep=False)
-    tag = "[serving-mla]" if cfg.attn_type == "mla" else "[serving]"
+def _serve_two_paths(cfg, params, first, second, device="cuda"):
+    """The request script through two decode paths whose token streams and
+    bytes_hot_written must be bitwise equal. Returns (stats of each, the
+    first path's tokens and top-2 gaps)."""
+    warm_up(cfg, params, device, paths=(first, second))
+    out1, s1, gaps = phase_serving(cfg, params, path=first, device=device)
+    out2, s2, _ = phase_serving(cfg, params, path=second, device=device)
+    tag = _tag(cfg, first)
     if out1 != out2:
-        raise AssertionError(f"{cfg.name}: per-layer ({s2['path']}) tokens "
-                             f"differ from the sweep ({s1['path']}) tokens")
+        raise AssertionError(f"{cfg.name}: {s2['path']} tokens differ from "
+                             f"the {s1['path']} tokens")
     if s1["bytes_hot_written"] != s2["bytes_hot_written"]:
         raise AssertionError(f"{cfg.name}: bytes_hot_written differs between "
                              "the paths")
     print(f"{tag} {s2['path']} tokens == {s1['path']} tokens bitwise over "
           f"{sum(len(v) for v in out1.values())} tokens")
-    return s1, s2
+    return s1, s2, out1, gaps
+
+
+def _one_step_logits(cfg, params, path, device):
+    """A fresh engine admits the script's first 8 requests; the logits of
+    its first decode step, by request."""
+    eng = _engine(cfg, params, path, device)
+    for r in _requests(cfg.vocab_size)[:SLOTS]:
+        eng.submit(r)
+    eng.step()                  # prefill of all 8, then one decode step
+    if sorted(eng.decode_logits) != list(range(SLOTS)):
+        raise AssertionError(f"{path}: the first tick decoded "
+                             f"{sorted(eng.decode_logits)}")
+    return eng.decode_logits
+
+
+def phase_serving_assembly(cfg, params, sweep_out, sweep_gaps, device="cuda"):
+    """The request script on the assembly path through K5, then through
+    plain indexing (bitwise-equal tokens); one decode step's logits against
+    the sweep kernel's (K1; K3 for MLA) within 2e-2 of max |logits|, the
+    CPU model tests' bound; and where the assembly stream first leaves the
+    sweep's, with the sweep's top-2 gap there."""
+    s_k5, s_plain, out, _ = _serve_two_paths(cfg, params, "assembly",
+                                             "assembly-plain", device)
+    tag = _tag(cfg, "assembly")
+    asm = _one_step_logits(cfg, params, "assembly", device)
+    ker = _one_step_logits(cfg, params, "sweep", device)
+    err = max(float(np.abs(asm[r] - ker[r]).max()) for r in ker)
+    limit = 2e-2 * max(float(np.abs(ker[r]).max()) for r in ker)
+    if err > limit:
+        raise AssertionError(f"{cfg.name}: assembly logits differ from the "
+                             f"sweep kernel's by {err} > {limit}")
+    print(f"{tag} one decode step, 8 requests: max |assembly - "
+          f"{_path_kernel(cfg, 'sweep')[0].upper()}| logits {err:.4e} "
+          f"(limit {limit:.4e} = 2e-2 x max |logits|)")
+    firsts = {}
+    for rid, toks in sorted(sweep_out.items()):
+        i = next((j for j, (a, b) in enumerate(zip(toks, out[rid]))
+                  if a != b), None)
+        firsts[rid] = None if i is None else (
+            i, round(sweep_gaps[rid][i][0], 5), round(sweep_gaps[rid][i][1], 3))
+    same = sum(1 for v in firsts.values() if v is None)
+    print(f"{tag} assembly vs sweep tokens: {same} of {len(firsts)} requests "
+          f"identical; first divergence per request (index, the sweep's "
+          f"top-2 gap there, its max |logits|): {json.dumps(firsts)}")
+    return s_k5, s_plain
+
+
+class _CheckedDense(ServingEngine):
+    """The dense engine with every emitted logit row checked for
+    finiteness."""
+
+    def _emit(self, logits):
+        if not np.isfinite(logits).all():
+            raise AssertionError("non-finite logits")
+        super()._emit(logits)
+
+
+def phase_serving_dense(cfg, params, device="cuda"):
+    """The script's 12 requests on the dense ServingEngine (left-padded
+    512-token bucket prefill, whole-batch re-prefill on admission)."""
+    eng = _CheckedDense(cfg, params, EngineConfig(
+        batch_slots=SLOTS, max_seq=MAX_SEQ, prefill_bucket=512,
+        device=device))
+    for r in _requests(cfg.vocab_size):
+        eng.submit(r)
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    ticks = 0
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+        ticks += 1
+    out = {rid: r.out_tokens for rid, r in eng.requests.items()}
+    _sync(device)
+    wall = time.perf_counter() - t0
+    if sorted(out) != list(range(12)) or any(len(v) != 24 for v in out.values()):
+        raise AssertionError(f"dense engine: not every request finished: "
+                             f"{ {k: len(v) for k, v in out.items()} }")
+    if any(PA.LAUNCHES.values()):
+        raise AssertionError(f"the dense engine launched {PA.LAUNCHES}")
+    tokens = sum(len(v) for v in out.values())
+    stats = {"model": cfg.name, "ticks": ticks, "tokens": tokens,
+             "wall_s": wall, "tokens_per_s": tokens / wall,
+             "ms_per_tick": wall / ticks * 1e3}
+    print("[serving-dense] " + json.dumps(stats))
+    del eng
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return stats
 
 
 def main():
@@ -697,11 +923,17 @@ def main():
     phase_build()
     kern = phase_kernels()
     kern.update(phase_kernels_mla())
+    gather = phase_kernels_gather()
+    kern["k5"] = gather["qwen3"]
     print(f"[done] kernels {time.perf_counter() - t0:.1f} s")
 
     cfg = smoke_config("qwen3-1.7b")
     params = init_params(cfg, seed=0, device="cuda")
-    stats = dict(zip(("k1", "k2"), _serve_both_paths(cfg, params)))
+    s1, s2, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
+                                                     "per-layer")
+    stats = {"k1": s1, "k2": s2}
+    stats["k5"], _ = phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
+    phase_serving_dense(cfg, params)
     del params                     # free qwen3 before deepseek's ~43 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -717,28 +949,34 @@ def main():
           f"layer 0 + {cfg.num_groups} MoE), {weights / 1e9:.2f} GB of "
           f"weights, init {time.perf_counter() - t1:.1f} s; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    stats.update(zip(("k3", "k4"), _serve_both_paths(cfg, params)))
+    s3, s4, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
+                                                     "per-layer")
+    stats.update(k3=s3, k4=s4)
+    phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
     print(f"[serving-mla] peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params
     print(f"[done] {time.perf_counter() - t0:.1f} s")
 
     rows = []
-    for key, name, source, line in (
-            ("k1", "pul_paged_sweep_decode_attention", "pul_paged_decode", 406),
-            ("k2", "pul_paged_decode_attention", "pul_paged_decode", 152),
+    for key, name, source, replaces in (
+            ("k1", "pul_paged_sweep_decode_attention", "pul_paged_decode",
+             "pul_attention.py:406"),
+            ("k2", "pul_paged_decode_attention", "pul_paged_decode",
+             "pul_attention.py:152"),
             ("k3", "pul_paged_sweep_mla_decode_attention",
-             "pul_paged_mla_decode", 553),
+             "pul_paged_mla_decode", "pul_attention.py:553"),
             ("k4", "pul_paged_mla_decode_attention", "pul_paged_mla_decode",
-             272)):
+             "pul_attention.py:272"),
+            ("k5", "pul_gather", "pul_gather", "pul_gather.py:60")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{source}.cu",
-                     "replaces": f"src/repro/kernels/pul_attention.py:{line}",
+                     "replaces": f"src/repro/kernels/{replaces}",
                      "launches": stats[key]["launches"],
                      **{k: kern[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by")},
-                     "library_ms": None})
+                     "library_ms": kern[key].get("library_ms")})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

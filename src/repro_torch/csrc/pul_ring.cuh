@@ -1,5 +1,6 @@
 // The PUL preload ring's device helpers, shared by the paged decode kernels
-// (pul_paged_decode.cu, pul_paged_mla_decode.cu): 16-byte cp.async copies
+// (pul_paged_decode.cu, pul_paged_mla_decode.cu) and the gather
+// (pul_gather.cu): 16-byte cp.async copies
 // into shared memory, one commit group per stream position, a wait whose
 // depth is a runtime distance, and a round-to-nearest warp sum.
 #pragma once
@@ -64,7 +65,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The ring's launch-time invariants, checked by both kernels' launchers:
+// The ring's launch-time invariants, checked by every kernel's launcher:
 // a distance the wait table covers, enough slots for the issue order.
 inline bool ring_ok(int distance, int slots, int sequential, int smem_bytes) {
   return smem_bytes <= kMaxSmemBytes && distance >= 1 &&

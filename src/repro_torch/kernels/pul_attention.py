@@ -47,11 +47,9 @@ SMEM_LIMIT_BYTES = 232448
 MAX_RING_DISTANCE = 32
 #: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
 HEAD_BLOCK = 8
-#: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer)
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
-
-#: CUDA sources under csrc/: K1/K2, and the MLA pair K3/K4
-SOURCES = ("pul_paged_decode", "pul_paged_mla_decode")
+#: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer;
+#: "k5": the gather of kernels.pul_gather)
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
 
 
 @dataclasses.dataclass(frozen=True)

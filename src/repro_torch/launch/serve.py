@@ -5,7 +5,9 @@
 
 Runs on CUDA by default (the kernel-true decode through the port's Hopper
 kernels); ``--device cpu`` runs the kernels' plain PyTorch versions.
-``--no-sweep`` takes the per-layer kernel path instead of the fused sweep.
+``--no-sweep`` takes the per-layer kernel path instead of the fused sweep;
+``--no-paged-kernel`` decodes by dense assembly from the pages; ``--dense``
+serves with the dense reference engine (no pages; no --trace / --metrics).
 Page-pool knobs: --page-tokens, --hot-pages (fast-tier frames; 0 = fit
 everything), --distance (preload distance for page restores; 0 = planner
 d*). Scheduling knobs: --policy (fcfs | priority | slo-edf; the latter two
@@ -23,7 +25,12 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.models import init_params
 from repro_torch.obs import Tracer, validate_chrome_trace
-from repro_torch.serving import PagedServingEngine, Request, ServingConfig
+from repro_torch.serving import (
+    PagedServingEngine,
+    Request,
+    ServingConfig,
+    ServingEngine,
+)
 
 
 def main(argv=None):
@@ -34,7 +41,7 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dense", action="store_true",
-                    help="the dense reference engine (not ported: errors)")
+                    help="use the dense-cache reference engine")
     ServingConfig.add_flags(ap)
     ap.add_argument("--high-priority-every", type=int, default=0,
                     help="mark every Nth request high-priority with a TTFT "
@@ -48,8 +55,9 @@ def main(argv=None):
                     help="dump the final metrics registry to PATH — "
                          "Prometheus text for .prom, JSON otherwise")
     args = ap.parse_args(argv)
-    if args.dense:
-        ap.error("the dense ServingEngine is not ported yet (ROADMAP)")
+    if args.dense and (args.trace or args.metrics):
+        ap.error("--trace/--metrics instrument the paged engine; "
+                 "drop --dense")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -57,20 +65,26 @@ def main(argv=None):
     serving_cfg = ServingConfig.from_flags(args)
     params = init_params(cfg, seed=args.seed, device=serving_cfg.device)
 
-    hook = (lambda s: print(
-        f"[serve] tick {s['tick']:4d}  {s['tokens_per_sec']:6.1f} tok/s"
-        f"  live {s['live_slots']}  queued {s['queued']}"
-        f"  faults {s['page_faults']}  shared {s['shared_page_hits']}"
-        f"  hidden {s['modeled_restore_latency_hidden']:.0%}")
-        if s["tick"] % args.log_every == 0 else None)
-    tracer = Tracer() if args.trace else None
-    eng = PagedServingEngine(cfg, params, serving_cfg, metrics_hook=hook,
-                             tracer=tracer)
-    print(f"[serve] {serving_cfg.device}: paged KV {eng.layout.features} "
-          f"packed features/token, {args.page_tokens} tokens/page, planned "
-          f"d*={eng.pool.distance}, "
-          f"{'fused sweep' if serving_cfg.sweep_decode else 'per-layer'} "
-          "decode")
+    if args.dense:
+        eng = ServingEngine(cfg, params, serving_cfg)
+        print(f"[serve] {serving_cfg.device}: dense engine, prefill bucket "
+              f"{serving_cfg.prefill_bucket}")
+    else:
+        hook = (lambda s: print(
+            f"[serve] tick {s['tick']:4d}  {s['tokens_per_sec']:6.1f} tok/s"
+            f"  live {s['live_slots']}  queued {s['queued']}"
+            f"  faults {s['page_faults']}  shared {s['shared_page_hits']}"
+            f"  hidden {s['modeled_restore_latency_hidden']:.0%}")
+            if s["tick"] % args.log_every == 0 else None)
+        tracer = Tracer() if args.trace else None
+        eng = PagedServingEngine(cfg, params, serving_cfg, metrics_hook=hook,
+                                 tracer=tracer)
+        path = ("assembly" if not serving_cfg.use_paged_kernel
+                else "fused sweep" if serving_cfg.sweep_decode
+                else "per-layer")
+        print(f"[serve] {serving_cfg.device}: paged KV {eng.layout.features} "
+              f"packed features/token, {args.page_tokens} tokens/page, "
+              f"planned d*={eng.pool.distance}, {path} decode")
 
     prompts = np.random.default_rng(args.seed).integers(
         1, cfg.vocab_size, size=(args.requests, 8)).tolist()
@@ -87,6 +101,8 @@ def main(argv=None):
         print(f"[serve] req {rid}: {toks}")
     print(f"[serve] {total} tokens in {dt:.2f}s "
           f"({total / max(dt, 1e-9):.1f} tok/s, {args.slots} slots)")
+    if args.dense:
+        return
     snap = eng.snapshot()
     print(f"[serve] pages allocated {snap['pages_allocated']}, faults "
           f"{snap['page_faults']}, evictions {snap['evictions']}, "

@@ -5,9 +5,9 @@ Plain functions on tensors over a param dict. The reference's bf16 rounding
 points are kept: projections and the head are bf16 products, norms and RoPE
 run in fp32 and round back, and prefill attention rounds q·kᵀ to bf16
 before the fp32 cast, scale and softmax, then casts the probabilities to
-bf16 (`_attend`). Prefill attention is plain torch ops: in the reference it
-is jnp, not a Pallas kernel. Paged decode attention goes through the port's
-CUDA kernels (``kernels.pul_attention``).
+bf16 (`_attend`). Prefill and dense-cache decode attention are plain torch
+ops: in the reference they are jnp, not Pallas kernels. Paged decode
+attention goes through the port's CUDA kernels (``kernels.pul_attention``).
 """
 from __future__ import annotations
 
@@ -138,6 +138,11 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
 
     kind="prefill": causal attention over the prompt; the cache holds k/v
     (B, max_seq, K, hd) bf16 and idx (B,) = T.
+    kind="decode": one token per slot over a dense cache {"k", "v":
+    (B, S, K, hd), "idx": (B,) per-slot fill}; the token's K/V rows are
+    written IN PLACE at row idx % S of `cache` (the port's counterpart of
+    the reference's functional update), and new_cache holds the same
+    tensors with idx + 1.
     kind="paged_decode": one token per slot over KV pages. `paged` is a
     :class:`PagedSweep` (single sweep: K1 reads plane row `paged.layer` and
     commits the token in place; new_cache is None) or a (page_table,
@@ -182,6 +187,24 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                 v_new=v_new, cfg=pul_cfg)
             new_cache = {"k": k_new, "v": v_new, "idx": cache["idx"] + 1}
         out = out[:, None]
+    elif kind == "decode":
+        # per-slot fill levels: slot b's token goes to row idx[b] % S, and
+        # rows <= idx[b] are visible (the port's archs have only global
+        # layers, so there is no sliding-window term)
+        if T != 1:
+            raise ValueError("decode processes one token per step")
+        idx = cache["idx"]
+        kc, vc = cache["k"], cache["v"]
+        S = kc.shape[1]
+        rows = torch.arange(B, device=x.device)
+        write = idx.long() % S
+        kc[rows, write] = k[:, 0].to(kc.dtype)
+        vc[rows, write] = v[:, 0].to(vc.dtype)
+        jk = torch.arange(S, device=x.device)[None, :]
+        mask = (jk <= idx.long()[:, None])[:, None, None, None, :]
+        out = _attend(q, kc, vc, mask=mask, softcap=cfg.attn_softcap,
+                      scale=scale)
+        new_cache = {"k": kc, "v": vc, "idx": idx + 1}
     elif kind == "prefill":
         if T > 2 * KV_BLOCK:
             raise NotImplementedError(

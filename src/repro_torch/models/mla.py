@@ -9,9 +9,11 @@ attention, which runs straight over the compressed (c_kv, k_rope) pages
 through the port's CUDA kernels K3 (single sweep, fused commit) and K4 (per
 layer). The cache holds kv_lora + rope = 576 features per token.
 
-Not ported here: the dense ``kind="decode"`` branch (the dense
-``ServingEngine``, ROADMAP) and prefill past 2 * KV_BLOCK tokens (the
-reference's streamed ``_attend_chunked``); both raise.
+The dense ``kind="decode"`` branch (the assembly path and the dense
+``ServingEngine``) runs the same absorbed attention in plain torch over a
+dense ``(B, S, kvr)`` / ``(B, S, dr)`` cache, as the reference's jnp. Not
+ported here: prefill past 2 * KV_BLOCK tokens (the reference's streamed
+``_attend_chunked``); it raises.
 """
 from __future__ import annotations
 
@@ -78,7 +80,11 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
     k_rope planes and commits the token in place; new_cache is None) or a
     (page_table, PULConfig) pair with `cache` = {"c_kv": (NF, P, kvr),
     "k_rope": (NF, P, dr) one layer's frames, "idx": (B,)} (K4; new_cache
-    holds the token's compressed rows for the engine to commit)."""
+    holds the token's compressed rows for the engine to commit).
+    kind="decode": one token per slot over a dense cache {"c_kv":
+    (B, S, kvr), "k_rope": (B, S, dr), "idx": (B,)}; the token's rows are
+    written in place at row idx % S, and new_cache holds the same tensors
+    with idx + 1."""
     B, T, D = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     scale = 1.0 / math.sqrt(dn + dr)
@@ -132,10 +138,34 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                      "k_rope": F.pad(k_rope, (0, 0, 0, target - T)).to(torch.bfloat16),
                      "idx": torch.full((B,), T, dtype=torch.int32,
                                        device=x.device)}
+    elif kind == "decode":
+        # absorbed attention over the dense compressed cache; per-slot fill
+        # levels as in layers.attention_apply (rows written in place)
+        if T != 1:
+            raise ValueError("decode processes one token per step")
+        idx = cache["idx"]
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        S = c_kv.shape[1]
+        c_new, r_new = _compress_kv(p, x, cfg, positions)
+        rows = torch.arange(B, device=x.device)
+        write = idx.long() % S
+        c_kv[rows, write] = c_new[:, 0].to(c_kv.dtype)
+        k_rope[rows, write] = r_new[:, 0].to(k_rope.dtype)
+        wkv_b_k = p["wkv_b"][..., :dn]                      # (kvr, H, dn)
+        wkv_b_v = p["wkv_b"][..., dn:]                      # (kvr, H, dv)
+        q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wkv_b_k)
+        logits = (torch.einsum("bthr,bsr->bhts", q_abs, c_kv)
+                  + torch.einsum("bthn,bsn->bhts", q_rope, k_rope)
+                  ).float() * scale
+        mask = (torch.arange(S, device=x.device)[None, None, None, :]
+                <= idx.long()[:, None, None, None])
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        probs = torch.softmax(logits, dim=-1).to(c_kv.dtype)
+        o_c = torch.einsum("bhts,bsr->bthr", probs, c_kv)
+        out = torch.einsum("bthr,rhv->bthv", o_c, wkv_b_v)
+        new_cache = {"c_kv": c_kv, "k_rope": k_rope, "idx": idx + 1}
     else:
-        raise NotImplementedError(
-            f"MLA kind {kind!r} is not ported (the dense decode belongs to the "
-            "dense ServingEngine, ROADMAP)")
+        raise NotImplementedError(f"MLA kind {kind!r} is not ported")
     y = torch.einsum("bthv,hvd->btd", out, p["wo"])
     return y, new_cache
 

@@ -1,7 +1,7 @@
 """Backbone of the port (``repro/models/transformer.py``): parameter and
-cache trees, prefill and the paged decode step, for one-block layer patterns
-(("global",) dense GQA, or ("moe",) with MLA attention) and unscanned dense
-leading layers (deepseek-v2's layer 0).
+cache trees, prefill, the dense decode step and the paged decode step, for
+one-block layer patterns (("global",) dense GQA, or ("moe",) with MLA
+attention) and unscanned dense leading layers (deepseek-v2's layer 0).
 
 The reference ``lax.scan``s over stacked layer weights; here the scan is a
 Python loop over the same stacked tensors (layer g reads row g of each
@@ -170,6 +170,33 @@ def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
         xl = x[:, -1:, :]
     logits = L.logits_apply(params["embedding"], xl, cfg=cfg)
     return logits[:, 0, :], _tree(cfg, caches)
+
+
+def decode_fn(params, batch, caches, *, cfg: ModelConfig):
+    """Dense decode step over per-slot caches (the assembly path and the
+    dense ServingEngine).
+
+    batch: tokens (B, 1), pos0 (B,) absolute position of the new token;
+    caches: the tree of :func:`cache_specs` with each block's idx the slots'
+    fill levels ((L, B) stacked for the scanned block). Every layer writes
+    the token's rows IN PLACE into `caches` at row idx % S (through views of
+    the stacked leaves, so no copy of the cache is made) and attends over
+    rows <= idx. Returns (logits (B, V), new caches): the same leaves, every
+    idx + 1."""
+    x = L.embed_apply(params["embedding"], batch["tokens"], cfg=cfg)
+    positions = batch["pos0"][:, None]
+    for prefix, g, kind, p in _blocks(params, cfg):
+        cache = caches[prefix[0]][prefix[1]]
+        if prefix[0] == "groups":
+            cache = {k: v[g] for k, v in cache.items()}
+        x, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+                           step_kind="decode", cache=cache)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = L.logits_apply(params["embedding"], x, cfg=cfg)[:, 0, :]
+    new = {top: {key: {**blk, "idx": blk["idx"] + 1}
+                 for key, blk in sub.items()}
+           for top, sub in caches.items()}
+    return logits, new
 
 
 def paged_decode_fn(params, batch, caches=None, planes=None, *,

@@ -1,7 +1,8 @@
 """build_model(config): the port's model entry point (``repro/models/zoo.py``).
 
-A :class:`Model` binds a config to its parameters and exposes the two entry
-points the serving engine calls: ``prefill`` and ``paged_decode_step``.
+A :class:`Model` binds a config to its parameters and exposes the entry
+points the serving engines call: ``prefill``, ``decode_step`` (dense caches)
+and ``paged_decode_step``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ class Model:
         """(B, T) tokens -> (logits (B, V), caches); see prefill_fn."""
         return T.prefill_fn(self.params, tokens, lengths, cfg=self.cfg,
                             max_seq=max_seq)
+
+    def decode_step(self, batch, caches):
+        """One dense decode step; see transformer.decode_fn."""
+        return T.decode_fn(self.params, batch, caches, cfg=self.cfg)
 
     def paged_decode_step(self, batch, caches=None, planes=None, *,
                           pul_distance: int = 4):

@@ -1,9 +1,11 @@
-"""Paged serving of the port: page pool, scheduler, engine, config."""
+"""Serving of the port: page pool, scheduler, engines, config."""
 from repro_torch.serving.config import ServingConfig
 from repro_torch.serving.engine import (
+    EngineConfig,
     EngineMetrics,
     PagedEngineConfig,
     PagedServingEngine,
+    ServingEngine,
     mean,
 )
 from repro_torch.serving.kv_pages import (
@@ -21,7 +23,7 @@ from repro_torch.serving.scheduler import (
 )
 
 __all__ = [
-    "ServingConfig", "Request",
+    "ServingConfig", "Request", "EngineConfig", "ServingEngine",
     "PagedEngineConfig", "PagedServingEngine", "EngineMetrics",
     "KVPagePool", "KV_LAYOUT_VERSION", "PackedKVLayout", "PageConfig",
     "PoolMetrics", "AdmissionScheduler", "SchedulerConfig", "POLICIES",

@@ -1,16 +1,16 @@
 """One serving configuration to rule the layers (port of
 ``repro/serving/config.py``).
 
-The port serves through ``PagedServingEngine`` only; the dense reference
-engine (``dense()``) and the assembly-path knob ``use_pallas_gather`` are not
-ported, and asking for them raises ``NotImplementedError``. The port adds
-``device`` (default ``"cuda"``) and defaults ``use_paged_kernel`` to True.
+The port adds ``device`` (default ``"cuda"``, projected onto both engines'
+configs) and defaults ``use_paged_kernel`` to True; ``shadow_check`` is not
+ported (the paged engine raises for it).
 
 :class:`ServingConfig` is ONE documented facade holding the union of the
-serving knobs, with projections onto each layer's config (:meth:`paged`,
-:meth:`scheduler`, :meth:`pages`) and a single argparse adapter
-(:meth:`add_flags` / :meth:`from_flags`) used by ``repro_torch.launch.serve``.
-``PagedServingEngine`` accepts a ``ServingConfig`` directly.
+serving knobs, with projections onto each layer's config (:meth:`dense`,
+:meth:`paged`, :meth:`scheduler`, :meth:`pages`) and a single argparse
+adapter (:meth:`add_flags` / :meth:`from_flags`) used by
+``repro_torch.launch.serve``. Both engines accept a ``ServingConfig``
+directly.
 """
 from __future__ import annotations
 
@@ -49,8 +49,10 @@ class ServingConfig:
         requests (and reuse their cached first-token logits).
 
     Decode path (paged engine):
-      use_pallas_gather: route dense assembly through the PUL page gather.
-      use_paged_kernel: kernel-true decode straight over page frames.
+      use_pallas_gather: route dense assembly through the PUL page gather
+        (the K5 kernel; only with use_paged_kernel=False).
+      use_paged_kernel: kernel-true decode straight over page frames
+        (False = assembly: pages gathered into a dense view, dense decode).
       sweep_decode: with the kernel, run ALL layers as one sweep over the
         per-layer planes with the token commit fused into the kernel
         epilogue (False = per-layer launches + eager scatter).
@@ -94,9 +96,12 @@ class ServingConfig:
     # projections onto the per-layer configs
     # ------------------------------------------------------------------ #
     def dense(self):
-        """The dense reference engine is not ported."""
-        raise NotImplementedError(
-            "the dense ServingEngine is not ported yet (ROADMAP)")
+        """Project onto the dense reference engine's EngineConfig."""
+        from repro_torch.serving.engine import EngineConfig
+        return EngineConfig(
+            batch_slots=self.batch_slots, max_seq=self.max_seq,
+            prefill_bucket=self.prefill_bucket, greedy=self.greedy,
+            sample_seed=self.sample_seed, device=self.device)
 
     def paged(self):
         """Project onto the paged engine's PagedEngineConfig."""
@@ -158,7 +163,8 @@ class ServingConfig:
         ap.add_argument("--paged-kernel", action=argparse.BooleanOptionalAction,
                         default=True,
                         help="kernel-true decode: attention streams straight "
-                             "over page frames (the port's only decode path)")
+                             "over page frames (--no-paged-kernel: dense "
+                             "assembly from pages)")
         ap.add_argument("--no-sweep", action="store_true",
                         help="with --paged-kernel: per-layer kernel launches "
                              "+ eager row scatter instead of the fused "

@@ -1,4 +1,10 @@
-"""Paged, PUL-tiered continuous batching (port of ``repro/serving/engine.py``).
+"""Serving engines (port of ``repro/serving/engine.py``): the dense
+reference engine and paged, PUL-tiered continuous batching.
+
+:class:`ServingEngine` is the dense-cache reference: a fixed pool of B slots
+over monolithic per-slot KV that never leaves device memory, left-padded
+bucket prefill, and a re-prefill of the whole batch on admission. It is the
+differential-test oracle of the paged engine.
 
 :class:`PagedServingEngine` serves a model from a paged KV cache: KV lives in
 fixed-size pages managed by the PUL page pool (``serving.kv_pages``),
@@ -7,9 +13,10 @@ slots refill per step without touching their neighbours, same-bucket
 requests sharing a page-aligned prompt prefix share prompt pages, and cold
 pages ride UNLOAD/PRELOAD descriptors planned at the paper's d* distance.
 
-Decode is kernel-true: attention streams straight over the page frames, the
-page table acting as the preload trace, with the current token's K/V merged
-into the online softmax in-kernel. Two equivalent paths:
+Decode is kernel-true by default (``use_paged_kernel=True``): attention
+streams straight over the page frames, the page table acting as the preload
+trace, with the current token's K/V merged into the online softmax
+in-kernel. Two equivalent paths:
 
   * ``sweep_decode=True`` (default): every layer runs the sweep kernel (K1;
     K3 for MLA models) over the full per-layer planes and commits the
@@ -18,6 +25,15 @@ into the online softmax in-kernel. Two equivalent paths:
     for MLA) over its own frames and the engine commits the rows afterwards
     (``KVPagePool.write_rows``) — the parity baseline. Both paths give
     bitwise-identical token streams.
+
+``use_paged_kernel=False`` decodes by **assembly**, the reference's oracle
+path: the planes are packed into the ``(NF, P, F)`` store, each slot's pages
+are gathered by page table into a dense ``(B, S, F)`` view — through the PUL
+gather kernel K5 with ``use_pallas_gather=True`` — unpacked into a dense
+cache tree, decoded by the model's dense step, and the step's new rows are
+written back into the tail pages. Its dense attention sums in another order
+than K1/K2, so its tokens agree with the kernel-true paths only up to bf16
+near-ties; the two gather routes agree bitwise.
 
 Fully-shared prompts skip prefill compute: when a request's whole
 page-aligned prompt already lives in shared pages, admission refs the pages
@@ -29,9 +45,8 @@ tier (host memory) and come back through planned restores on readmission.
 Chunked prefill (``prefill_chunk_tokens > 0``) fills long prompts one
 page-aligned chunk per tick, interleaved with decode.
 
-Not ported yet (asking for them raises ``NotImplementedError``): the
-assembly decode path (``use_paged_kernel=False``, ``use_pallas_gather``),
-the dense ``ServingEngine`` oracle, and ``shadow_check``.
+Not ported yet (asking for it raises ``NotImplementedError``):
+``shadow_check``.
 """
 from __future__ import annotations
 
@@ -46,7 +61,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pul import H100_HBM, H100_PINNED_HOST, H100_SM, MemoryTier, PEModel
+from repro_torch.core.pul import (
+    H100_HBM,
+    H100_PINNED_HOST,
+    H100_SM,
+    MemoryTier,
+    PEModel,
+    PULConfig,
+)
+from repro_torch.kernels.pul_gather import pul_page_gather
 from repro_torch.models import transformer as T
 from repro_torch.models.zoo import Model
 from repro_torch.obs.metrics import (
@@ -86,6 +109,121 @@ def _drain_results(requests: Dict[int, Request]) -> Dict[int, List[int]]:
     return out
 
 
+# ========================================================================== #
+# dense reference engine
+# ========================================================================== #
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    batch_slots: int = 4
+    max_seq: int = 256
+    prefill_bucket: int = 64
+    greedy: bool = True
+    sample_seed: int = 0            # rng seed for greedy=False sampling
+                                    # (PagedEngineConfig.sample_seed's twin)
+    device: str = "cuda"            # caches and weights
+
+
+class ServingEngine:
+    """Dense-cache slot engine (left-padded bucket prefill, batch re-prefill
+    on admission). The differential-test oracle for the paged engine."""
+
+    def __init__(self, cfg: ModelConfig, params,
+                 engine_cfg: EngineConfig = EngineConfig()):
+        from repro_torch.serving.config import ServingConfig
+        if isinstance(engine_cfg, ServingConfig):
+            engine_cfg = engine_cfg.dense()
+        self.device = resolve_device(engine_cfg.device)
+        T.check_supported(cfg)
+        self.model_cfg = cfg
+        self.cfg = engine_cfg
+        self.model = Model(cfg, params)
+        self.params = params
+        B = engine_cfg.batch_slots
+        self.caches = None
+        self.slot_req: List[Optional[Request]] = [None] * B
+        self.slot_pos = np.zeros((B,), np.int64)    # next position per slot
+        self.queue: List[Request] = []
+        self.requests: Dict[int, Request] = {}     # every request submitted
+        self._rng = np.random.default_rng(engine_cfg.sample_seed)
+
+    # ------------------------------------------------------------------ #
+    def submit(self, req: Request):
+        self.requests[req.rid] = req
+        self.queue.append(req)
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _admit(self):
+        """Fill free slots; (re)prefill the whole batch when admitting (one
+        prefill shape; admission costs a batch prefill)."""
+        free = self._free_slots()
+        if not free or not self.queue:
+            return
+        while free and self.queue:
+            self.slot_req[free.pop(0)] = self.queue.pop(0)
+        self._prefill_all()
+
+    def _prefill_all(self):
+        B, bucket = self.cfg.batch_slots, self.cfg.prefill_bucket
+        toks = np.zeros((B, bucket), np.int64)
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            prompt = (r.prompt + r.out_tokens)[-bucket:]
+            toks[i, bucket - len(prompt):] = prompt       # left-pad
+            self.slot_pos[i] = bucket
+        logits, self.caches = self.model.prefill(
+            torch.as_tensor(toks, device=self.device), max_seq=self.cfg.max_seq)
+        self._emit(logits.cpu().numpy())
+
+    def _emit(self, logits: np.ndarray):
+        for i, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            if self.cfg.greedy:
+                nxt = int(np.argmax(logits[i]))
+            else:
+                z = logits[i].astype(np.float64) - logits[i].max()
+                p = np.exp(z)
+                nxt = int(self._rng.choice(p.shape[-1], p=p / p.sum()))
+            r.out_tokens.append(nxt)
+            if len(r.out_tokens) >= r.max_new_tokens:
+                r.done = True
+                self.slot_req[i] = None
+
+    # ------------------------------------------------------------------ #
+    def step(self):
+        """One engine tick: admit + one decode step for all live slots."""
+        self._admit()
+        if self.caches is None or all(r is None for r in self.slot_req):
+            return
+        B = self.cfg.batch_slots
+        toks = np.zeros((B, 1), np.int64)
+        for i, r in enumerate(self.slot_req):
+            if r is not None and r.out_tokens:
+                toks[i, 0] = r.out_tokens[-1]
+        batch = {"tokens": torch.as_tensor(toks, device=self.device),
+                 "pos0": torch.as_tensor(self.slot_pos, device=self.device)}
+        logits, self.caches = self.model.decode_step(batch, self.caches)
+        self.slot_pos = self.slot_pos + 1
+        self._emit(logits.cpu().numpy())
+
+    def run(self, max_ticks: int = 1000) -> Dict[int, List[int]]:
+        """Drive steps until every tracked request completes (or the tick
+        cap); returns {rid: generated tokens} for ALL submitted requests,
+        including those admitted before run() was called."""
+        ticks = 0
+        pending = lambda: self.queue or any(r is not None for r in self.slot_req)
+        while pending() and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return _drain_results(self.requests)
+
+
+# ========================================================================== #
+# paged engine
+# ========================================================================== #
 @dataclasses.dataclass(frozen=True)
 class PagedEngineConfig:
     batch_slots: int = 4
@@ -96,8 +234,8 @@ class PagedEngineConfig:
     max_active_tokens: int = 0      # 0 -> slots * max_seq
     preload_distance: Optional[int] = None   # None -> planner d*
     share_prefix_pages: bool = True
-    use_pallas_gather: bool = False  # assembly path: not ported (raises)
-    use_paged_kernel: bool = True    # kernel-true decode (the port's path)
+    use_pallas_gather: bool = False  # assembly path: gather through K5
+    use_paged_kernel: bool = True    # kernel-true decode; False: assembly
     sweep_decode: bool = True        # K1 fused sweep; False: K2 per layer
     policy: str = "fcfs"            # "fcfs" | "priority" | "slo-edf"
     prefill_chunk_tokens: int = 0   # >0: chunked prefill, one pass per tick
@@ -141,10 +279,6 @@ class PagedServingEngine:
         from repro_torch.serving.config import ServingConfig
         if isinstance(engine_cfg, ServingConfig):
             engine_cfg = engine_cfg.paged()
-        if not engine_cfg.use_paged_kernel or engine_cfg.use_pallas_gather:
-            raise NotImplementedError(
-                "the assembly decode path (use_paged_kernel=False, "
-                "use_pallas_gather) is not ported yet (ROADMAP)")
         if engine_cfg.shadow_check:
             raise NotImplementedError(
                 "shadow_check needs the lifecycle sanitizer, not ported yet "
@@ -188,7 +322,8 @@ class PagedServingEngine:
             max_active_tokens=engine_cfg.max_active_tokens or B * S,
             page_tokens=P, policy=engine_cfg.policy, max_seq=S),
             tracer=self.tracer)
-        # the planner's d*, clamped to the FIFO: the in-kernel preload distance
+        # the planner's d*, clamped to the FIFO: the in-kernel preload
+        # distance (K1-K4's page ring, K5's request ring)
         self.pul_distance = max(1, min(self.pool.distance,
                                        self.pool.cfg.fifo_depth))
 
@@ -586,7 +721,15 @@ class PagedServingEngine:
                  "pos0": torch.as_tensor(pos0, device=dev),
                  "lengths": torch.as_tensor(lengths, device=dev),
                  "page_table": torch.as_tensor(page_table, device=dev)}
-        if self.cfg.sweep_decode:
+        if not self.cfg.use_paged_kernel:
+            # assembly: dense decode over pages gathered into a fresh tree,
+            # then the step's new rows written back into the tail pages
+            tree = self._assemble(batch["page_table"])
+            logits, new = self.model.decode_step(batch, tree)
+            rows = self.layout.pack_rows(
+                new, torch.tensor(self.slot_len, device=dev))
+            self.pool.write_rows(frames, offs, rows)
+        elif self.cfg.sweep_decode:
             # account + trace the fused commit BEFORE the launch
             self.pool.note_fused_commit(frames, offs)
             batch["frames"] = torch.as_tensor(frames, device=dev)
@@ -605,6 +748,34 @@ class PagedServingEngine:
             self.slot_len[i] += 1
             self._emit_token(i, logits[i])
         return faults
+
+    def _set_idx(self, tree: Dict[str, Any], idx: np.ndarray):
+        """Every block's cache idx leaf set to the per-slot fill levels
+        `idx` ((L, B) for the scanned block, (B,) for a dense layer)."""
+        vec = torch.tensor(idx, dtype=torch.int32, device=self.device)
+        for e in self.layout.entries:
+            node = PackedKVLayout._get(tree, e.keys[:-1])
+            node["idx"] = vec.expand(e.layers, -1) if e.grouped else vec
+        return tree
+
+    def _assemble(self, page_table: torch.Tensor) -> Dict[str, Any]:
+        """The assembly path's decode cache tree: the packed store gathered
+        by page table (ZERO_FRAME past each slot's pages) into a dense
+        (B, S, F) view — through K5 with ``use_pallas_gather`` — unpacked
+        into cache leaves, with idx the slots' fill levels. The store is a
+        copy of the planes, so the dense decode's in-place row writes land
+        in this step's tree and never in the planes. The port's archs keep
+        no cache state besides the pages and idx, so nothing carries over
+        from one step's tree to the next."""
+        store = self.pool.packed_store()
+        if self.cfg.use_pallas_gather:
+            packed = pul_page_gather(
+                store, page_table, cfg=PULConfig(distance=self.pul_distance))
+        else:
+            packed = store[page_table.long()].reshape(
+                self.cfg.batch_slots, self.cfg.max_seq, -1)
+        return self._set_idx(self.layout.unpack_into({}, packed),
+                             self.slot_len)
 
     def _emit_token(self, slot: int, logits: np.ndarray):
         r = self.slot_req[slot]

@@ -25,7 +25,9 @@ the whole model and a prefix page can be shared by every request with that
 prompt prefix (refcounted; only full, immutable prompt pages are shared).
 
 The reference's v1 packed-store surface (a single packed plane and its view
-shims) is not ported: the port has only the v2 per-layer planes.
+shims) is not ported: the port has only the v2 per-layer planes. The
+assembly decode path materializes the packed ``(NF, P, F)`` store from them
+(:meth:`KVPagePool.packed_store`) and gathers each slot's pages out of it.
 """
 from __future__ import annotations
 
@@ -152,6 +154,21 @@ class PackedKVLayout:
             node[e.keys[-1]] = leaf.to(torch.bfloat16)
         return new
 
+    def pack_rows(self, tree: Any, idx: torch.Tensor) -> torch.Tensor:
+        """One packed row per slot: (B, F) at per-slot positions `idx` (B,)
+        of a dense cache tree (the assembly decode's new-token rows)."""
+        B = idx.shape[0]
+        rows = torch.arange(B, device=idx.device)
+        outs = []
+        for e in self.entries:
+            leaf = self._get(tree, e.keys)
+            S = leaf.shape[2 if e.grouped else 1]
+            i = idx.long().clamp(0, S - 1)
+            if e.grouped:                   # (L, B, S, feat...) -> (B, S, L, ...)
+                leaf = leaf.movedim(0, 2)
+            outs.append(leaf[rows, i].reshape(B, -1))
+        return torch.cat(outs, dim=-1)
+
     def token_rows(self, new_tree: Any) -> torch.Tensor:
         """A per-layer decode step's new-token leaves ((L, B, feat...) each,
         (B, feat...) for an unscanned layer) packed into (B, F) rows for
@@ -221,6 +238,27 @@ class PackedKVLayout:
             else:
                 # adjacent advanced indices keep their place: (L, B, f)
                 plane[:, frames, offsets, :] = vals.movedim(0, 1)
+
+    def pack_planes(self, planes: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The packed (NF, P, F) store materialized from the planes — a
+        copy, which only the assembly decode path pays: each plane is
+        transposed into its column range in one pass."""
+        e0 = self.entries[0]
+        plane = planes[e0.plane_key]
+        NF = plane.shape[1]
+        P = plane.shape[3] if len(e0.feat) == 2 else plane.shape[2]
+        out = torch.empty((NF, P, self.features), dtype=plane.dtype,
+                          device=plane.device)
+        for e in self.entries:
+            plane = planes[e.plane_key]
+            cols = out[..., e.offset:e.offset + e.nfeat]
+            if len(e.feat) == 2:            # (L,NF,K,P,hd) -> (NF,P,L,K,hd)
+                cols.view(NF, P, e.layers, *e.feat).copy_(
+                    plane.permute(1, 3, 0, 2, 4))
+            else:                           # (L,NF,P,f) -> (NF,P,L,f)
+                cols.view(NF, P, e.layers, *e.feat).copy_(
+                    plane.permute(1, 2, 0, 3))
+        return out
 
     def read_frame_packed(self, planes: Dict[str, torch.Tensor],
                           frame: int) -> torch.Tensor:
@@ -428,6 +466,11 @@ class KVPagePool:
 
     def hot_in_use(self) -> int:
         return sum(1 for m in self.pages.values() if m.frame is not None)
+
+    def packed_store(self) -> torch.Tensor:
+        """The packed (NF, P, F) store: a materialized copy of the planes
+        (the assembly path's gather source)."""
+        return self.layout.pack_planes(self.planes)
 
     # ------------------------------------------------------------------ #
     # tier movement (cold tier stays packed)

@@ -4,7 +4,9 @@ No JAX here: the machine with the card has none. Run there with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1/K2 and the MLA pair K3/K4 are held against their plain PyTorch versions
+The gather K5 is held against its plain version bitwise (it moves bytes),
+in f32, bf16 and int32 and at the two serving page geometries. K1/K2 and
+the MLA pair K3/K4 are held against their plain PyTorch versions
 in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
 commits bitwise equal to the plain commits. Planted faults (the last visible
@@ -17,6 +19,12 @@ import torch
 
 from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import pul_attention as PA
+from repro_torch.kernels.pul_gather import (
+    gather_ref,
+    page_gather_ref,
+    pul_gather,
+    pul_page_gather,
+)
 
 
 
@@ -249,3 +257,65 @@ def test_mla_launches_are_counted_and_checks_raise(dev):
         PA.pul_paged_mla_decode_attention(
             big["qa"], big["qr"], big["cp"][0], big["rp"][0], big["pt"],
             big["lens"], big["cn"], big["rn"], scale=big["scale"])
+
+
+# ---------------------------------------------------------------- gather: K5
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", [IssueStrategy.BATCH,
+                                      IssueStrategy.SEQUENTIAL])
+@pytest.mark.parametrize("distance", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+def test_gather_kernel_matches_plain_version(dev, dtype, distance, strategy):
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((64, 256)).astype(
+        np.float32) * 100).to(dev, dtype)
+    trace = torch.from_numpy(rng.integers(0, 64, size=40).astype(
+        np.int32)).to(dev)
+    got = pul_gather(table, trace,
+                     cfg=PULConfig(distance=distance, strategy=strategy))
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_ref(table, trace))
+
+
+# (n_pages, P, F) at the serving geometries, cut to a few frames: full-width
+# qwen3-1.7b (28 layers x 2 x 8 x 128) and deepseek-v2 at six layers
+# (6 x 576, the ragged last tile)
+GATHER_CASES = {"qwen3": (6, 16, 57344), "deepseek": (9, 16, 3456)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+@pytest.mark.parametrize("distance", [1, 4, 14])
+def test_page_gather_kernel_matches_plain_version(dev, case, distance):
+    NP, P, F = GATHER_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    store = torch.randn((NP, P, F), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+    # repeated frames and the zero frame past a slot's end, as the engine
+    pt = torch.tensor([[2, 5, 3, 0], [4, 4, 0, 0], [1, 3, 5, 2]],
+                      dtype=torch.int32, device=dev)
+    got = pul_page_gather(store, pt, cfg=PULConfig(distance=distance))
+    torch.cuda.synchronize()
+    assert torch.equal(got, page_gather_ref(store, pt))
+
+
+@pytest.mark.cuda
+def test_gather_launches_are_counted_and_checks_raise(dev):
+    table = torch.randn((16, 64), device=dev)
+    trace = torch.tensor([3, 0, 3], dtype=torch.int32, device=dev)
+    before = PA.LAUNCHES["k5"]
+    pul_gather(table, trace)
+    pul_page_gather(table.reshape(2, 8, 64), trace[:2].reshape(1, 2))
+    assert PA.LAUNCHES["k5"] == before + 2
+    with pytest.raises(TypeError, match="dtype"):
+        pul_gather(table.double(), trace)
+    with pytest.raises(TypeError, match="dtype"):
+        pul_gather(table, trace.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        pul_gather(table.t().contiguous().t(), trace)
+    with pytest.raises(ValueError, match="on cpu"):
+        pul_gather(table, trace.cpu())
+    with pytest.raises(ValueError, match="granules"):
+        pul_gather(table[:, :6].contiguous().bfloat16(), trace)
+    assert PA.LAUNCHES["k5"] == before + 2

@@ -43,7 +43,7 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28     # every module, not a stub
+    assert int(proc.stdout.split()[-1]) >= 29     # every module, not a stub
 
 
 @pytest.mark.parametrize("module", [
@@ -58,6 +58,16 @@ def test_mla_slice_module_imports_with_jax_blocked(module):
     proc = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.pul_gather", "repro_torch.serving.engine",
+    "repro_torch.launch.serve"])
+def test_assembly_slice_module_imports_with_jax_blocked(module):
+    """The assembly slice's modules (the gather K5, the assembly path and
+    the dense engine, the --dense launcher) on their own, jax and repro
+    blocked."""
+    test_mla_slice_module_imports_with_jax_blocked(module)
 
 
 def test_no_port_source_imports_jax_or_the_reference():

@@ -197,6 +197,65 @@ def test_teacher_forced_paged_decode_matches_reference(pair):
         assert torch.equal(planes_sweep[k], planes_layer[k])
 
 
+def _dense_decode_parity(pair):
+    """The port's dense decode (the assembly path's and the dense engine's
+    step) against repro's decode_step, four teacher-forced steps from the
+    SAME prefilled caches (the reference's, carried over exactly) and
+    per-slot pos0. Logits within REL; new caches: idx equal, every row the
+    steps did not write bitwise unchanged, the written rows within REL of
+    the reference's and bitwise equal in the first layer (its inputs are
+    the embeddings alone; deeper rows inherit bf16 rounding differences)."""
+    lens = np.asarray(LENGTHS, np.int32)
+    _, caches = pair["ref_model"].prefill(
+        pair["ref_params"], {"tokens": jnp.asarray(pair["tokens"]),
+                             "lengths": jnp.asarray(lens)}, max_seq=S)
+    for blk in [*caches["groups"].values(), *caches.get("dense", {}).values()]:
+        blk["idx"] = jnp.broadcast_to(jnp.asarray(lens), blk["idx"].shape)
+    as_np = lambda x: np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+                                 else x)
+    before = jax.tree.map(as_np, caches)
+    tcaches = jax.tree.map(
+        lambda x: torch.from_numpy(as_np(x).copy()).to(
+            torch.bfloat16 if x.dtype == jnp.bfloat16 else torch.int32),
+        caches)
+    steps = len(pair["forced"])
+    for s, tok in enumerate(pair["forced"]):
+        want, caches = pair["ref_model"].decode_step(
+            pair["ref_params"], {"tokens": jnp.asarray(tok[:, None]),
+                                 "pos0": jnp.asarray(lens + s)}, caches)
+        got, tcaches = pair["model"].decode_step(
+            {"tokens": torch.as_tensor(tok[:, None], dtype=torch.long),
+             "pos0": torch.as_tensor(lens + s, dtype=torch.long)}, tcaches)
+        _close(got.numpy(), want, f"dense decode step {s} logits")
+    first = (["dense", "0"] if pair["cfg"].first_dense_layers
+             else ["groups", T.group_key(pair["cfg"])])
+    written = np.zeros((B, S), bool)
+    for b, n in enumerate(lens):
+        written[b, n:n + steps] = True
+    for path, leaf in jax.tree_util.tree_flatten_with_path(caches)[0]:
+        keys = [str(getattr(p, "key", p)) for p in path]
+        node, old = tcaches, before
+        for k in keys:
+            node, old = node[k], old[k]
+        got, want = node.float().numpy(), as_np(leaf)
+        assert got.shape == want.shape
+        if keys[-1] == "idx":
+            np.testing.assert_array_equal(got, want)
+            continue
+        grouped = keys[0] == "groups"
+        g = got if grouped else got[None]           # (L, B, S, feat...)
+        w = want if grouped else want[None]
+        o = old if grouped else old[None]
+        np.testing.assert_array_equal(g[:, ~written], o[:, ~written])
+        if keys[:2] == first:
+            np.testing.assert_array_equal(g[0][written], w[0][written])
+        _close(g[:, written], w[:, written], f"written rows of {keys}")
+
+
+def test_dense_decode_matches_reference(pair):
+    _dense_decode_parity(pair)
+
+
 def test_unported_archs_and_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("gemma2-27b")
@@ -267,6 +326,12 @@ def test_deepseek_teacher_forced_paged_decode_matches_reference(ds_pair):
                                     "groups/0:moe/c_kv", "groups/0:moe/k_rope"]
     for k in planes_sweep:
         assert torch.equal(planes_sweep[k], planes_layer[k])
+
+
+def test_deepseek_dense_decode_matches_reference(ds_pair):
+    """The absorbed-MLA dense decode (the assembly path's and the dense
+    engine's step), through the dense layer 0 and the MoE layers."""
+    _dense_decode_parity(ds_pair)
 
 
 def _moe_layer(ds_pair, cfg_change):

@@ -311,6 +311,34 @@ def test_deepseek_layout_pack_and_token_rows_match_reference(ds_layouts):
                 torch.bfloat16).float().numpy())
 
 
+@pytest.mark.parametrize("which", ["qwen3", "deepseek"])
+def test_layout_pack_planes_and_rows_match_reference(layouts, ds_layouts,
+                                                     which):
+    """The assembly path's layout pieces: the packed (NF, P, F) store from
+    the planes, and one packed row per slot at per-slot positions."""
+    ref, port = layouts if which == "qwen3" else ds_layouts
+    rng = np.random.default_rng(3)
+    planes = {k: rng.standard_normal(v.shape).astype(np.float32) for k, v in
+              port.init_planes(5, 8, torch.float32, "cpu").items()}
+    np.testing.assert_array_equal(
+        port.pack_planes({k: torch.from_numpy(v) for k, v in planes.items()})
+        .numpy(),
+        np.asarray(ref.pack_planes({k: jnp.asarray(v)
+                                    for k, v in planes.items()})))
+    tree = {}
+    for e in port.entries:
+        node = tree
+        for k in e.keys[:-1]:
+            node = node.setdefault(k, {})
+        node[e.keys[-1]] = rng.standard_normal(e.shape).astype(np.float32)
+    idx = np.asarray([3, 15], np.int32)
+    got = port.pack_rows(jax.tree.map(torch.from_numpy, tree),
+                         torch.from_numpy(idx))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(ref.pack_rows(jax.tree.map(jnp.asarray, tree),
+                                              jnp.asarray(idx))))
+
+
 def test_layout_pack_unpack_roundtrip_matches_reference(layouts):
     ref, port = layouts
     rng = np.random.default_rng(1)
@@ -386,6 +414,22 @@ def test_pool_metrics_validate_catches_drift():
     PoolMetrics().validate()
 
 
+def test_pool_packed_store_is_a_copy_of_the_planes():
+    cfg = dataclasses.replace(get_config(DEEPSEEK).reduced(), paged_kv=True)
+    layout = PackedKVLayout(cfg, 1, 16)
+    pool = KVPagePool(PageConfig(page_tokens=8, hot_frames=5), layout=layout,
+                      device="cpu")
+    pid = pool.alloc()
+    rows = torch.randn((8, layout.features)).to(torch.bfloat16)
+    pool.write_page(pid, rows, 8)
+    store = pool.packed_store()
+    assert store.shape == (5, 8, layout.features)
+    assert torch.equal(store[pool.pages[pid].frame], rows)
+    store.zero_()
+    assert torch.equal(layout.read_frame_packed(pool.planes,
+                                                pool.pages[pid].frame), rows)
+
+
 def test_pool_evict_restore_roundtrip_is_exact():
     cfg = dataclasses.replace(get_config(ARCH).reduced(), paged_kv=True)
     layout = PackedKVLayout(cfg, 1, 16)
@@ -406,14 +450,13 @@ def test_pool_evict_restore_roundtrip_is_exact():
 
 # ---------------------------------------------------------------- surface
 def test_unported_paths_raise(models):
+    """shadow_check is still unported (the assembly path, the PUL gather
+    and the dense engine are held against the reference in
+    test_torch_assembly.py)."""
     _, _, cfg, params = models
-    for kw in (dict(use_paged_kernel=False), dict(use_pallas_gather=True),
-               dict(shadow_check=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PagedServingEngine(cfg, params, PagedEngineConfig(
-                **{**BASE, **kw}, device="cpu"))
-    with pytest.raises(NotImplementedError):
-        ServingConfig().dense()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PagedServingEngine(cfg, params, PagedEngineConfig(
+            **{**BASE, "shadow_check": True}, device="cpu"))
 
 
 def test_serving_config_projects_device_and_kernel_default():
