@@ -18,20 +18,33 @@ exit code is not 0:
                      at the qwen3 and deepseek serving page geometries (with
                      planted faults) and in three types at three distances;
                      times, byte bounds, plain and index_select times
-  6. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
+  6. kernels-micro -- the paper's microbenchmark kernels against their plain
+                     versions: K8 (SUM) and K9 (filter) on a 4 GiB table of
+                     2^26 64-byte rows, K8 exactly equal to the fp64 sum (the
+                     values make every order exact), K9 bitwise in both modes
+                     and at both unload distances; K10 at 4096^3 bf16 -> f32
+                     and 2048^3 f32 through ops.matmul_op, within
+                     2 sqrt(K) 2^-24 (|A||B|); a planted fault each; times,
+                     bounds, plain times, torch.matmul for K10
+  7. paper        -- run_all on the card: the DMA twin's Exps. 1-5 and the
+                     functional sweep through K8 and K9, all 11 claims PASS;
+                     then K8 timed over d in {1, ..., 32} x both issue orders
+                     and rows_per_req in {1, 16, 128} at the same bytes, and
+                     K9 in each mode at unload_distance 0 and 1
+  8. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
                      same script through K2 (per layer): bitwise-equal tokens
-  7. serving-assembly -- the same model and script on the assembly path,
+  9. serving-assembly -- the same model and script on the assembly path,
                      through K5 and then through plain indexing: bitwise-equal
                      tokens; one decode step's logits against K1's
-  8. serving-dense -- the same model and requests on the dense ServingEngine
-  9. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
+ 10. serving-dense -- the same model and requests on the dense ServingEngine
+ 11. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
                      dense layer 0 and 5 MoE layers), the same script through
                      K3 and then K4: bitwise-equal tokens
- 10. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
-                     as in phase 7, one decode step against K3's
- 11. summary      -- one JSON line listing the kernels
- 12. last line: {"ok": true, "device": {...}}
+ 12. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
+                     as in phase 9, one decode step against K3's
+ 13. summary      -- one JSON line listing the kernels
+ 14. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
 one-off measurement, not a phase:
@@ -39,6 +52,12 @@ one-off measurement, not a phase:
     python3 -c "import chip_smoke; chip_smoke.profile_decode()"
     python3 -c "import chip_smoke; chip_smoke.profile_decode('deepseek-v2-236b')"
     python3 -c "import chip_smoke; chip_smoke.profile_decode(path='assembly')"
+
+and so is the microbenchmarks' sweep with extra ring slots, which cap the
+blocks each SM holds, where the paper's distance and unload order show on
+real copies:
+
+    python3 -c "import chip_smoke; chip_smoke.slots_sweep()"
 
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
@@ -65,10 +84,15 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import IssueStrategy, PULConfig  # noqa: E402
 from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
 from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
-from repro_torch.kernels import SOURCES, _build  # noqa: E402
+from repro_torch.kernels import SOURCES, _build, ops  # noqa: E402
 from repro_torch.kernels import pul_attention as PA  # noqa: E402
+from repro_torch.kernels.pul_filter import (  # noqa: E402
+    filter_materialize_ref, filter_ref, pul_filter)
 from repro_torch.kernels.pul_gather import (  # noqa: E402
     gather_ref, gather_ring_plan, page_gather_ref, pul_gather, pul_page_gather)
+from repro_torch.kernels.pul_matmul import (  # noqa: E402
+    matmul_ref, matmul_ring_plan)
+from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -582,6 +606,268 @@ def phase_kernels_gather():
     return out
 
 
+# ---------------------------------------------------------------------- #
+# the paper's microbenchmarks: K8 (SUM), K9 (filter), K10 (matmul)
+#: the SUM/filter table: 2^26 rows of 16 f32 (the paper's 64-byte transfer
+#: unit), 4 GiB, and 2^24 random requests of one row
+MICRO_ROWS, MICRO_W, MICRO_REQS = 2 ** 26, 16, 2 ** 24
+#: K10's products, through ops.matmul_op at its default tiles
+MATMULS = (("4096^3 bf16 -> f32", 4096, torch.bfloat16),
+           ("2048^3 f32", 2048, torch.float32))
+
+
+def _micro_table(gen, dev):
+    """The 4 GiB table: normal values rounded to multiples of 1/8, |x| below
+    8. Every partial sum of up to 2^28 of them, in any order, is a multiple
+    of 1/8 far below 2^21 and so exact in fp32: the SUM must equal the fp64
+    sum bit for bit, and one request left out shows."""
+    t = torch.randn((MICRO_ROWS, MICRO_W), generator=gen, device=dev)
+    return t.mul_(8).round_().clamp_(-63, 63).div_(8)
+
+
+def _k8_case(table, trace, rows_per_req):
+    """(the exact sum, sum |x|, the sum with the request of the largest |row
+    sum| left out) of the requests of `trace`, r = rows_per_req, in fp64."""
+    rows = table.view(-1, rows_per_req * MICRO_W)[trace.long()].double()
+    per_req = rows.sum(1)
+    want = per_req.sum().item()
+    worst = per_req.abs().argmax()
+    return want, rows.abs().sum().item(), want - per_req[worst].item()
+
+
+def _k8_bound(n_req, req_bytes):
+    """Least time for K8: each request's bytes and trace entry read once and
+    the sum written once, over the HBM peak."""
+    return (n_req * (req_bytes + 4) + 4) / HBM_PEAK * 1e3
+
+
+#: the least the card reads of a row: one 32-byte sector
+SECTOR = 32
+
+
+def _k9_bytes(materialize, kept):
+    """(least bytes K9's function moves, bytes the kernel moves) on the
+    table, `kept` rows passing. The predicate needs column 0, one sector of
+    each row; materialize also reads the rest of each kept row and writes
+    the whole table, bit-vector writes the words. The kernel reads every row
+    whole (the paper's record scan, whose unit is the row)."""
+    table = MICRO_ROWS * MICRO_W * 4
+    out = table if materialize else MICRO_ROWS // 8
+    rest = kept * (MICRO_W * 4 - SECTOR) if materialize else 0
+    return MICRO_ROWS * SECTOR + rest + out, table + out
+
+
+def _words(t):
+    """uint32 words viewed as int32 (few PyTorch kernels take uint32)."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+def _matmul_limit(a, b):
+    """2 sqrt(K) 2^-24 (|A| |B|): the random-walk size of fp32 rounding in a
+    K-term sum with every partial sum at its largest, sum |a b|."""
+    K = a.shape[1]
+    return 2.0 * math.sqrt(K) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+
+
+def phase_kernels_micro(device="cuda"):
+    """K8 and K9 on a 4 GiB table, K10 through ops.matmul_op, each against
+    its plain version, with planted faults, times and bounds. Returns the
+    kernels' summary rows, K10's launches and the table for phase paper."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    table = _micro_table(gen, dev)
+    trace = torch.randint(0, MICRO_ROWS, (MICRO_REQS,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    out = {}
+    # K8: exact on eighths, at four ring settings
+    want, abs_sum, skipped = _k8_case(table, trace, 1)
+    limit = 8 * 2.0 ** -24 * abs_sum
+    err = 0.0
+    for cfg in (PULConfig(), PULConfig(distance=1), PULConfig(distance=16),
+                PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL)):
+        got = pul_sum(table, trace, cfg=cfg).item()
+        err = max(err, abs(got - want))
+        if got != want:
+            raise AssertionError(f"K8 d={cfg.distance} {cfg.strategy.name}: "
+                                 f"{got!r} != the exact sum {want!r}")
+    if skipped == want:
+        raise AssertionError("the exact check lets a planted fault through: "
+                             "one request skipped")
+    plain = sum_ref(table, trace).item()
+    ms = _time_ms(lambda: pul_sum(table, trace))
+    plain_ms = _time_ms(lambda: sum_ref(table, trace), reps=10)
+    bound = _k8_bound(MICRO_REQS, 64)
+    print(f"[kernels-micro] K8 table {tuple(table.shape)} f32 "
+          f"({table.numel() * 4 / 2 ** 30:.0f} GiB), "
+          f"{MICRO_REQS} requests of 64 B: == the fp64 sum {want!r} exactly "
+          f"at d=4/1/16 BATCH and d=4 SEQUENTIAL (plain fp32 sum {plain!r}; "
+          f"the Sigma|x| limit 8 * 2^-24 * {abs_sum:.1f} = {limit:.4f}); "
+          f"planted fault rejected: one request skipped (sum {skipped!r}); "
+          f"K8 {ms:.4f} ms, plain {plain_ms:.4f} ms, library: none (no "
+          f"single PyTorch call gathers and sums), bound {bound:.4f} ms "
+          f"(bytes)")
+    out["k8"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by="bytes", library_ms=None)
+    # K9: bitwise in both modes at both unload distances
+    want_bv = filter_ref(table, 0.25)
+    bad = want_bv.clone()
+    w = int((_words(bad) != 0).nonzero()[0])
+    word = int(_words(bad)[w]) & 0xFFFFFFFF
+    rev = int(f"{word:032b}"[::-1], 2)
+    if rev == word:
+        raise AssertionError("the planted fault's word is a bit palindrome")
+    _words(bad)[w] = rev - (1 << 32) if rev >= 1 << 31 else rev
+    for materialize in (False, True):
+        want9 = filter_materialize_ref(table, 0.25) if materialize else want_bv
+        for ud in (0, 1):
+            got = pul_filter(table, 0.25, rows_per_block=128,
+                             materialize=materialize,
+                             cfg=PULConfig(unload_distance=ud))
+            if not torch.equal(_words(got), _words(want9)):
+                raise AssertionError(f"K9 materialize={materialize} "
+                                     f"unload_distance={ud}: not bitwise "
+                                     "equal to the plain version")
+            if not materialize and torch.equal(_words(got), _words(bad)):
+                raise AssertionError("the bitwise check lets a planted "
+                                     "fault through: one word reversed")
+            del got
+        del want9
+    ms = _time_ms(lambda: pul_filter(table, 0.25))
+    plain_ms = _time_ms(lambda: filter_ref(table, 0.25), reps=10)
+    kept = int((table[:, 0] > 0.25).sum())
+    nbytes, moved = _k9_bytes(False, kept)
+    bound = nbytes / HBM_PEAK * 1e3
+    print(f"[kernels-micro] K9 the same table, rows_per_block 128, threshold "
+          f"0.25 ({kept} rows kept): bitwise equal in both modes at "
+          f"unload_distance 0 and 1; planted fault rejected: word {w}'s bit "
+          f"order reversed; K9 bit-vector {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, library: none, bound {bound:.4f} ms (bytes: {nbytes} B, a "
+          f"{SECTOR}-byte sector of each row and the words; the kernel reads "
+          f"the rows whole, {moved} B, {moved / HBM_PEAK * 1e3:.4f} ms)")
+    out["k9"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by="bytes", library_ms=None)
+    del want_bv, bad
+    # K10 through the path's entry point, ops.matmul_op
+    cases = []
+    for label, n, dtype in MATMULS:
+        a = torch.randn((n, n), generator=gen, device=dev).to(dtype)
+        b = torch.randn((n, n), generator=gen, device=dev).to(dtype)
+        cases.append((label, a, b))
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    outs = [ops.matmul_op(a, b) for _, a, b in cases]
+    _sync(device)
+    k10_launches = PA.LAUNCHES["k10"]
+    if k10_launches != len(cases):
+        raise AssertionError(f"ops.matmul_op launched K10 {k10_launches} "
+                             f"times for {len(cases)} products")
+    k10 = None
+    for (label, a, b), got in zip(cases, outs):
+        want = matmul_ref(a, b)
+        limit = _matmul_limit(a, b)
+        err = (got - want).abs()
+        if not bool((err <= limit).all()):
+            raise AssertionError(f"K10 {label}: error up to "
+                                 f"{(err / limit).max().item():.2f} x the "
+                                 "limit")
+        c = matmul_ring_plan(PULConfig(), bm=128, bk=128, bn=128,
+                             itemsize=a.element_size()).bk_chunk
+        bad = want - a[:, :c].float() @ b[:c].float()
+        if bool(((bad - want).abs() <= limit).all()):
+            raise AssertionError(f"K10 {label}: the limit lets a planted "
+                                 "fault through: one K chunk left out")
+        del bad
+        ms = _time_ms(lambda: ops.matmul_op(a, b), reps=10)
+        plain_ms = _time_ms(lambda: matmul_ref(a, b), reps=10)
+        library_ms = _time_ms(lambda: torch.matmul(a, b), reps=10)
+        n = a.shape[0]
+        peak = BF16_TC_PEAK if a.dtype == torch.bfloat16 else FP32_PEAK
+        t_ops = 2.0 * n ** 3 / peak * 1e3
+        t_bytes = (2 * n * n * a.element_size() + n * n * 4) / HBM_PEAK * 1e3
+        row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   library_ms=library_ms)
+        print(f"[kernels-micro] K10 {label} via ops.matmul_op (tiles 128^3, "
+              f"K chunk {c}): max|K10-plain| {row['max_abs_err']:.3e} (limit "
+              f"2 sqrt(K) 2^-24 (|A||B|), up to {limit.max().item():.3e}); "
+              f"planted fault rejected: one K chunk left out; K10 {ms:.4f} "
+              f"ms ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms "
+              f"({'bf16 out' if a.dtype == torch.bfloat16 else 'f32'}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        k10 = k10 or row
+        del want, limit, err
+    out["k10"] = k10
+    del cases, outs
+    return out, k10_launches, table
+
+
+def phase_paper(table, device="cuda"):
+    """run_all on the card (the DMA twin's Exps. 1-5 and the functional
+    sweep through K8 and K9), every claim PASS; then CUDA-event times of K8
+    over the figures' knobs at the 4 GiB table (each result checked against
+    the exact sum) and of K9 in each mode at both unload distances."""
+    from repro_torch.benchmarks import paper_experiments as PE
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    rows, claims = PE.run_all(device=device)
+    _sync(device)
+    launches = {k: PA.LAUNCHES[k] for k in ("k8", "k9")}
+    for r in rows:
+        print(f"[paper] {r}")
+    for c in claims:
+        print(f"[paper] {c}")
+    failed = [c for c in claims if ": PASS (" not in c]
+    if len(claims) != 11 or failed:
+        raise AssertionError(f"paper claims failed: {failed}")
+    if not (launches["k8"] and launches["k9"]):
+        raise AssertionError(f"run_all launched {launches}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    sweep = {}
+
+    def k8_point(label, cfg, r):
+        n = MICRO_REQS // r
+        trace = torch.randint(0, MICRO_ROWS // r, (n,), generator=gen,
+                              device=device, dtype=torch.int32)
+        want = _k8_case(table, trace, r)[0]
+        got = pul_sum(table, trace, cfg=cfg, rows_per_req=r).item()
+        if got != want:
+            raise AssertionError(f"K8 {label}: {got!r} != {want!r}")
+        plan = sum_ring_plan(cfg, req_bytes=64 * r)
+        ms = _time_ms(lambda: pul_sum(table, trace, cfg=cfg, rows_per_req=r))
+        gbs = n * (64 * r + 4) / ms / 1e6
+        sweep[label] = ms
+        print(f"[paper] k8 {label}: {ms:.4f} ms, {gbs:.1f} GB/s of requests "
+              f"and trace (ring: d={plan.distance}, {plan.slots} slots, "
+              f"{plan.lanes} lanes per PE); bound "
+              f"{_k8_bound(n, 64 * r):.4f} ms")
+
+    for d in (1, 2, 4, 8, 16, 32):
+        for strategy in IssueStrategy:
+            k8_point(f"d={d} {strategy.name} rows_per_req=1",
+                     PULConfig(distance=d, strategy=strategy), 1)
+    for r in (16, 128):
+        k8_point(f"d=4 BATCH rows_per_req={r}", PULConfig(), r)
+    kept = int((table[:, 0] > 0.25).sum())
+    for materialize in (False, True):
+        nbytes, moved = _k9_bytes(materialize, kept)
+        for ud in (0, 1):
+            cfg = PULConfig(unload_distance=ud)
+            ms = _time_ms(lambda: pul_filter(table, 0.25,
+                                             materialize=materialize, cfg=cfg))
+            label = (f"{'materialize' if materialize else 'bit-vector'} "
+                     f"unload_distance={ud}")
+            sweep[label] = ms
+            print(f"[paper] k9 {label}: {ms:.4f} ms, "
+                  f"{moved / ms / 1e6:.1f} GB/s of whole rows and result; "
+                  f"bound {nbytes / HBM_PEAK * 1e3:.4f} ms ({nbytes} B)")
+    print("[paper] " + json.dumps({"launches": launches, "ms": sweep}))
+    return launches
+
+
 class _CheckedEngine(PagedServingEngine):
     """The engine with every emitted logit row checked for finiteness, each
     token's top-2 logit gap recorded, and the logits of decode steps kept
@@ -798,6 +1084,95 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
     return stats
 
 
+def _slots_for(plan_of, blocks_of, cfg, per_sm):
+    """The fewest ring slots (PULConfig.slots) at which the driver's
+    occupancy query puts at most per_sm blocks on an SM; cfg when per_sm is
+    None. Raises when even the most slots that fit leave more."""
+    if per_sm is None:
+        return cfg
+    s = plan_of(cfg).slots
+    while blocks_of(plan_of(cfg.replace(slots=s))) > per_sm:
+        if plan_of(cfg.replace(slots=s + 1)).slots == s:
+            raise ValueError(f"no slot count caps {cfg} at {per_sm} blocks")
+        s += 1
+    return cfg.replace(slots=s)
+
+
+def slots_sweep():
+    """One-off, not a phase of the smoke: K8's distance sweep and K9's
+    flush orders with more ring slots (PULConfig.slots) than the distance
+    needs. Slots cost shared memory, so fewer blocks fit on each SM and the
+    PEs on the card shrink towards the paper's few: where the distance and
+    the unload order matter on real copies. Prints one [slots] line per
+    point and returns the times."""
+    from repro_torch.kernels.pul_filter import (
+        _blocks_per_sm as filter_blocks, filter_ring_plan)
+    from repro_torch.kernels.pul_sum import _blocks_per_sm as sum_blocks
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    table = _micro_table(gen, dev)
+    trace = torch.randint(0, MICRO_ROWS, (MICRO_REQS,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    want = _k8_case(table, trace, 1)[0]
+    kept = int((table[:, 0] > 0.25).sum())
+
+    def sum_plan(cfg):
+        return sum_ring_plan(cfg, req_bytes=MICRO_W * 4)
+
+    out = {}
+    print(_smi("name,power.limit"))
+    for per_sm in (1, 2, 4, None):
+        for d in (1, 2, 4, 8, 16):
+            for strategy in IssueStrategy:
+                cfg = _slots_for(sum_plan, lambda p: sum_blocks(0, p.smem_bytes),
+                                 PULConfig(distance=d, strategy=strategy),
+                                 per_sm)
+                got = pul_sum(table, trace, cfg=cfg).item()
+                if got != want:
+                    raise AssertionError(f"K8 {got!r} != {want!r}")
+                ms = _time_ms(lambda: pul_sum(table, trace, cfg=cfg))
+                plan = sum_plan(cfg)
+                blocks = sum_blocks(0, plan.smem_bytes)
+                key = (f"k8 cap {per_sm} blocks/SM {blocks} d={d} "
+                       f"{strategy.name}")
+                out[key] = ms
+                print(f"[slots] {key}: {ms:.4f} ms, "
+                      f"{MICRO_REQS * 68 / ms / 1e6:.1f} GB/s ({plan.slots} "
+                      f"slots, {blocks * plan.pes_per_block} PEs per SM, "
+                      f"{blocks * plan.pes_per_block * d} requests in flight "
+                      "per SM)")
+        for materialize in (False, True):
+            moved = _k9_bytes(materialize, kept)[1]
+
+            def filter_plan(cfg):
+                return filter_ring_plan(cfg, rows=128, width=MICRO_W,
+                                        materialize=materialize)
+            for ud in (0, 1):
+                cfg = _slots_for(
+                    filter_plan,
+                    lambda p: filter_blocks(int(materialize), p.smem_bytes),
+                    PULConfig(unload_distance=ud), per_sm)
+                want9 = (filter_materialize_ref if materialize
+                         else filter_ref)(table, 0.25)
+                got = pul_filter(table, 0.25, cfg=cfg, materialize=materialize)
+                if not torch.equal(_words(got), _words(want9)):
+                    raise AssertionError(f"K9 {cfg}: not bitwise equal")
+                del got, want9
+                ms = _time_ms(lambda: pul_filter(
+                    table, 0.25, cfg=cfg, materialize=materialize))
+                plan = filter_plan(cfg)
+                blocks = filter_blocks(int(materialize), plan.smem_bytes)
+                key = (f"k9 cap {per_sm} blocks/SM {blocks} "
+                       f"{'materialize' if materialize else 'bit-vector'} "
+                       f"unload_distance={ud}")
+                out[key] = ms
+                print(f"[slots] {key}: {ms:.4f} ms, {moved / ms / 1e6:.1f} "
+                      f"GB/s of whole rows and result ({plan.slots} slots)")
+    print("[slots] " + json.dumps(out))
+    return out
+
+
 def _serve_two_paths(cfg, params, first, second, device="cuda"):
     """The request script through two decode paths whose token streams and
     bytes_hot_written must be bitwise equal. Returns (stats of each, the
@@ -925,13 +1300,19 @@ def main():
     kern.update(phase_kernels_mla())
     gather = phase_kernels_gather()
     kern["k5"] = gather["qwen3"]
+    micro, k10_launches, table = phase_kernels_micro()
+    kern.update(micro)
+    paper_launches = phase_paper(table)
+    del table
+    torch.cuda.empty_cache()
     print(f"[done] kernels {time.perf_counter() - t0:.1f} s")
 
     cfg = smoke_config("qwen3-1.7b")
     params = init_params(cfg, seed=0, device="cuda")
     s1, s2, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
                                                      "per-layer")
-    stats = {"k1": s1, "k2": s2}
+    stats = {"k1": s1, "k2": s2, "k10": {"launches": k10_launches},
+             **{k: {"launches": n} for k, n in paper_launches.items()}}
     stats["k5"], _ = phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
     phase_serving_dense(cfg, params)
     del params                     # free qwen3 before deepseek's ~43 GB
@@ -968,7 +1349,10 @@ def main():
              "pul_paged_mla_decode", "pul_attention.py:553"),
             ("k4", "pul_paged_mla_decode_attention", "pul_paged_mla_decode",
              "pul_attention.py:272"),
-            ("k5", "pul_gather", "pul_gather", "pul_gather.py:60")):
+            ("k5", "pul_gather", "pul_gather", "pul_gather.py:60"),
+            ("k8", "pul_sum", "pul_sum", "pul_sum.py:40"),
+            ("k9", "pul_filter", "pul_filter", "pul_filter.py:73"),
+            ("k10", "pul_matmul", "pul_matmul", "pul_matmul.py:62")):
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{source}.cu",
                      "replaces": f"src/repro/kernels/{replaces}",

@@ -14,6 +14,13 @@ from repro_torch.kernels.pul_attention import (
     pul_paged_sweep_mla_decode_attention,
     ring_plan,
 )
+from repro_torch.kernels.pul_filter import (
+    FilterPlan,
+    filter_materialize_ref,
+    filter_ref,
+    filter_ring_plan,
+    pul_filter,
+)
 from repro_torch.kernels.pul_gather import (
     GatherPlan,
     gather_ref,
@@ -22,9 +29,18 @@ from repro_torch.kernels.pul_gather import (
     pul_gather,
     pul_page_gather,
 )
+from repro_torch.kernels.pul_matmul import (
+    MatmulPlan,
+    matmul_ref,
+    matmul_ring_plan,
+    pul_matmul,
+)
+from repro_torch.kernels.pul_sum import SumPlan, pul_sum, sum_ref, sum_ring_plan
 
-#: CUDA sources under csrc/: K1/K2, the MLA pair K3/K4, and the gather K5
-SOURCES = ("pul_paged_decode", "pul_paged_mla_decode", "pul_gather")
+#: CUDA sources under csrc/: K1/K2, the MLA pair K3/K4, the gather K5, and
+#: the paper's microbenchmarks K8 (SUM), K9 (filter) and K10 (matmul)
+SOURCES = ("pul_paged_decode", "pul_paged_mla_decode", "pul_gather",
+           "pul_sum", "pul_filter", "pul_matmul")
 
 __all__ = [
     "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_ring_plan", "ring_plan",
@@ -34,4 +50,8 @@ __all__ = [
     "paged_mla_decode_attention_ref", "paged_sweep_mla_decode_attention_ref",
     "GatherPlan", "gather_ring_plan", "pul_gather", "pul_page_gather",
     "gather_ref", "page_gather_ref",
+    "SumPlan", "sum_ring_plan", "pul_sum", "sum_ref",
+    "FilterPlan", "filter_ring_plan", "pul_filter", "filter_ref",
+    "filter_materialize_ref",
+    "MatmulPlan", "matmul_ring_plan", "pul_matmul", "matmul_ref",
 ]

@@ -48,8 +48,10 @@ MAX_RING_DISTANCE = 32
 #: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
 HEAD_BLOCK = 8
 #: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer;
-#: "k5": the gather of kernels.pul_gather)
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0}
+#: "k5": the gather of kernels.pul_gather; "k8", "k9", "k10": the paper's
+#: microbenchmarks in kernels.pul_sum, pul_filter and pul_matmul)
+LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k8": 0, "k9": 0,
+            "k10": 0}
 
 
 @dataclasses.dataclass(frozen=True)

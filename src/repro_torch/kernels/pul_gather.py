@@ -66,13 +66,19 @@ def gather_ring_plan(cfg: PULConfig, *, rows_per_req: int,
                       -(-row_bytes // tile))
 
 
+def split_runs(n: int, distance: int, pes: int) -> int:
+    """Length of the runs of consecutive stream positions (requests, row
+    blocks) that the PEs walk: at most `pes` runs, and each run at least two
+    ring depths long (or all n) so that its ring runs full."""
+    n_runs = max(1, min(pes, -(-n // (2 * distance))))
+    return -(-n // n_runs)
+
+
 def run_length(n_req: int, n_tiles: int, distance: int, sms: int) -> int:
     """Requests one block walks: few enough that the grid of (runs, tiles)
     reaches BLOCKS_PER_SM blocks per SM, and at least two ring depths (or
     every request) so the ring runs full."""
-    n_runs = -(-BLOCKS_PER_SM * sms // n_tiles)
-    n_runs = max(1, min(n_runs, -(-n_req // (2 * distance))))
-    return -(-n_req // n_runs)
+    return split_runs(n_req, distance, -(-BLOCKS_PER_SM * sms // n_tiles))
 
 
 # ---------------------------------------------------------------------- #

@@ -5,7 +5,11 @@ No JAX here: the machine with the card has none. Run there with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The gather K5 is held against its plain version bitwise (it moves bytes),
-in f32, bf16 and int32 and at the two serving page geometries. K1/K2 and
+in f32, bf16 and int32 and at the two serving page geometries, and so is
+the filter K9 in both modes and at both unload distances. The SUM K8 is
+held exactly to the fp64 sum on values that make every order exact, and to
+the reference's tolerance on normal values; the matmul K10 to the
+reference's tolerances. K1/K2 and
 the MLA pair K3/K4 are held against their plain PyTorch versions
 in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
@@ -13,18 +17,27 @@ commits bitwise equal to the plain commits. Planted faults (the last visible
 page of the longest row skipped, the current token not folded) must fall
 outside that limit; that check also runs on the CPU.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import pul_attention as PA
+from repro_torch.kernels.pul_filter import (
+    filter_materialize_ref,
+    filter_ref,
+    pul_filter,
+)
 from repro_torch.kernels.pul_gather import (
     gather_ref,
     page_gather_ref,
     pul_gather,
     pul_page_gather,
 )
+from repro_torch.kernels.pul_matmul import matmul_ref, pul_matmul
+from repro_torch.kernels.pul_sum import pul_sum, sum_ref
 
 
 
@@ -319,3 +332,136 @@ def test_gather_launches_are_counted_and_checks_raise(dev):
     with pytest.raises(ValueError, match="granules"):
         pul_gather(table[:, :6].contiguous().bfloat16(), trace)
     assert PA.LAUNCHES["k5"] == before + 2
+
+
+# ------------------------------------------- the microbenchmarks: K8-K10
+def _eighths(rng, shape, dev, dtype=torch.float32):
+    """Normal values rounded to multiples of 1/8 (|x| < 8): exact in bf16,
+    and every partial sum of a few million of them is exact in fp32, so a
+    sum in any order equals the fp64 sum."""
+    x = np.clip(np.round(rng.standard_normal(shape) * 8) / 8, -7.875, 7.875)
+    return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+
+
+MICRO_CFGS = [PULConfig(distance=1), PULConfig(distance=4),
+              PULConfig(distance=3, strategy=IssueStrategy.SEQUENTIAL),
+              PULConfig(distance=16)]
+MICRO_IDS = ["d1", "d4", "d3-seq", "d16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 128, 18), (4096, 16, 5000)],
+                         ids=["reference", "64B-rows"])
+@pytest.mark.parametrize("rows_per_req", [1, 4, 16])
+@pytest.mark.parametrize("cfg", MICRO_CFGS, ids=MICRO_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_kernel_matches_plain_version(dev, dtype, cfg, rows_per_req,
+                                          shape):
+    R, W, n = shape
+    rng = np.random.default_rng(0)
+    data = _eighths(rng, (R * rows_per_req, W), dev, dtype)
+    trace = torch.from_numpy(rng.integers(0, R, size=n).astype(
+        np.int32)).to(dev)
+    got = pul_sum(data, trace, cfg=cfg, rows_per_req=rows_per_req)
+    again = pul_sum(data, trace, cfg=cfg, rows_per_req=rows_per_req)
+    torch.cuda.synchronize()
+    rows = data.reshape(R, rows_per_req * W)[trace.long()]
+    assert got.item() == rows.double().sum().item()     # exact on eighths
+    assert torch.equal(got, again)                      # no atomics
+    normal = torch.from_numpy(rng.standard_normal(
+        (R * rows_per_req, W)).astype(np.float32)).to(dev, dtype)
+    np.testing.assert_allclose(
+        pul_sum(normal, trace, cfg=cfg, rows_per_req=rows_per_req).item(),
+        sum_ref(normal.reshape(R, rows_per_req * W), trace).item(),
+        rtol=3e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def _words(t):
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(128, 64), (64, 32), (128, 16),
+                                        (96, 4)])
+@pytest.mark.parametrize("unload_distance", [0, 1, 3])
+@pytest.mark.parametrize("cfg", MICRO_CFGS[1:3] + [PULConfig(distance=8)],
+                         ids=["d4", "d3-seq", "d8"])
+@pytest.mark.parametrize("materialize", [False, True])
+def test_filter_kernel_matches_plain_version(dev, materialize, cfg,
+                                             unload_distance, rows, width):
+    rng = np.random.default_rng(1)
+    data = _eighths(rng, (rows * 40, width), dev)     # ties at 0.25 included
+    cfg = dataclasses.replace(cfg, unload_distance=unload_distance)
+    got = pul_filter(data, 0.25, cfg=cfg, rows_per_block=rows,
+                     materialize=materialize)
+    torch.cuda.synchronize()
+    want = (filter_materialize_ref(data, 0.25) if materialize
+            else filter_ref(data, 0.25))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_words(got), _words(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [PULConfig(distance=1), PULConfig(distance=3),
+                                 PULConfig(distance=3,
+                                           strategy=IssueStrategy.SEQUENTIAL)],
+                         ids=["d1", "d3", "d3-seq"])
+@pytest.mark.parametrize("shape,blocks", [
+    ((128, 128, 128), (64, 64, 64)),
+    ((128, 256, 384), (64, 128, 128)),
+    ((64, 512, 128), (64, 64, 128)),
+    ((256, 256, 256), (128, 128, 128)),
+    ((96, 64, 160), (32, 32, 32)),
+])
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+def test_matmul_kernel_matches_plain_version(dev, dtype, out_dtype, shape,
+                                             blocks, cfg):
+    M, K, N = shape
+    bm, bk, bn = blocks
+    rng = np.random.default_rng(2)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(
+        np.float32)).to(dev, dtype)
+    b = torch.from_numpy(rng.standard_normal((K, N)).astype(
+        np.float32)).to(dev, dtype)
+    got = pul_matmul(a, b, cfg=cfg, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = matmul_ref(a, b)
+    assert got.dtype == out_dtype
+    rtol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    if out_dtype == torch.bfloat16:
+        rtol = 2 ** -7                 # one bf16 rounding of the result
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=rtol, atol=rtol * 10)
+
+
+@pytest.mark.cuda
+def test_micro_launches_are_counted_and_checks_raise(dev):
+    data = torch.randn((64, 16), device=dev)
+    trace = torch.tensor([3, 0, 3], dtype=torch.int32, device=dev)
+    before = {k: PA.LAUNCHES[k] for k in ("k8", "k9", "k10")}
+    pul_sum(data, trace)
+    pul_filter(data, 0.0, rows_per_block=32)
+    pul_matmul(data[:32], data[:32].T.contiguous(), bm=32, bk=16, bn=32)
+    assert {k: PA.LAUNCHES[k] - before[k] for k in before} == {
+        "k8": 1, "k9": 1, "k10": 1}
+    with pytest.raises(TypeError, match="dtype"):
+        pul_sum(data.double(), trace)
+    with pytest.raises(TypeError, match="dtype"):
+        pul_sum(data, trace.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        pul_sum(data.t().contiguous().t(), trace)
+    with pytest.raises(ValueError, match="granules"):
+        pul_sum(data[:, :2].contiguous(), trace)
+    with pytest.raises(TypeError, match="dtype"):
+        pul_filter(data.bfloat16(), 0.0, rows_per_block=32)
+    with pytest.raises(ValueError, match="granules"):
+        pul_filter(data[:, :6].contiguous(), 0.0, rows_per_block=32)
+    with pytest.raises(ValueError, match="built"):
+        pul_matmul(data, data[:16], bm=16, bk=16, bn=16)
+    with pytest.raises(TypeError, match="kernel takes"):
+        pul_matmul(data[:32].double(), data[:32].T.contiguous().double(),
+                   bm=32, bk=16, bn=32)
+    assert {k: PA.LAUNCHES[k] - before[k] for k in before} == {
+        "k8": 1, "k9": 1, "k10": 1}

@@ -70,6 +70,19 @@ def test_assembly_slice_module_imports_with_jax_blocked(module):
     test_mla_slice_module_imports_with_jax_blocked(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels.pul_sum", "repro_torch.kernels.pul_filter",
+    "repro_torch.kernels.pul_matmul", "repro_torch.kernels.ref",
+    "repro_torch.kernels.ops", "repro_torch.benchmarks.paper_experiments",
+    "repro_torch.benchmarks.run", "repro_torch.examples.quickstart",
+    "repro_torch.examples.pul_microbench"])
+def test_microbench_slice_module_imports_with_jax_blocked(module):
+    """The microbenchmark slice's modules (K8-K10, the ops, the paper's
+    experiments and examples) on their own, jax and repro blocked; importing
+    a benchmark or an example runs nothing."""
+    test_mla_slice_module_imports_with_jax_blocked(module)
+
+
 def test_no_port_source_imports_jax_or_the_reference():
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in _port_sources()
