@@ -31,20 +31,29 @@ exit code is not 0:
                      then K8 timed over d in {1, ..., 32} x both issue orders
                      and rows_per_req in {1, 16, 128} at the same bytes, and
                      K9 in each mode at unload_distance 0 and 1
-  8. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
+  8. kernels-attn -- the dense attention pair: K7 through ops.attention_op
+                     (qwen3 prefill at T = S = 4096, a chunk of 512 over
+                     4096, gemma2-27b widths with softcap 50 and window
+                     4096, f32 at 1024) and K6 over a dense qwen3 cache of
+                     32768 at 8 lengths; launches counted on that path; each
+                     against its plain version (bf16 two ulps of the row's
+                     largest value, f32 3e-4) at d in {1, 4} in both issue
+                     orders; planted faults; times, bounds, plain times and
+                     scaled_dot_product_attention's times
+  9. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
                      same script through K2 (per layer): bitwise-equal tokens
-  9. serving-assembly -- the same model and script on the assembly path,
+ 10. serving-assembly -- the same model and script on the assembly path,
                      through K5 and then through plain indexing: bitwise-equal
                      tokens; one decode step's logits against K1's
- 10. serving-dense -- the same model and requests on the dense ServingEngine
- 11. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
+ 11. serving-dense -- the same model and requests on the dense ServingEngine
+ 12. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
                      dense layer 0 and 5 MoE layers), the same script through
                      K3 and then K4: bitwise-equal tokens
- 12. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
-                     as in phase 9, one decode step against K3's
- 13. summary      -- one JSON line listing the kernels
- 14. last line: {"ok": true, "device": {...}}
+ 13. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
+                     as in phase 10, one decode step against K3's
+ 14. summary      -- one JSON line listing the kernels
+ 15. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
 one-off measurement, not a phase:
@@ -66,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -85,7 +95,8 @@ from repro_torch.core import IssueStrategy, PULConfig  # noqa: E402
 from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
 from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
 from repro_torch.kernels import SOURCES, _build, ops  # noqa: E402
-from repro_torch.kernels import pul_attention as PA  # noqa: E402
+from repro_torch.kernels.pul_decode import (  # noqa: E402
+    decode_attention_kernel_ref, pul_decode_attention)
 from repro_torch.kernels.pul_filter import (  # noqa: E402
     filter_materialize_ref, filter_ref, pul_filter)
 from repro_torch.kernels.pul_gather import (  # noqa: E402
@@ -98,6 +109,9 @@ from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, PagedEngineConfig, PagedServingEngine, Request,
     ServingEngine)
+
+# the module: the package exports the function pul_attention under its name
+PA = importlib.import_module("repro_torch.kernels.pul_attention")
 
 # qwen3-1.7b widths and the serving geometry of the serving phases
 H, KV, HD, P, L = 16, 8, 128, 16, 28
@@ -607,6 +621,228 @@ def phase_kernels_gather():
 
 
 # ---------------------------------------------------------------------- #
+# dense attention: the flash attention K7 through ops.attention_op and the
+# decode attention K6 over a dense cache. Widths of qwen3-1.7b (16 query
+# heads over 8 kv heads, hd 128) and of gemma2-27b (32 over 16, hd 128,
+# attention softcap 50 and sliding window 4096: arXiv:2408.00118).
+#: label, (B, H, K, T, S), type, options, q's scale (8 on the softcap case,
+#: so that its logits reach the cap)
+ATTN = (
+    ("K7-prefill", (2, H, KV, 4096, 4096), torch.bfloat16, {}, 1.0),
+    ("K7-chunk", (2, H, KV, 512, 4096), torch.bfloat16, {}, 1.0),
+    ("K7-gemma2", (1, 32, 16, 1024, 8192), torch.bfloat16,
+     dict(softcap=50.0, window=4096), 8.0),
+    ("K7-f32", (2, H, KV, 1024, 1024), torch.float32, {}, 1.0),
+)
+#: K6: qwen3-1.7b decode over a dense cache of S positions, 8 rows
+DECODE_S = 32768
+DECODE_LENGTHS = (32768, 30000, 16384, 8193, 4096, 1000, 129, 1)
+#: the rings every case is held at: d in {1, 4}, both issue orders
+ATTN_RINGS = tuple(PULConfig(distance=d, strategy=s)
+                   for d in (1, 4) for s in IssueStrategy)
+
+
+def _dense_err(got, want):
+    """Error over the limit (<= 1 holds): bf16, two bf16 ulps of each row's
+    largest |value|; f32, rtol = atol = 3e-4."""
+    err = (got.float() - want.float()).abs()
+    if want.dtype == torch.bfloat16:
+        return (err / _bf16_limit(want)).max().item()
+    return (err / (3e-4 + 3e-4 * want.float().abs())).max().item()
+
+
+def _dense_check(got, want, what):
+    ratio = _dense_err(got, want)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: error up to {ratio:.2f} x the limit")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _visible_pairs(T, S, causal=True, window=None):
+    """(query, key) pairs the mask leaves visible, per (b, h)."""
+    iq = np.arange(T) + (S - T)
+    hi = np.minimum(S, iq + 1) if causal else np.full(T, S)
+    lo = np.maximum(0, iq - window + 1) if window else np.zeros(T, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def _attn_bound(shape, dtype, opts):
+    """Flops of the visible pairs (4 hd each) over the peak of the operands'
+    type, against q, k, v and out moved once."""
+    B, Hq, K, T, S = shape
+    pairs = B * Hq * _visible_pairs(T, S, opts.get("causal", True),
+                                    opts.get("window"))
+    item = torch.tensor([], dtype=dtype).element_size()
+    peak = BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+    t_ops = 4.0 * HD * pairs / peak * 1e3
+    t_bytes = (2 * B * Hq * T + 2 * B * K * S) * HD * item / HBM_PEAK * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            4.0 * HD * pairs)
+
+
+def _sdpa(q, k, v, **kw):
+    """One call of scaled_dot_product_attention on the same inputs (GQA
+    in the call where this PyTorch takes enable_gqa, else K/V repeated here,
+    outside the timed call): the yardstick, never called by the port."""
+    F = torch.nn.functional
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      enable_gqa=True, **kw)
+    except TypeError:
+        G = q.shape[1] // k.shape[1]
+        kk = k.repeat_interleave(G, dim=1)
+        vv = v.repeat_interleave(G, dim=1)
+        return lambda: F.scaled_dot_product_attention(q, kk, vv, **kw)
+
+
+def _decode_inputs(gen, dev):
+    B = len(DECODE_LENGTHS)
+    q = torch.randn((B, H, HD), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, KV, DECODE_S, HD), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((B, KV, DECODE_S, HD), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+def phase_kernels_attn(device="cuda"):
+    """K7 and K6 on their main path (ops.attention_op at its default tiles
+    and ring, pul_decode_attention), launches counted there; each case
+    against its plain version, at d in {1, 4} in both issue orders, with
+    planted faults; times, bounds, plain times, SDPA times. Returns the
+    summary rows of k6 and k7 and their launches."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cases = []
+    for label, shape, dtype, opts, qs in ATTN:
+        B, Hq, K, T, S = shape
+        q = (torch.randn((B, Hq, T, HD), generator=gen, device=dev)
+             * qs).to(dtype)
+        k = torch.randn((B, K, S, HD), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, K, S, HD), generator=gen, device=dev).to(dtype)
+        cases.append((label, shape, dtype, opts, q, k, v))
+    q6, k6, v6, lens = _decode_inputs(gen, dev)
+
+    # the slice's main path, counts from 0
+    for key in PA.LAUNCHES:
+        PA.LAUNCHES[key] = 0
+    outs = [ops.attention_op(q, k, v, **opts)
+            for _, _, _, opts, q, k, v in cases]
+    out6 = pul_decode_attention(q6, k6, v6, lens)
+    _sync(device)
+    launches = {"k6": PA.LAUNCHES["k6"], "k7": PA.LAUNCHES["k7"]}
+    if launches != {"k6": 1, "k7": len(cases)}:
+        raise AssertionError(f"the main path launched {launches}, not K7 "
+                             f"{len(cases)} times and K6 once")
+
+    rows, k7_err = {}, 0.0
+    for (label, shape, dtype, opts, q, k, v), got in zip(cases, outs):
+        want = PA.attention_kernel_ref(q, k, v, **opts)
+        err = _dense_check(got, want, f"{label} via ops.attention_op")
+        for cfg in ATTN_RINGS:
+            err = max(err, _dense_check(
+                PA.pul_attention(q, k, v, cfg=cfg, **opts), want,
+                f"{label} d={cfg.distance} {cfg.strategy.name}"))
+        k7_err = max(k7_err, err)
+        kz, vz = k.clone(), v.clone()
+        kz[:, :, -128:] = 0
+        vz[:, :, -128:] = 0
+        faults = {"the last KV block zeroed":
+                  PA.attention_kernel_ref(q, kz, vz, **opts)}
+        del kz, vz
+        if opts.get("softcap"):
+            faults["the softcap dropped"] = PA.attention_kernel_ref(
+                q, k, v, **dict(opts, softcap=None))
+        for what, bad in faults.items():
+            if _dense_err(bad, want) <= 1.0:
+                raise AssertionError(f"{label}: the limit lets a planted "
+                                     f"fault through: {what}")
+        planted = ", ".join(faults)
+        del want, faults
+        ms = _time_ms(lambda: ops.attention_op(q, k, v, **opts))
+        plain_ms = _time_ms(lambda: PA.attention_kernel_ref(q, k, v, **opts),
+                            reps=5)
+        B, Hq, K, T, S = shape
+        library_ms = None
+        if not opts:
+            # SDPA's is_causal aligns the queries to the first keys; with
+            # T < S the end-aligned mask goes in as a boolean mask
+            kw = (dict(is_causal=True) if T == S else dict(
+                attn_mask=torch.arange(S, device=dev)[None, :]
+                <= torch.arange(T, device=dev)[:, None] + (S - T)))
+            library_ms = _time_ms(_sdpa(q, k, v, **kw))
+        bound_ms, bound_by, flops = _attn_bound(shape, dtype, opts)
+        rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms)
+        lib_txt = ("none (no single PyTorch call applies the softcap)"
+                   if library_ms is None else
+                   f"SDPA {library_ms:.4f} ms (K7 {ms / library_ms:.1f} x)")
+        print(f"[kernels-attn] {label} B={B} H={Hq} K={K} T={T} S={S} "
+              f"{str(dtype).split('.')[-1]}{' ' + str(opts) if opts else ''}"
+              f": max|K7-plain| "
+              f"{err:.3e} within the limit via ops.attention_op and at d=1/4 "
+              f"BATCH/SEQUENTIAL; planted faults rejected: "
+              f"{planted}; K7 {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s visible), plain "
+              f"{plain_ms:.4f} ms, {lib_txt}, bound {bound_ms:.4f} ms "
+              f"({bound_by}, {flops / 1e9:.1f} GFLOP visible)")
+    del cases, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # K6
+    want = decode_attention_kernel_ref(q6, k6, v6, lens)
+    err6 = _dense_check(out6, want, "K6 at the default ring")
+    for cfg in ATTN_RINGS:
+        err6 = max(err6, _dense_check(
+            pul_decode_attention(q6, k6, v6, lens, cfg=cfg), want,
+            f"K6 d={cfg.distance} {cfg.strategy.name}"))
+    faults = {}
+    for what, row, cut in (("the length-129 row's second chunk left out",
+                            DECODE_LENGTHS.index(129), 64),
+                           ("the longest row's last 2048 keys left out", 0,
+                            DECODE_S - 2048)):
+        short = lens.clone()
+        short[row] = cut
+        faults[what] = decode_attention_kernel_ref(q6, k6, v6, short)
+    for what, bad in faults.items():
+        if _dense_err(bad, want) <= 1.0:
+            raise AssertionError(f"K6: the limit lets a planted fault "
+                                 f"through: {what}")
+    del want, faults
+    ms = _time_ms(lambda: pul_decode_attention(q6, k6, v6, lens))
+    plain_ms = _time_ms(lambda: decode_attention_kernel_ref(q6, k6, v6, lens),
+                        reps=5)
+    mask = (torch.arange(DECODE_S, device=dev)[None, :]
+            < lens[:, None])[:, None, None, :]
+    library_ms = _time_ms(_sdpa(q6[:, :, None], k6, v6, attn_mask=mask))
+    visible = sum(DECODE_LENGTHS)
+    nbytes = visible * KV * HD * 2 * 2 + 2 * q6.numel() * 2 + lens.numel() * 4
+    t_bytes = nbytes / HBM_PEAK * 1e3
+    t_ops = 4.0 * H * HD * visible / BF16_TC_PEAK * 1e3
+    rows["K6"] = dict(max_abs_err=err6, ms=ms, plain_ms=plain_ms,
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                      library_ms=library_ms)
+    print(f"[kernels-attn] K6 B=8 H={H} K={KV} S={DECODE_S} bf16 lengths "
+          f"{list(DECODE_LENGTHS)}: max|K6-plain| {err6:.3e} within the limit "
+          f"at the default ring and at d=1/4 BATCH/SEQUENTIAL; planted "
+          f"faults rejected: the length-129 row's second chunk, the longest "
+          f"row's last 2048 keys; K6 {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+          f"GB/s of visible K/V), plain {plain_ms:.4f} ms, SDPA with a "
+          f"length mask {library_ms:.4f} ms (K6 {ms / library_ms:.2f} x), "
+          f"bound {rows['K6']['bound_ms']:.4f} ms "
+          f"({rows['K6']['bound_by']}, {nbytes} B)")
+    out = {"k7": dict(rows["K7-prefill"], max_abs_err=k7_err),
+           "k6": rows["K6"]}
+    return out, launches, rows
+
+
+# ---------------------------------------------------------------------- #
 # the paper's microbenchmarks: K8 (SUM), K9 (filter), K10 (matmul)
 #: the SUM/filter table: 2^26 rows of 16 f32 (the paper's 64-byte transfer
 #: unit), 4 GiB, and 2^24 random requests of one row
@@ -1105,9 +1341,8 @@ def slots_sweep():
     PEs on the card shrink towards the paper's few: where the distance and
     the unload order matter on real copies. Prints one [slots] line per
     point and returns the times."""
-    from repro_torch.kernels.pul_filter import (
-        _blocks_per_sm as filter_blocks, filter_ring_plan)
-    from repro_torch.kernels.pul_sum import _blocks_per_sm as sum_blocks
+    from repro_torch.kernels._runtime import _blocks_per_sm
+    from repro_torch.kernels.pul_filter import filter_ring_plan
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1125,7 +1360,9 @@ def slots_sweep():
     for per_sm in (1, 2, 4, None):
         for d in (1, 2, 4, 8, 16):
             for strategy in IssueStrategy:
-                cfg = _slots_for(sum_plan, lambda p: sum_blocks(0, p.smem_bytes),
+                cfg = _slots_for(sum_plan,
+                                 lambda p: _blocks_per_sm("pul_sum", 0,
+                                                          p.smem_bytes),
                                  PULConfig(distance=d, strategy=strategy),
                                  per_sm)
                 got = pul_sum(table, trace, cfg=cfg).item()
@@ -1133,7 +1370,7 @@ def slots_sweep():
                     raise AssertionError(f"K8 {got!r} != {want!r}")
                 ms = _time_ms(lambda: pul_sum(table, trace, cfg=cfg))
                 plan = sum_plan(cfg)
-                blocks = sum_blocks(0, plan.smem_bytes)
+                blocks = _blocks_per_sm("pul_sum", 0, plan.smem_bytes)
                 key = (f"k8 cap {per_sm} blocks/SM {blocks} d={d} "
                        f"{strategy.name}")
                 out[key] = ms
@@ -1151,7 +1388,8 @@ def slots_sweep():
             for ud in (0, 1):
                 cfg = _slots_for(
                     filter_plan,
-                    lambda p: filter_blocks(int(materialize), p.smem_bytes),
+                    lambda p: _blocks_per_sm("pul_filter", int(materialize),
+                                             p.smem_bytes),
                     PULConfig(unload_distance=ud), per_sm)
                 want9 = (filter_materialize_ref if materialize
                          else filter_ref)(table, 0.25)
@@ -1162,7 +1400,8 @@ def slots_sweep():
                 ms = _time_ms(lambda: pul_filter(
                     table, 0.25, cfg=cfg, materialize=materialize))
                 plan = filter_plan(cfg)
-                blocks = filter_blocks(int(materialize), plan.smem_bytes)
+                blocks = _blocks_per_sm("pul_filter", int(materialize),
+                                        plan.smem_bytes)
                 key = (f"k9 cap {per_sm} blocks/SM {blocks} "
                        f"{'materialize' if materialize else 'bit-vector'} "
                        f"unload_distance={ud}")
@@ -1305,6 +1544,9 @@ def main():
     paper_launches = phase_paper(table)
     del table
     torch.cuda.empty_cache()
+    attn, attn_launches, _ = phase_kernels_attn()
+    kern.update(attn)
+    torch.cuda.empty_cache()
     print(f"[done] kernels {time.perf_counter() - t0:.1f} s")
 
     cfg = smoke_config("qwen3-1.7b")
@@ -1312,6 +1554,7 @@ def main():
     s1, s2, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
                                                      "per-layer")
     stats = {"k1": s1, "k2": s2, "k10": {"launches": k10_launches},
+             **{k: {"launches": n} for k, n in attn_launches.items()},
              **{k: {"launches": n} for k, n in paper_launches.items()}}
     stats["k5"], _ = phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
     phase_serving_dense(cfg, params)
@@ -1350,6 +1593,10 @@ def main():
             ("k4", "pul_paged_mla_decode_attention", "pul_paged_mla_decode",
              "pul_attention.py:272"),
             ("k5", "pul_gather", "pul_gather", "pul_gather.py:60"),
+            ("k6", "pul_decode_attention", "pul_dense_attention",
+             "pul_decode.py:71"),
+            ("k7", "pul_attention", "pul_dense_attention",
+             "pul_attention.py:620"),
             ("k8", "pul_sum", "pul_sum", "pul_sum.py:40"),
             ("k9", "pul_filter", "pul_filter", "pul_filter.py:73"),
             ("k10", "pul_matmul", "pul_matmul", "pul_matmul.py:62")):

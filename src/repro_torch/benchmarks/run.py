@@ -42,7 +42,7 @@ def main(argv=None) -> None:
           f"({failed} failed) in {time.time()-t0:.1f}s; kernels on {name}")
 
     print("\n[bench] roofline: the dry-run that feeds it is not ported yet "
-          "(ROADMAP.md, port queue item 8)")
+          "(ROADMAP.md, port queue item 14)")
     if failed:
         sys.exit(1)
 

@@ -1,8 +1,8 @@
-// The PUL preload ring's device helpers, shared by the paged decode kernels
-// (pul_paged_decode.cu, pul_paged_mla_decode.cu) and the gather
-// (pul_gather.cu): 16-byte cp.async copies
-// into shared memory, one commit group per stream position, a wait whose
-// depth is a runtime distance, and a round-to-nearest warp sum.
+// The PUL preload ring's device helpers, shared by the port's kernels (the
+// paged decode, the dense attention, the gather and the microbenchmarks):
+// 16-byte cp.async copies into shared memory (zero-filling past the data),
+// one commit group per stream position, a wait whose depth is a runtime
+// distance, and a round-to-nearest warp sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +23,18 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+// The same copy for a granule that may lie past the data: with valid false
+// it reads nothing (gmem must still be a mapped address) and fills the 16
+// bytes with zeros.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n)
                : "memory");
 }
 

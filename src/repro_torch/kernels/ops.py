@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.pul import PULConfig
+from repro_torch.kernels.pul_attention import pul_attention
 from repro_torch.kernels.pul_filter import pul_filter
 from repro_torch.kernels.pul_gather import pul_gather
 from repro_torch.kernels.pul_matmul import pul_matmul
@@ -43,10 +44,10 @@ def attention_op(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
                  scale: Optional[float] = None,
                  softcap: Optional[float] = None,
                  window: Optional[int] = None):
-    """Flash attention (K7): not ported yet."""
-    raise NotImplementedError(
-        "attention_op needs K7 (pul_attention), which is not ported yet: "
-        "ROADMAP.md, port queue item 1 (K6 + K7)")
+    """Flash attention with PUL-streamed KV (K7): causal, GQA, window,
+    softcap."""
+    return pul_attention(q, k, v, cfg=cfg, bt=bt, bs=bs, causal=causal,
+                         scale=scale, softcap=softcap, window=window)
 
 
 def filter_op(data, threshold: float, *, cfg: PULConfig = PULConfig(),

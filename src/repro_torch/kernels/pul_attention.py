@@ -1,7 +1,8 @@
-"""Paged decode attention of the serving main path: K1-K4.
+"""Attention kernels of the port: the paged decode K1-K4 and the flash
+attention K7.
 
-Four kernels, CUDA C++ for Hopper, in two sources (each pair one templated
-body, see the note at the head of each file):
+Five kernels, CUDA C++ for Hopper, in three sources (see the note at the
+head of each file):
 
   * :func:`pul_paged_sweep_decode_attention` (K1) replaces the reference's
     ``kernels/pul_attention.py::pul_paged_sweep_decode_attention``: one layer
@@ -18,6 +19,11 @@ body, see the note at the head of each file):
     :func:`pul_paged_mla_decode_attention` (K4) are the absorbed-MLA twins
     (deepseek-v2) over compressed-KV planes ``(L, NF, P, kvr)`` and
     ``(L, NF, P, dr)``: ``csrc/pul_paged_mla_decode.cu``.
+  * :func:`pul_attention` (K7) replaces ``pul_attention``: flash attention
+    over a dense (B, K, S, hd) KV with GQA, end-aligned causal masking, a
+    sliding window and a softcap, the entry point of ``ops.attention_op``:
+    ``csrc/pul_dense_attention.cu``, which also holds the dense decode K6
+    (``kernels.pul_decode``).
 
 Beside each kernel is its plain PyTorch version (``*_ref``): fp32 math on
 gathered pages plus an ``index_put_`` commit. A wrapper uses the plain
@@ -26,57 +32,39 @@ launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
 kernel, so a run can show the main path went through them.
 
 The in-kernel PUL ring is budgeted against Hopper's shared memory by
-:func:`ring_plan` and :func:`mla_ring_plan` (the counterparts of the
-reference's ``ring_scratch`` VMEM check).
+:func:`ring_plan`, :func:`mla_ring_plan` and :func:`attention_ring_plan`
+(the counterparts of the reference's ``ring_scratch`` VMEM check).
 """
 from __future__ import annotations
 
-import ctypes
-import dataclasses
 import math
 from typing import Optional
 
 import torch
 
 from repro_torch.core.pul import IssueStrategy, PULConfig
+from repro_torch.kernels._runtime import (  # noqa: F401 (re-exported)
+    LAUNCHES,
+    MAX_RING_DISTANCE,
+    SMEM_LIMIT_BYTES,
+    RingPlan,
+    _check,
+    _plan,
+    _ptr,
+    _raise_on,
+    _stream,
+    lib,
+)
 
 NEG_INF = -2.0e38
-#: dynamic shared memory one block may use on Hopper (227 KB)
-SMEM_LIMIT_BYTES = 232448
-#: deepest preload distance the kernel's cp.async.wait_group table covers
-MAX_RING_DISTANCE = 32
+#: element types the dense attention kernels K6/K7 take
+DENSE_DTYPES = (torch.float32, torch.bfloat16)
+#: head dim the dense attention kernels are built for (the source's kHd)
+DENSE_HD = 128
+#: query rows of one K7 block (the source's kRows): G heads x 64 / G tokens
+Q_ROWS = 64
 #: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
 HEAD_BLOCK = 8
-#: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer;
-#: "k5": the gather of kernels.pul_gather; "k8", "k9", "k10": the paper's
-#: microbenchmarks in kernels.pul_sum, pul_filter and pul_matmul)
-LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k8": 0, "k9": 0,
-            "k10": 0}
-
-
-@dataclasses.dataclass(frozen=True)
-class RingPlan:
-    distance: int       # pages preloaded ahead of the compute
-    slots: int          # ring slots (each holds one page's K and V slab)
-    smem_bytes: int     # dynamic shared memory of one block
-
-
-def _plan(cfg: PULConfig, aux: int, slot: int, what: str) -> RingPlan:
-    """Clamp a PULConfig's ring of `slot`-byte slots beside `aux` bytes of
-    other shared memory to what one Hopper block can hold. Distance is
-    clamped to the slots that fit and to ``MAX_RING_DISTANCE``; slots follow
-    ``PULConfig.num_slots`` (2d for BATCH, d + 1 for SEQUENTIAL) within the
-    same budget. Raises when not even one slot fits."""
-    max_slots = (SMEM_LIMIT_BYTES - aux) // slot
-    seq = cfg.strategy is IssueStrategy.SEQUENTIAL
-    d = min(cfg.distance, MAX_RING_DISTANCE, max_slots - (1 if seq else 0))
-    if d < 1:
-        raise ValueError(
-            f"{what} of {slot} B does not fit the {SMEM_LIMIT_BYTES} B of "
-            "shared memory a Hopper block may use")
-    want = cfg.slots if cfg.slots is not None else (d + 1 if seq else 2 * d)
-    slots = min(max(want, d + 1 if seq else d), max_slots)
-    return RingPlan(d, slots, slots * slot + aux)
 
 
 def ring_plan(cfg: PULConfig, *, G: int, P: int, hd: int,
@@ -108,11 +96,88 @@ def mla_ring_plan(cfg: PULConfig, *, H: int, P: int, kvr: int, dr: int,
                  f"a ({P}, {kvr}) + ({P}, {dr}) page slab pair")
 
 
+def kv_chunk_rows(itemsize: int) -> int:
+    """Keys of one K6/K7 ring chunk (the source's Chunk::kBC): 64 bf16 or
+    32 f32 rows, 16 KB of K at hd = 128."""
+    return 64 if itemsize == 2 else 32
+
+
+def kv_slot_bytes(hd: int, itemsize: int) -> int:
+    """One K6/K7 ring slot: a chunk's K rows and V rows, each row padded by
+    one 16-byte granule (34,816 B bf16, 33,792 B f32 at hd = 128)."""
+    return 2 * kv_chunk_rows(itemsize) * (hd * itemsize + 16)
+
+
+def attention_ring_plan(cfg: PULConfig, *, hd: int = DENSE_HD,
+                        itemsize: int = 2) -> RingPlan:
+    """K7's ring: a slot holds one KV chunk (:func:`kv_slot_bytes`); besides
+    the ring a block keeps its Q_ROWS query rows in fp32 and the chunk's
+    (Q_ROWS, kv_chunk_rows) probabilities; the accumulator is in registers.
+    At hd = 128 and the default d = 4 BATCH that is 5 slots (of the 8
+    PULConfig asks for), 223,232 B bf16 and 209,920 B f32."""
+    aux = (Q_ROWS * hd + Q_ROWS * kv_chunk_rows(itemsize)) * 4
+    return _plan(cfg, aux, kv_slot_bytes(hd, itemsize),
+                 f"a {kv_chunk_rows(itemsize)}-key K and V chunk")
+
+
 # ---------------------------------------------------------------------- #
 # plain versions
 # ---------------------------------------------------------------------- #
 def _cap(x: torch.Tensor, softcap: Optional[float]) -> torch.Tensor:
     return softcap * torch.tanh(x / softcap) if softcap is not None else x
+
+
+def stream_length(S: int, bs: int) -> int:
+    """The TPU kernels' KV stream of S keys in whole blocks of bs' = min(bs,
+    S): ceil(S / bs') bs' positions."""
+    bs = min(bs, S)
+    return -(-S // bs) * bs
+
+
+def padded_stream(k: torch.Tensor, bs: int) -> tuple:
+    """k (B, K, S, hd) zero-padded to the TPU kernels' stream
+    (:func:`stream_length`). Returns (k padded, its length)."""
+    s_pad = stream_length(k.shape[2], bs)
+    return torch.nn.functional.pad(k, (0, 0, 0, s_pad - k.shape[2])), s_pad
+
+
+def _stream_softmax(logits: torch.Tensor, vis: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """The TPU kernels' softmax over a padded stream: hidden logits are
+    NEG_INF (finite), so a row that sees nothing weighs every position of
+    the stream by exp(0) = 1; l is clamped at 1e-30."""
+    logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    return (p @ v) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def attention_kernel_ref(q, k, v, *, bs: int = 128, causal: bool = True,
+                         scale: Optional[float] = None,
+                         softcap: Optional[float] = None,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K7: what the reference's Pallas kernel computes, in
+    fp32. q (B, H, T, hd); k, v (B, K, S, hd). Query t sits at position
+    iq = t + S - T; key jk is visible when jk < S, jk <= iq (causal) and
+    jk > iq - window (window, with or without causal). The stream is
+    zero-padded to whole bs blocks; a row that sees no key gets the sum of
+    the v rows over the padded length (:func:`_stream_softmax`)."""
+    B, H, T, hd = q.shape
+    K, S = k.shape[1], k.shape[2]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kp, s_pad = padded_stream(k.float(), bs)
+    vp, _ = padded_stream(v.float(), bs)
+    qf = q.float().reshape(B, K, G, T, hd)
+    logits = _cap(torch.einsum("bkgtd,bksd->bkgts", qf, kp) * scale, softcap)
+    iq = torch.arange(T, device=q.device)[:, None] + (S - T)
+    jk = torch.arange(s_pad, device=q.device)[None, :]
+    vis = jk < S
+    if causal:
+        vis = vis & (jk <= iq)
+    if window is not None:
+        vis = vis & (jk > iq - window)
+    out = _stream_softmax(logits, vis, vp[:, :, None])
+    return out.reshape(B, H, T, hd).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_tables, lengths, *,
@@ -232,45 +297,6 @@ def paged_sweep_mla_decode_attention_ref(q_abs, q_rope, ckv_planes, kr_planes,
 # ---------------------------------------------------------------------- #
 # kernel wrappers
 # ---------------------------------------------------------------------- #
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: C signature of every entry point, by source
-_SIGNATURES = {
-    "pul_paged_decode": {
-        "pul_paged_sweep_decode": [_P] * 10 + [_I] * 8 + [_F, _F] + [_I] * 5 + [_P],
-        "pul_paged_decode": [_P] * 8 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
-    },
-    "pul_paged_mla_decode": {
-        "pul_paged_sweep_mla_decode": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
-        "pul_paged_mla_decode": [_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
-    },
-}
-_LIBS = {}
-
-
-def _lib(source: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<source>.cu``, its signatures set."""
-    if source not in _LIBS:
-        from repro_torch.kernels import _build
-        lib = _build.load(source)
-        for fn, argtypes in _SIGNATURES[source].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _I
-        _LIBS[source] = lib
-    return _LIBS[source]
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_common(q, k, v, page_tables, lengths, k_new, v_new, plane_shape):
     if q.device.type != "cuda":
         raise ValueError(f"the paged decode kernels run on CUDA tensors, got "
@@ -292,15 +318,6 @@ def _check_common(q, k, v, page_tables, lengths, k_new, v_new, plane_shape):
     if k_new is not None:
         _check("k_new", k_new, (B, K, hd), torch.bfloat16, dev)
         _check("v_new", v_new, (B, K, hd), torch.bfloat16, dev)
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {rc}")
 
 
 def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
@@ -327,7 +344,7 @@ def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
     NP, K, P, _ = k_pages.shape
     plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
     out = torch.empty_like(q)
-    rc = _lib("pul_paged_decode").pul_paged_decode(
+    rc = lib("pul_paged_decode").pul_paged_decode(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_tables),
         _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(out),
         B, K, H // K, P, hd, page_tables.shape[1], NP,
@@ -336,7 +353,7 @@ def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
         window if window is not None else 0,
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        _stream(q))
     _raise_on(rc, "pul_paged_decode")
     LAUNCHES["k2"] += 1
     return out
@@ -372,7 +389,7 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
     _check("offsets", offsets, (B,), torch.int32, q.device)
     plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
     out = torch.empty_like(q)
-    rc = _lib("pul_paged_decode").pul_paged_sweep_decode(
+    rc = lib("pul_paged_decode").pul_paged_sweep_decode(
         _ptr(q), _ptr(k_planes), _ptr(v_planes), _ptr(page_tables),
         _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(frames), _ptr(offsets),
         _ptr(out), B, K, H // K, P, hd, page_tables.shape[1], NF, int(layer),
@@ -381,7 +398,7 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
         window if window is not None else 0,
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        _stream(q))
     _raise_on(rc, "pul_paged_sweep_decode")
     LAUNCHES["k1"] += 1
     return out
@@ -432,13 +449,13 @@ def pul_paged_mla_decode_attention(q_abs, q_rope, ckv_pages, kr_pages,
     dr = q_rope.shape[-1]
     plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
     out = torch.empty_like(q_abs)
-    rc = _lib("pul_paged_mla_decode").pul_paged_mla_decode(
+    rc = lib("pul_paged_mla_decode").pul_paged_mla_decode(
         _ptr(q_abs), _ptr(q_rope), _ptr(ckv_pages), _ptr(kr_pages),
         _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new), _ptr(out),
         B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NP, scale,
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(q_abs.device).cuda_stream))
+        _stream(q_abs))
     _raise_on(rc, "pul_paged_mla_decode")
     LAUNCHES["k4"] += 1
     return out
@@ -473,14 +490,90 @@ def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
     _check("offsets", offsets, (B,), torch.int32, q_abs.device)
     plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
     out = torch.empty_like(q_abs)
-    rc = _lib("pul_paged_mla_decode").pul_paged_sweep_mla_decode(
+    rc = lib("pul_paged_mla_decode").pul_paged_sweep_mla_decode(
         _ptr(q_abs), _ptr(q_rope), _ptr(ckv_planes), _ptr(kr_planes),
         _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new),
         _ptr(frames), _ptr(offsets), _ptr(out),
         B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NF, int(layer),
         scale, plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(q_abs.device).cuda_stream))
+        _stream(q_abs))
     _raise_on(rc, "pul_paged_sweep_mla_decode")
     LAUNCHES["k3"] += 1
+    return out
+
+
+def _check_dense(q, k, v) -> None:
+    """What K6 and K7 take on the card: f32 or bf16 throughout, hd =
+    DENSE_HD, contiguous tensors on q's card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the dense attention kernels run on CUDA tensors, "
+                         f"got {q.device}")
+    if q.dtype not in DENSE_DTYPES:
+        raise TypeError(f"q has dtype {q.dtype}, the kernel takes "
+                        f"{', '.join(map(str, DENSE_DTYPES))}")
+    B, K, S, hd = k.shape
+    if hd != DENSE_HD:
+        raise ValueError(f"head dim {hd}: the kernel is built for "
+                         f"{DENSE_HD}")
+    _check("q", q, q.shape, q.dtype, q.device)
+    _check("k", k, (B, K, S, hd), q.dtype, q.device)
+    _check("v", v, (B, K, S, hd), q.dtype, q.device)
+
+
+def _dense_args(cfg: PULConfig, plan: RingPlan, q: torch.Tensor):
+    """The ring's and the type's launch arguments, in the C order."""
+    return (plan.distance, plan.slots,
+            int(cfg.strategy is IssueStrategy.SEQUENTIAL),
+            DENSE_DTYPES.index(q.dtype), plan.smem_bytes, _stream(q))
+
+
+def _check_options(S: int, scale, softcap, window) -> None:
+    if S < 1:
+        raise ValueError("attention over an empty KV")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap {softcap} is not positive")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} is not positive")
+
+
+def pul_attention(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
+                  bs: int = 128, causal: bool = True,
+                  scale: Optional[float] = None,
+                  softcap: Optional[float] = None,
+                  window: Optional[int] = None) -> torch.Tensor:
+    """K7: flash attention of q (B, H, T, hd) over k, v (B, K, S, hd),
+    H = K G, with the reference's signature (bt, bs: its query and KV block
+    sizes; T % min(bt, T) == 0). Returns (B, H, T, hd) in q's type. CPU
+    tensors take the plain version; CUDA tensors launch the kernel, which
+    takes f32 or bf16, hd = 128 and 64 % G == 0, and tiles by its own rule
+    (attention_ring_plan); bs keeps its meaning in the padded stream's
+    length."""
+    B, H, T, hd = q.shape
+    _, K, S, _ = k.shape
+    if H % K:
+        raise ValueError(f"{H} query heads do not group over {K} kv heads")
+    bt = min(bt, T)
+    if T % bt:
+        raise ValueError(f"{T} queries are not whole blocks of {bt}")
+    _check_options(S, scale, softcap, window)
+    if q.device.type == "cpu":
+        return attention_kernel_ref(q, k, v, bs=bs, causal=causal,
+                                    scale=scale, softcap=softcap,
+                                    window=window)
+    G = H // K
+    _check_dense(q, k, v)
+    if Q_ROWS % G:
+        raise ValueError(f"{G} query heads per kv head do not divide the "
+                         f"kernel's {Q_ROWS} query rows")
+    s_pad = stream_length(S, bs)
+    plan = attention_ring_plan(cfg, hd=hd, itemsize=q.element_size())
+    out = torch.empty_like(q)
+    rc = lib("pul_dense_attention").pul_flash_attention(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, K, G, T, S, hd, s_pad,
+        int(causal), window or 0,
+        scale if scale is not None else 1.0 / math.sqrt(hd),
+        softcap or 0.0, *_dense_args(cfg, plan, q))
+    _raise_on(rc, "pul_flash_attention")
+    LAUNCHES["k7"] += 1
     return out

@@ -17,20 +17,21 @@ the kernel or raises. ``LAUNCHES["k9"]`` counts its launches.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
-from repro_torch.kernels.pul_attention import (
+from repro_torch.kernels._runtime import (
     LAUNCHES,
+    _blocks_per_sm,
     _check,
     _plan,
     _ptr,
     _raise_on,
+    _stream,
+    lib,
 )
 from repro_torch.kernels.pul_gather import split_runs
 
@@ -99,32 +100,6 @@ def filter_materialize_ref(data: torch.Tensor, threshold) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # kernel wrapper
 # ---------------------------------------------------------------------- #
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_LIB = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The built library of ``csrc/pul_filter.cu``, its signatures set."""
-    if not _LIB:
-        from repro_torch.kernels import _build
-        lib = _build.load("pul_filter")
-        lib.pul_filter.argtypes = ([_P, _P, ctypes.c_float] + [_I] * 12
-                                   + [_P])
-        lib.pul_filter.restype = _I
-        lib.pul_filter_blocks_per_sm.argtypes = [_I, _I]
-        lib.pul_filter_blocks_per_sm.restype = _I
-        _LIB.append(lib)
-    return _LIB[0]
-
-
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(materialize: int, smem_bytes: int) -> int:
-    n = _lib().pul_filter_blocks_per_sm(materialize, smem_bytes)
-    if n < 1:
-        raise RuntimeError(f"pul_filter occupancy query failed: {n}")
-    return n
-
-
 def pul_filter(data: torch.Tensor, threshold: float, *,
                cfg: PULConfig = PULConfig(), rows_per_block: int = 128,
                materialize: bool = False) -> torch.Tensor:
@@ -159,13 +134,14 @@ def pul_filter(data: torch.Tensor, threshold: float, *,
     n_blocks = N // rows
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
     run = split_runs(n_blocks, plan.distance,
-                     sms * _blocks_per_sm(int(materialize), plan.smem_bytes))
-    rc = _lib().pul_filter(
+                     sms * _blocks_per_sm("pul_filter", int(materialize),
+                                          plan.smem_bytes))
+    rc = lib("pul_filter").pul_filter(
         _ptr(data), _ptr(out), float(threshold), n_blocks, rows, W, run,
         -(-n_blocks // run), plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.uslots,
         plan.unload_distance, int(materialize), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream))
+        _stream(data))
     _raise_on(rc, "pul_filter")
     LAUNCHES["k9"] += 1
     return out

@@ -15,18 +15,19 @@ launches. :func:`gather_ring_plan` budgets the ring against shared memory.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
-from repro_torch.kernels.pul_attention import (
+from repro_torch.kernels._runtime import (
     LAUNCHES,
     _check,
     _plan,
     _ptr,
     _raise_on,
+    _stream,
+    lib,
 )
 
 #: bytes of one ring slot the tile width aims at: a (rows_per_req, tile)
@@ -101,21 +102,6 @@ def page_gather_ref(store: torch.Tensor, page_table: torch.Tensor
 # ---------------------------------------------------------------------- #
 # kernel wrapper
 # ---------------------------------------------------------------------- #
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_LIB = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The built library of ``csrc/pul_gather.cu``, its signature set."""
-    if not _LIB:
-        from repro_torch.kernels import _build
-        lib = _build.load("pul_gather")
-        lib.pul_gather.argtypes = [_P] * 3 + [_I] * 9 + [_P]
-        lib.pul_gather.restype = _I
-        _LIB.append(lib)
-    return _LIB[0]
-
-
 def pul_gather(table: torch.Tensor, trace: torch.Tensor, *,
                cfg: PULConfig = PULConfig(),
                rows_per_req: int = 1) -> torch.Tensor:
@@ -150,12 +136,12 @@ def pul_gather(table: torch.Tensor, trace: torch.Tensor, *,
     if n == 0:
         return out
     sms = torch.cuda.get_device_properties(table.device).multi_processor_count
-    rc = _lib().pul_gather(
+    rc = lib("pul_gather").pul_gather(
         _ptr(table), _ptr(trace), _ptr(out), n, rows_per_req, row_bytes,
         plan.tile_bytes, run_length(n, plan.n_tiles, plan.distance, sms),
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream))
+        _stream(table))
     _raise_on(rc, "pul_gather")
     LAUNCHES["k5"] += 1
     return out

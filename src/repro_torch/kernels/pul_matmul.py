@@ -15,19 +15,20 @@ tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
 
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
-from repro_torch.kernels.pul_attention import (
+from repro_torch.kernels._runtime import (
     LAUNCHES,
     SMEM_LIMIT_BYTES,
     _check,
     _plan,
     _ptr,
     _raise_on,
+    _stream,
+    lib,
 )
 
 #: output tile sides the kernel is built for (16 x {2, 4, 8} per thread row)
@@ -77,21 +78,6 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # kernel wrapper
 # ---------------------------------------------------------------------- #
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_LIB = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The built library of ``csrc/pul_matmul.cu``, its signature set."""
-    if not _LIB:
-        from repro_torch.kernels import _build
-        lib = _build.load("pul_matmul")
-        lib.pul_matmul.argtypes = [_P] * 3 + [_I] * 12 + [_P]
-        lib.pul_matmul.restype = _I
-        _LIB.append(lib)
-    return _LIB[0]
-
-
 def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
                cfg: PULConfig = PULConfig(), bm: int = 128, bk: int = 128,
                bn: int = 128, out_dtype: torch.dtype = torch.float32
@@ -127,12 +113,12 @@ def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    rc = _lib().pul_matmul(
+    rc = lib("pul_matmul").pul_matmul(
         _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), DTYPES.index(a.dtype),
         int(out_dtype == torch.bfloat16), plan.smem_bytes,
-        ctypes.c_void_p(torch.cuda.current_stream(a.device).cuda_stream))
+        _stream(a))
     _raise_on(rc, "pul_matmul")
     LAUNCHES["k10"] += 1
     return out

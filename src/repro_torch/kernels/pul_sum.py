@@ -18,19 +18,20 @@ their streams).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
-from repro_torch.kernels.pul_attention import (
+from repro_torch.kernels._runtime import (
     LAUNCHES,
+    _blocks_per_sm,
     _check,
     _plan,
     _ptr,
     _raise_on,
+    _stream,
+    lib,
 )
 from repro_torch.kernels.pul_gather import split_runs
 
@@ -89,31 +90,6 @@ def sum_ref(data: torch.Tensor, trace: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # kernel wrapper
 # ---------------------------------------------------------------------- #
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_LIB = []
-
-
-def _lib() -> ctypes.CDLL:
-    """The built library of ``csrc/pul_sum.cu``, its signatures set."""
-    if not _LIB:
-        from repro_torch.kernels import _build
-        lib = _build.load("pul_sum")
-        lib.pul_sum.argtypes = [_P] * 4 + [_I] * 11 + [_P]
-        lib.pul_sum.restype = _I
-        lib.pul_sum_blocks_per_sm.argtypes = [_I, _I]
-        lib.pul_sum_blocks_per_sm.restype = _I
-        _LIB.append(lib)
-    return _LIB[0]
-
-
-@functools.lru_cache(maxsize=None)
-def _blocks_per_sm(dtype_code: int, smem_bytes: int) -> int:
-    n = _lib().pul_sum_blocks_per_sm(dtype_code, smem_bytes)
-    if n < 1:
-        raise RuntimeError(f"pul_sum occupancy query failed: {n}")
-    return n
-
-
 def pul_sum(data: torch.Tensor, trace: torch.Tensor, *,
             cfg: PULConfig = PULConfig(),
             rows_per_req: int = 1) -> torch.Tensor:
@@ -148,16 +124,17 @@ def pul_sum(data: torch.Tensor, trace: torch.Tensor, *,
         return out
     code = DTYPES.index(data.dtype)
     sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-    pes = sms * _blocks_per_sm(code, plan.smem_bytes) * plan.pes_per_block
+    pes = (sms * _blocks_per_sm("pul_sum", code, plan.smem_bytes)
+           * plan.pes_per_block)
     run = split_runs(n, plan.distance, pes)
     grid = -(-(-(-n // run)) // plan.pes_per_block)
     partials = torch.empty(grid, dtype=torch.float32, device=data.device)
-    rc = _lib().pul_sum(
+    rc = lib("pul_sum").pul_sum(
         _ptr(data), _ptr(trace), _ptr(partials), _ptr(out), n,
         rows_per_req * W * data.element_size(), plan.lanes, plan.per_lane,
         run, grid, plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes, code,
-        ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream))
+        _stream(data))
     _raise_on(rc, "pul_sum")
     LAUNCHES["k8"] += 1
     return out

@@ -15,16 +15,25 @@ in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
 commits bitwise equal to the plain commits. Planted faults (the last visible
 page of the longest row skipped, the current token not folded) must fall
-outside that limit; that check also runs on the CPU.
+outside that limit; that check also runs on the CPU. The dense attention
+pair, K7 (flash attention) and K6 (decode over a dense cache), is held the
+same way in bf16 and to rtol = atol = 3e-4 in f32, at d = 1 and 4 in both
+issue orders, with its own planted faults (the last KV chunk lost, the
+softcap dropped).
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import IssueStrategy, PULConfig
-from repro_torch.kernels import pul_attention as PA
+from repro_torch.kernels import ops
+from repro_torch.kernels.pul_decode import (
+    decode_attention_kernel_ref,
+    pul_decode_attention,
+)
 from repro_torch.kernels.pul_filter import (
     filter_materialize_ref,
     filter_ref,
@@ -38,6 +47,9 @@ from repro_torch.kernels.pul_gather import (
 )
 from repro_torch.kernels.pul_matmul import matmul_ref, pul_matmul
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref
+
+# the module (the package exports the function pul_attention under its name)
+PA = importlib.import_module("repro_torch.kernels.pul_attention")
 
 
 
@@ -465,3 +477,175 @@ def test_micro_launches_are_counted_and_checks_raise(dev):
                    bm=32, bk=16, bn=32)
     assert {k: PA.LAUNCHES[k] - before[k] for k in before} == {
         "k8": 1, "k9": 1, "k10": 1}
+
+
+# ------------------------------------------------- dense attention: K6/K7
+def _dense_close(got, want):
+    """bf16: two bf16 ulps of each row's largest |value|; f32: rtol = atol
+    = 3e-4 (the reference's f32 kernel tolerance)."""
+    if want.dtype == torch.bfloat16:
+        return _close(got, want)
+    return bool(((got.float() - want.float()).abs()
+                 <= 3e-4 + 3e-4 * want.float().abs()).all())
+
+
+def _dense(dev, dtype, *shapes, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return [(torch.randn(s, generator=gen) * a).to(dev, dtype)
+            for s, a in shapes]
+
+
+# (B, H, K, T, S, options): hd = 128 throughout
+ATTN_CASES = {
+    "causal-gqa2": (2, 4, 2, 80, 160, dict(bt=16)),
+    "softcap+window+tail": (1, 8, 2, 64, 200,
+                            dict(softcap=2.0, window=50, bt=64)),
+    "rows-before-keys": (1, 2, 1, 96, 48, dict(bt=32, bs=40)),
+    "window-no-causal": (1, 2, 2, 64, 130, dict(causal=False, window=30)),
+}
+DENSE_CFGS = [PULConfig(distance=d, strategy=s) for d in (1, 4)
+              for s in IssueStrategy]
+DENSE_IDS = [f"d{d}-{s.name.lower()}" for d in (1, 4) for s in IssueStrategy]
+
+
+def _attn_case(dev, case, dtype):
+    B, H, K, T, S, kw = ATTN_CASES[case]
+    qs = 3.0 if "softcap" in kw else 0.3     # logits the softcap bends
+    q, k, v = _dense(dev, dtype, ((B, H, T, 128), qs), ((B, K, S, 128), 0.3),
+                     ((B, K, S, 128), 1.0))
+    return q, k, v, kw
+
+
+def _attn_faults(q, k, v, kw):
+    """The plain version with the last KV chunk the kernel streams left
+    out (its keys zeroed), and with the softcap dropped (or, without one,
+    the scale doubled)."""
+    S = k.shape[2]
+    cut = max(0, S - 32)
+    kz, vz = k.clone(), v.clone()
+    kz[:, :, cut:] = 0
+    vz[:, :, cut:] = 0
+    ref_kw = {n: x for n, x in kw.items() if n != "bt"}
+    wrong = (dict(ref_kw, softcap=None) if kw.get("softcap")
+             else dict(ref_kw, scale=2.0 / 128 ** 0.5))
+    return {"last chunk left out": PA.attention_kernel_ref(q, kz, vz, **ref_kw),
+            "softcap or scale wrong": PA.attention_kernel_ref(q, k, v, **wrong)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_plain_version(dev, dtype, cfg, case):
+    q, k, v, kw = _attn_case(dev, case, dtype)
+    got = PA.pul_attention(q, k, v, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    ref_kw = {n: x for n, x in kw.items() if n != "bt"}
+    want = PA.attention_kernel_ref(q, k, v, **ref_kw)
+    assert got.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K7 - plain| {err:.3e}"
+    for what, bad in _attn_faults(q, k, v, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_limit_rejects_planted_faults_on_cpu(dtype, case):
+    q, k, v, kw = _attn_case(torch.device("cpu"), case, dtype)
+    want = PA.attention_kernel_ref(
+        q, k, v, **{n: x for n, x in kw.items() if n != "bt"})
+    assert _dense_close(PA.pul_attention(q, k, v, **kw), want)
+    for what, bad in _attn_faults(q, k, v, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+# (B, H, K, S, lengths, options): hd = 128 throughout
+DECODE_CASES = {
+    "qwen3-heads": (4, 16, 8, 1000, [1000, 999, 1, 0], {}),
+    "segments+softcap": (2, 4, 2, 5000, [5000, 2100], dict(softcap=2.0)),
+    "group16": (2, 16, 1, 300, [300, 129], dict(bs=64)),
+}
+
+
+def _decode_case(dev, case, dtype):
+    B, H, K, S, lengths, kw = DECODE_CASES[case]
+    qs = 3.0 if "softcap" in kw else 0.3     # logits the softcap bends
+    q, k, v = _dense(dev, dtype, ((B, H, 128), qs), ((B, K, S, 128), 0.3),
+                     ((B, K, S, 128), 1.0), seed=1)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev), kw
+
+
+def _decode_faults(q, k, v, length, kw):
+    """The plain version with the longest row's last 64 keys left out, and
+    with the softcap dropped (or, without one, the scale doubled)."""
+    cut = length.clone()
+    row = int(cut.argmax())
+    cut[row] -= 64
+    wrong = (dict(kw, softcap=None) if kw.get("softcap")
+             else dict(kw, scale=2.0 / 128 ** 0.5))
+    return {"last chunk left out": decode_attention_kernel_ref(
+                q, k, v, cut, **kw),
+            "softcap or scale wrong": decode_attention_kernel_ref(
+                q, k, v, length, **wrong)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain_version(dev, dtype, cfg, case):
+    q, k, v, length, kw = _decode_case(dev, case, dtype)
+    got = pul_decode_attention(q, k, v, length, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    want = decode_attention_kernel_ref(q, k, v, length, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K6 - plain| {err:.3e}"
+    for what, bad in _decode_faults(q, k, v, length, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_limit_rejects_planted_faults_on_cpu(dtype, case):
+    q, k, v, length, kw = _decode_case(torch.device("cpu"), case, dtype)
+    want = decode_attention_kernel_ref(q, k, v, length, **kw)
+    assert _dense_close(pul_decode_attention(q, k, v, length, **kw), want)
+    for what, bad in _decode_faults(q, k, v, length, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+@pytest.mark.cuda
+def test_dense_launches_are_counted_and_checks_raise(dev):
+    q, k, v = _dense(dev, torch.bfloat16, ((1, 4, 64, 128), 1.0),
+                     ((1, 2, 64, 128), 1.0), ((1, 2, 64, 128), 1.0))
+    qd = q[:, :, 0].contiguous()
+    length = torch.tensor([40], dtype=torch.int32, device=dev)
+    before = {n: PA.LAUNCHES[n] for n in ("k6", "k7")}
+    ops.attention_op(q, k, v)
+    pul_decode_attention(qd, k, v, length)
+    torch.cuda.synchronize()
+    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == {"k6": 1, "k7": 1}
+    with pytest.raises(ValueError, match="is on"):
+        PA.pul_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="dtype"):
+        PA.pul_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError, match="dtype"):
+        PA.pul_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="built for"):
+        PA.pul_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                         v[..., :64].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        PA.pul_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
+    with pytest.raises(ValueError, match="query rows"):
+        PA.pul_attention(q[:, :3].contiguous(), k[:, :1].contiguous(),
+                         v[:, :1].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        pul_decode_attention(qd.float(), k, v, length)
+    with pytest.raises(ValueError, match="shape"):
+        pul_decode_attention(qd, k, v, torch.tensor([40, 3], device=dev))
+    with pytest.raises(ValueError, match="at most"):
+        pul_decode_attention(
+            torch.zeros((1, 34, 128), dtype=torch.bfloat16, device=dev),
+            k[:, :2], v[:, :2], length)
+    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == {"k6": 1, "k7": 1}

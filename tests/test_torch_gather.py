@@ -7,6 +7,7 @@ comparison is bitwise (raw bits for bf16). The CUDA kernel itself runs only
 on the card (tests/test_torch_cuda.py); its ring plan and grid split are
 plain Python and are checked here at the serving geometries.
 """
+import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +18,6 @@ from repro.core import PULConfig as RefPULConfig
 from repro.kernels.pul_gather import pul_gather as ref_gather
 from repro.kernels.pul_gather import pul_page_gather as ref_page_gather
 from repro_torch.core import IssueStrategy, PULConfig
-from repro_torch.kernels import pul_attention as PA
 from repro_torch.kernels.pul_gather import (
     gather_ref,
     gather_ring_plan,
@@ -26,6 +26,9 @@ from repro_torch.kernels.pul_gather import (
     pul_page_gather,
     run_length,
 )
+
+# the module (the package exports the function pul_attention under its name)
+PA = importlib.import_module("repro_torch.kernels.pul_attention")
 
 DTYPES = {"f32": (np.float32, jnp.float32, torch.float32),
           "bf16": (np.float32, jnp.bfloat16, torch.bfloat16),

@@ -83,6 +83,17 @@ def test_microbench_slice_module_imports_with_jax_blocked(module):
     test_mla_slice_module_imports_with_jax_blocked(module)
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.kernels._runtime", "repro_torch.kernels.pul_decode",
+    "repro_torch.kernels.pul_attention", "repro_torch.kernels.ref",
+    "repro_torch.kernels.ops", "repro_torch.kernels"])
+def test_dense_attention_slice_module_imports_with_jax_blocked(module):
+    """The dense attention slice's modules (the shared wrapper runtime, K6,
+    K7, the oracles and ops.attention_op) on their own, jax and repro
+    blocked."""
+    test_mla_slice_module_imports_with_jax_blocked(module)
+
+
 def test_no_port_source_imports_jax_or_the_reference():
     offenders = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
                  for f in _port_sources()

@@ -6,6 +6,7 @@ throughout, so the tolerance is the reference kernel tests' rtol = atol =
 3e-4 (tests/test_kernels.py); committed plane rows are compared bitwise.
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
+import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,7 +21,9 @@ from repro.kernels.pul_attention import (
     pul_paged_sweep_mla_decode_attention as ref_k3,
 )
 from repro_torch.core import IssueStrategy, PULConfig
-from repro_torch.kernels import pul_attention as PA
+
+# the module (the package exports the function pul_attention under its name)
+PA = importlib.import_module("repro_torch.kernels.pul_attention")
 
 TOL = 3e-4
 
@@ -41,7 +44,10 @@ def _inputs(B, H, K, hd, P, n_pages, L, lengths, seed=0):
     pt = (rng.permutation(NF - 2)[:B * n_pages] + 2).reshape(B, n_pages)
     lens = np.asarray(lengths, np.int32)
     frames = pt[np.arange(B), np.minimum(lens // P, n_pages - 1)]
-    frames = np.where(lens == 0, 1, frames).astype(np.int32)   # TRASH frame
+    # an empty slot and a full one (nowhere to commit: the engine never
+    # decodes it) write the TRASH frame, which no stream reads
+    frames = np.where((lens == 0) | (lens == n_pages * P), 1,
+                      frames).astype(np.int32)
     return dict(q=f(B, H, hd, a=0.4), kp=f(L, NF, K, P, hd, a=0.4),
                 vp=f(L, NF, K, P, hd), kn=f(B, K, hd, a=0.4), vn=f(B, K, hd),
                 pt=pt.astype(np.int32), lens=lens, frames=frames,
@@ -186,7 +192,10 @@ def _mla_inputs(B, H, kvr, dr, P, n_pages, L, lengths, seed=0):
     pt = (rng.permutation(NF - 2)[:B * n_pages] + 2).reshape(B, n_pages)
     lens = np.asarray(lengths, np.int32)
     frames = pt[np.arange(B), np.minimum(lens // P, n_pages - 1)]
-    frames = np.where(lens == 0, 1, frames).astype(np.int32)   # TRASH frame
+    # an empty slot and a full one (nowhere to commit: the engine never
+    # decodes it) write the TRASH frame, which no stream reads
+    frames = np.where((lens == 0) | (lens == n_pages * P), 1,
+                      frames).astype(np.int32)
     return dict(qa=f(B, H, kvr), qr=f(B, H, dr), cp=f(L, NF, P, kvr),
                 rp=f(L, NF, P, dr), cn=f(B, kvr), rn=f(B, dr),
                 pt=pt.astype(np.int32), lens=lens, frames=frames,

@@ -26,7 +26,11 @@ from repro.kernels.pul_sum import pul_sum as ref_sum
 from repro_torch.benchmarks import paper_experiments as P
 from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.pul_attention import LAUNCHES, SMEM_LIMIT_BYTES
+from repro_torch.kernels.pul_attention import (
+    LAUNCHES,
+    SMEM_LIMIT_BYTES,
+    attention_kernel_ref,
+)
 from repro_torch.kernels.pul_filter import filter_ring_plan, pul_filter
 from repro_torch.kernels.pul_matmul import matmul_ring_plan, pul_matmul
 from repro_torch.kernels.pul_gather import split_runs
@@ -247,9 +251,10 @@ def test_ops_route_to_the_kernels_and_plain_versions_on_cpu():
     a = torch.from_numpy(rng.standard_normal((128, 128), dtype=np.float32))
     assert torch.equal(ops.matmul_op(a, a.T.contiguous()),
                        ref.matmul_ref(a, a.T))
+    q = torch.from_numpy(rng.standard_normal((1, 2, 32, 16), dtype=np.float32))
+    assert torch.equal(ops.attention_op(q, q, q, bt=32, bs=16),
+                       attention_kernel_ref(q, q, q, bs=16))
     assert dict(LAUNCHES) == before     # the plain versions count nothing
-    with pytest.raises(NotImplementedError, match="K7"):
-        ops.attention_op(data, data, data)
 
 
 def test_wrappers_refuse_other_devices_instead_of_falling_back():
