@@ -22,10 +22,12 @@ exit code is not 0:
                      versions: K8 (SUM) and K9 (filter) on a 4 GiB table of
                      2^26 64-byte rows, K8 exactly equal to the fp64 sum (the
                      values make every order exact), K9 bitwise in both modes
-                     and at both unload distances; K10 at 4096^3 bf16 -> f32
-                     and 2048^3 f32 through ops.matmul_op, within
-                     2 sqrt(K) 2^-24 (|A||B|); a planted fault each; times,
-                     bounds, plain times, torch.matmul for K10
+                     and at both unload distances; K10 at 4096^3 bf16 -> f32,
+                     2048^3 f32 and 4096^3 bf16 -> bf16 through
+                     ops.matmul_op, within 2 sqrt(K) 2^-24 (|A||B|) (plus
+                     one bf16 rounding for the bf16 output), both bf16 cases
+                     on the wgmma body (its own launch count); a planted fault
+                     each; times, bounds, plain times, torch.matmul for K10
   7. paper        -- run_all on the card: the DMA twin's Exps. 1-5 and the
                      functional sweep through K8 and K9, all 11 claims PASS;
                      then K8 timed over d in {1, ..., 32} x both issue orders
@@ -34,8 +36,11 @@ exit code is not 0:
   8. kernels-attn -- the dense attention pair: K7 through ops.attention_op
                      (qwen3 prefill at T = S = 4096, a chunk of 512 over
                      4096, gemma2-27b widths with softcap 50 and window
-                     4096, f32 at 1024) and K6 over a dense qwen3 cache of
-                     32768 at 8 lengths; launches counted on that path; each
+                     4096, f32 at 1024, qwen2.5-32b's group of 5 and
+                     gemma3-12b's hd 256 with window 1024, both at
+                     T = S = 4096) and K6 over a dense qwen3 cache of
+                     32768 at 8 lengths; launches counted on that path, every
+                     bf16 case on the tensor-core body (its own count); each
                      against its plain version (bf16 two ulps of the row's
                      largest value, f32 3e-4) at d in {1, 4} in both issue
                      orders; planted faults; times, bounds, plain times and
@@ -52,7 +57,8 @@ exit code is not 0:
                      K3 and then K4: bitwise-equal tokens
  13. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
                      as in phase 10, one decode step against K3's
- 14. summary      -- one JSON line listing the kernels
+ 14. summary      -- one JSON line listing the kernels, with the body each
+                     ran (wgmma, mma.sync or fma)
  15. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
@@ -79,6 +85,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,7 +109,7 @@ from repro_torch.kernels.pul_filter import (  # noqa: E402
 from repro_torch.kernels.pul_gather import (  # noqa: E402
     gather_ref, gather_ring_plan, page_gather_ref, pul_gather, pul_page_gather)
 from repro_torch.kernels.pul_matmul import (  # noqa: E402
-    matmul_ref, matmul_ring_plan)
+    matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
@@ -215,13 +222,50 @@ def phase_build():
     secs = time.perf_counter() - t0
     for source, path in zip(SOURCES, paths):
         info = _build.BUILD_INFO[source]
-        ptxas = " | ".join(line.strip() for line in
-                           str(info["ptxas"]).splitlines()
-                           if "registers" in line or "spill" in line)
+        kernels = _ptxas_kernels(str(info["ptxas"]))
+        regs = ", ".join(f"{k} {r}" for k, r, _ in kernels)
+        spills = [f"{k} {sp} B" for k, _, sp in kernels if sp]
         print(f"[build] {path.name}: nvcc {info['seconds']:.2f} s; "
-              f"ptxas: {ptxas}")
+              f"registers: {regs}; spill stores: "
+              f"{', '.join(spills) or 'none'}")
     print(f"[build] {len(paths)} sources in {secs:.2f} s")
     return secs
+
+
+def _kernel_label(mangled):
+    """A readable name of a mangled kernel: name<type, ints> (the name is
+    the length-prefixed identifier that ends in 'kernel')."""
+    for i in range(len(mangled)):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            continue
+        end = i + m.end()
+        name = mangled[end:end + int(m.group())]
+        if name.endswith("kernel"):
+            rest = mangled[end + len(name):]
+            args = (["f32"] if rest.startswith("If") else
+                    ["bf16"] if rest.startswith("I13__nv_bfloat16") else [])
+            args += re.findall(r"Li(\d+)E", rest)
+            return f"{name}<{','.join(args)}>" if args else name
+    return mangled
+
+
+def _ptxas_kernels(ptxas):
+    """(kernel, registers, spill-store bytes) of each entry function in
+    ptxas's -v report."""
+    out, name, spill = [], None, 0
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = _kernel_label(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
 
 
 def engine_distance(kv_features=2 * L * KV * HD, gqa_group=H // KV):
@@ -623,16 +667,22 @@ def phase_kernels_gather():
 # ---------------------------------------------------------------------- #
 # dense attention: the flash attention K7 through ops.attention_op and the
 # decode attention K6 over a dense cache. Widths of qwen3-1.7b (16 query
-# heads over 8 kv heads, hd 128) and of gemma2-27b (32 over 16, hd 128,
-# attention softcap 50 and sliding window 4096: arXiv:2408.00118).
-#: label, (B, H, K, T, S), type, options, q's scale (8 on the softcap case,
-#: so that its logits reach the cap)
+# heads over 8 kv heads, hd 128), of gemma2-27b (32 over 16, hd 128,
+# attention softcap 50 and sliding window 4096: arXiv:2408.00118), of
+# qwen2.5-32b (40 over 8: a group of 5, which does not divide 64 rows;
+# the published Qwen2.5-32B config) and of gemma3-12b's local layers (16
+# over 8, hd 256, sliding window 1024; the published Gemma 3 12B config).
+#: label, (B, H, K, T, S, hd), type, options, q's scale (8 on the softcap
+#: case, so that its logits reach the cap)
 ATTN = (
-    ("K7-prefill", (2, H, KV, 4096, 4096), torch.bfloat16, {}, 1.0),
-    ("K7-chunk", (2, H, KV, 512, 4096), torch.bfloat16, {}, 1.0),
-    ("K7-gemma2", (1, 32, 16, 1024, 8192), torch.bfloat16,
+    ("K7-prefill", (2, H, KV, 4096, 4096, HD), torch.bfloat16, {}, 1.0),
+    ("K7-chunk", (2, H, KV, 512, 4096, HD), torch.bfloat16, {}, 1.0),
+    ("K7-gemma2", (1, 32, 16, 1024, 8192, 128), torch.bfloat16,
      dict(softcap=50.0, window=4096), 8.0),
-    ("K7-f32", (2, H, KV, 1024, 1024), torch.float32, {}, 1.0),
+    ("K7-f32", (2, H, KV, 1024, 1024, HD), torch.float32, {}, 1.0),
+    ("K7-qwen2.5-32b", (1, 40, 8, 4096, 4096, 128), torch.bfloat16, {}, 1.0),
+    ("K7-gemma3-12b", (1, 16, 8, 4096, 4096, 256), torch.bfloat16,
+     dict(window=1024), 1.0),
 )
 #: K6: qwen3-1.7b decode over a dense cache of S positions, 8 rows
 DECODE_S = 32768
@@ -669,15 +719,15 @@ def _visible_pairs(T, S, causal=True, window=None):
 def _attn_bound(shape, dtype, opts):
     """Flops of the visible pairs (4 hd each) over the peak of the operands'
     type, against q, k, v and out moved once."""
-    B, Hq, K, T, S = shape
+    B, Hq, K, T, S, hd = shape
     pairs = B * Hq * _visible_pairs(T, S, opts.get("causal", True),
                                     opts.get("window"))
     item = torch.tensor([], dtype=dtype).element_size()
     peak = BF16_TC_PEAK if dtype == torch.bfloat16 else FP32_PEAK
-    t_ops = 4.0 * HD * pairs / peak * 1e3
-    t_bytes = (2 * B * Hq * T + 2 * B * K * S) * HD * item / HBM_PEAK * 1e3
+    t_ops = 4.0 * hd * pairs / peak * 1e3
+    t_bytes = (2 * B * Hq * T + 2 * B * K * S) * hd * item / HBM_PEAK * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-            4.0 * HD * pairs)
+            4.0 * hd * pairs)
 
 
 def _sdpa(q, k, v, **kw):
@@ -718,11 +768,11 @@ def phase_kernels_attn(device="cuda"):
     gen.manual_seed(4)
     cases = []
     for label, shape, dtype, opts, qs in ATTN:
-        B, Hq, K, T, S = shape
-        q = (torch.randn((B, Hq, T, HD), generator=gen, device=dev)
+        B, Hq, K, T, S, hd = shape
+        q = (torch.randn((B, Hq, T, hd), generator=gen, device=dev)
              * qs).to(dtype)
-        k = torch.randn((B, K, S, HD), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, K, S, HD), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, K, S, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, K, S, hd), generator=gen, device=dev).to(dtype)
         cases.append((label, shape, dtype, opts, q, k, v))
     q6, k6, v6, lens = _decode_inputs(gen, dev)
 
@@ -733,10 +783,12 @@ def phase_kernels_attn(device="cuda"):
             for _, _, _, opts, q, k, v in cases]
     out6 = pul_decode_attention(q6, k6, v6, lens)
     _sync(device)
-    launches = {"k6": PA.LAUNCHES["k6"], "k7": PA.LAUNCHES["k7"]}
-    if launches != {"k6": 1, "k7": len(cases)}:
+    launches = {k: PA.LAUNCHES[k] for k in ("k6", "k7", "k7_tc")}
+    n_bf16 = sum(c[2] == torch.bfloat16 for c in cases)
+    if launches != {"k6": 1, "k7": len(cases), "k7_tc": n_bf16}:
         raise AssertionError(f"the main path launched {launches}, not K7 "
-                             f"{len(cases)} times and K6 once")
+                             f"{len(cases)} times ({n_bf16} bf16 cases on the "
+                             "tensor-core body) and K6 once")
 
     rows, k7_err = {}, 0.0
     for (label, shape, dtype, opts, q, k, v), got in zip(cases, outs):
@@ -765,25 +817,32 @@ def phase_kernels_attn(device="cuda"):
         ms = _time_ms(lambda: ops.attention_op(q, k, v, **opts))
         plain_ms = _time_ms(lambda: PA.attention_kernel_ref(q, k, v, **opts),
                             reps=5)
-        B, Hq, K, T, S = shape
+        B, Hq, K, T, S, hd = shape
         library_ms = None
-        if not opts:
+        if not opts.get("softcap"):
             # SDPA's is_causal aligns the queries to the first keys; with
-            # T < S the end-aligned mask goes in as a boolean mask
-            kw = (dict(is_causal=True) if T == S else dict(
-                attn_mask=torch.arange(S, device=dev)[None, :]
-                <= torch.arange(T, device=dev)[:, None] + (S - T)))
+            # T < S or a window the end-aligned mask goes in as a boolean
+            # mask (every row sees a key there, so SDPA's value is K7's)
+            iq = torch.arange(T, device=dev)[:, None] + (S - T)
+            jk = torch.arange(S, device=dev)[None, :]
+            mask = jk <= iq
+            if opts.get("window"):
+                mask = mask & (jk > iq - opts["window"])
+            kw = (dict(is_causal=True) if T == S and not opts
+                  else dict(attn_mask=mask))
             library_ms = _time_ms(_sdpa(q, k, v, **kw))
+            del mask
         bound_ms, bound_by, flops = _attn_bound(shape, dtype, opts)
+        body = PA.attention_body(dtype)
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms)
+                           library_ms=library_ms, body=body)
         lib_txt = ("none (no single PyTorch call applies the softcap)"
                    if library_ms is None else
-                   f"SDPA {library_ms:.4f} ms (K7 {ms / library_ms:.1f} x)")
+                   f"SDPA {library_ms:.4f} ms (K7 {ms / library_ms:.2f} x)")
         print(f"[kernels-attn] {label} B={B} H={Hq} K={K} T={T} S={S} "
-              f"{str(dtype).split('.')[-1]}{' ' + str(opts) if opts else ''}"
-              f": max|K7-plain| "
+              f"hd={hd} {str(dtype).split('.')[-1]}"
+              f"{' ' + str(opts) if opts else ''} body {body}: max|K7-plain| "
               f"{err:.3e} within the limit via ops.attention_op and at d=1/4 "
               f"BATCH/SEQUENTIAL; planted faults rejected: "
               f"{planted}; K7 {ms:.4f} ms "
@@ -827,7 +886,7 @@ def phase_kernels_attn(device="cuda"):
     rows["K6"] = dict(max_abs_err=err6, ms=ms, plain_ms=plain_ms,
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                      library_ms=library_ms)
+                      library_ms=library_ms, body="fma")
     print(f"[kernels-attn] K6 B=8 H={H} K={KV} S={DECODE_S} bf16 lengths "
           f"{list(DECODE_LENGTHS)}: max|K6-plain| {err6:.3e} within the limit "
           f"at the default ring and at d=1/4 BATCH/SEQUENTIAL; planted "
@@ -847,9 +906,11 @@ def phase_kernels_attn(device="cuda"):
 #: the SUM/filter table: 2^26 rows of 16 f32 (the paper's 64-byte transfer
 #: unit), 4 GiB, and 2^24 random requests of one row
 MICRO_ROWS, MICRO_W, MICRO_REQS = 2 ** 26, 16, 2 ** 24
-#: K10's products, through ops.matmul_op at its default tiles
-MATMULS = (("4096^3 bf16 -> f32", 4096, torch.bfloat16),
-           ("2048^3 f32", 2048, torch.float32))
+#: K10's products, through ops.matmul_op at its default tiles: label, n, the
+#: inputs' type, the output's type
+MATMULS = (("4096^3 bf16 -> f32", 4096, torch.bfloat16, torch.float32),
+           ("2048^3 f32", 2048, torch.float32, torch.float32),
+           ("4096^3 bf16 -> bf16", 4096, torch.bfloat16, torch.bfloat16))
 
 
 def _micro_table(gen, dev):
@@ -898,11 +959,15 @@ def _words(t):
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
-def _matmul_limit(a, b):
+def _matmul_limit(a, b, out_dtype=torch.float32):
     """2 sqrt(K) 2^-24 (|A| |B|): the random-walk size of fp32 rounding in a
-    K-term sum with every partial sum at its largest, sum |a b|."""
+    K-term sum with every partial sum at its largest, sum |a b|; for a bf16
+    output one bf16 rounding of the result, 2^-8 |A B|, on top."""
     K = a.shape[1]
-    return 2.0 * math.sqrt(K) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+    limit = 2.0 * math.sqrt(K) * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+    if out_dtype == torch.bfloat16:
+        limit += 2.0 ** -8 * (a.float() @ b.float()).abs()
+    return limit
 
 
 def phase_kernels_micro(device="cuda"):
@@ -986,52 +1051,66 @@ def phase_kernels_micro(device="cuda"):
     del want_bv, bad
     # K10 through the path's entry point, ops.matmul_op
     cases = []
-    for label, n, dtype in MATMULS:
+    for label, n, dtype, out_dtype in MATMULS:
         a = torch.randn((n, n), generator=gen, device=dev).to(dtype)
         b = torch.randn((n, n), generator=gen, device=dev).to(dtype)
-        cases.append((label, a, b))
+        cases.append((label, a, b, out_dtype))
     for k in PA.LAUNCHES:
         PA.LAUNCHES[k] = 0
-    outs = [ops.matmul_op(a, b) for _, a, b in cases]
+    outs = [ops.matmul_op(a, b, out_dtype=od) for _, a, b, od in cases]
     _sync(device)
     k10_launches = PA.LAUNCHES["k10"]
-    if k10_launches != len(cases):
+    n_tc = sum(matmul_body(a.dtype, 128, 128) == "wgmma"
+               for _, a, _, _ in cases)
+    if (k10_launches, PA.LAUNCHES["k10_wgmma"]) != (len(cases), n_tc):
         raise AssertionError(f"ops.matmul_op launched K10 {k10_launches} "
-                             f"times for {len(cases)} products")
+                             f"times, {PA.LAUNCHES['k10_wgmma']} on the "
+                             f"tensor cores, for {len(cases)} products "
+                             f"({n_tc} bf16)")
     k10 = None
-    for (label, a, b), got in zip(cases, outs):
+    for (label, a, b, out_dtype), got in zip(cases, outs):
         want = matmul_ref(a, b)
-        limit = _matmul_limit(a, b)
-        err = (got - want).abs()
+        limit = _matmul_limit(a, b, out_dtype)
+        err = (got.float() - want).abs()
         if not bool((err <= limit).all()):
             raise AssertionError(f"K10 {label}: error up to "
                                  f"{(err / limit).max().item():.2f} x the "
                                  "limit")
-        c = matmul_ring_plan(PULConfig(), bm=128, bk=128, bn=128,
-                             itemsize=a.element_size()).bk_chunk
+        body = matmul_body(a.dtype, 128, 128)
+        plan = (matmul_tc_plan(PULConfig(), bm=128, bk=128, bn=128)
+                if body == "wgmma" else
+                matmul_ring_plan(PULConfig(), bm=128, bk=128, bn=128,
+                                 itemsize=a.element_size()))
+        c = plan.bk_chunk
         bad = want - a[:, :c].float() @ b[:c].float()
         if bool(((bad - want).abs() <= limit).all()):
             raise AssertionError(f"K10 {label}: the limit lets a planted "
                                  "fault through: one K chunk left out")
         del bad
-        ms = _time_ms(lambda: ops.matmul_op(a, b), reps=10)
+        ms = _time_ms(lambda: ops.matmul_op(a, b, out_dtype=out_dtype),
+                      reps=10)
         plain_ms = _time_ms(lambda: matmul_ref(a, b), reps=10)
         library_ms = _time_ms(lambda: torch.matmul(a, b), reps=10)
         n = a.shape[0]
         peak = BF16_TC_PEAK if a.dtype == torch.bfloat16 else FP32_PEAK
         t_ops = 2.0 * n ** 3 / peak * 1e3
-        t_bytes = (2 * n * n * a.element_size() + n * n * 4) / HBM_PEAK * 1e3
+        out_item = torch.tensor([], dtype=out_dtype).element_size()
+        t_bytes = (2 * n * n * a.element_size() + n * n * out_item) / HBM_PEAK * 1e3
         row = dict(max_abs_err=err.max().item(), ms=ms, plain_ms=plain_ms,
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   library_ms=library_ms)
+                   library_ms=library_ms, body=body)
         print(f"[kernels-micro] K10 {label} via ops.matmul_op (tiles 128^3, "
-              f"K chunk {c}): max|K10-plain| {row['max_abs_err']:.3e} (limit "
-              f"2 sqrt(K) 2^-24 (|A||B|), up to {limit.max().item():.3e}); "
-              f"planted fault rejected: one K chunk left out; K10 {ms:.4f} "
-              f"ms ({2.0 * n ** 3 / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms "
-              f"({'bf16 out' if a.dtype == torch.bfloat16 else 'f32'}), bound "
+              f"body {body}, K chunk {c}, d {plan.distance}, {plan.slots} "
+              f"slots): max|K10-plain| {row['max_abs_err']:.3e} (limit "
+              f"2 sqrt(K) 2^-24 (|A||B|)"
+              f"{' + 2^-8 |AB|' if out_dtype == torch.bfloat16 else ''}, up to "
+              f"{limit.max().item():.3e}); planted fault rejected: one K "
+              f"chunk left out; K10 {ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul "
+              f"{library_ms:.4f} ms "
+              f"({'bf16 out' if a.dtype == torch.bfloat16 else 'f32'}; K10 "
+              f"{ms / library_ms:.2f} x), bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
         k10 = k10 or row
         del want, limit, err
@@ -1607,7 +1686,10 @@ def main():
                      **{k: kern[key][k] for k in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms",
                          "bound_by")},
-                     "library_ms": kern[key].get("library_ms")})
+                     "library_ms": kern[key].get("library_ms"),
+                     # which body ran: "wgmma" or "mma.sync" on the tensor
+                     # cores, "fma" on the CUDA cores
+                     "body": kern[key].get("body", "fma")})
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ from repro_torch.kernels.pul_attention import (
     LAUNCHES,
     NEG_INF,
     RingPlan,
+    attention_body,
     attention_kernel_ref,
     attention_ring_plan,
+    attention_tc_plan,
     mla_ring_plan,
     paged_decode_attention_ref,
     paged_mla_decode_attention_ref,
@@ -41,8 +43,10 @@ from repro_torch.kernels.pul_gather import (
 )
 from repro_torch.kernels.pul_matmul import (
     MatmulPlan,
+    matmul_body,
     matmul_ref,
     matmul_ring_plan,
+    matmul_tc_plan,
     pul_matmul,
 )
 from repro_torch.kernels.pul_sum import SumPlan, pul_sum, sum_ref, sum_ring_plan
@@ -55,7 +59,8 @@ SOURCES = ("pul_paged_decode", "pul_paged_mla_decode", "pul_gather",
 
 __all__ = [
     "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_ring_plan", "ring_plan",
-    "ref", "attention_ring_plan", "pul_attention", "attention_kernel_ref",
+    "ref", "attention_ring_plan", "attention_tc_plan", "attention_body",
+    "pul_attention", "attention_kernel_ref",
     "DecodePlan", "decode_ring_plan", "pul_decode_attention",
     "decode_attention_kernel_ref",
     "pul_paged_decode_attention", "pul_paged_sweep_decode_attention",
@@ -67,5 +72,6 @@ __all__ = [
     "SumPlan", "sum_ring_plan", "pul_sum", "sum_ref",
     "FilterPlan", "filter_ring_plan", "pul_filter", "filter_ref",
     "filter_materialize_ref",
-    "MatmulPlan", "matmul_ring_plan", "pul_matmul", "matmul_ref",
+    "MatmulPlan", "matmul_ring_plan", "matmul_tc_plan", "matmul_body",
+    "pul_matmul", "matmul_ref",
 ]

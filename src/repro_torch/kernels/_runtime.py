@@ -23,9 +23,11 @@ SMEM_LIMIT_BYTES = 232448
 MAX_RING_DISTANCE = 32
 #: kernel launches so far, by kernel ("k1"/"k3": sweep, "k2"/"k4": per-layer
 #: paged decode; "k5": the gather; "k6": dense decode attention; "k7": flash
-#: attention; "k8", "k9", "k10": the paper's microbenchmarks)
+#: attention; "k8", "k9", "k10": the paper's microbenchmarks). "k7_tc" and
+#: "k10_wgmma" count the launches of K7's and K10's tensor-core bodies, which
+#: "k7" and "k10" count too.
 LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
-            "k8": 0, "k9": 0, "k10": 0}
+            "k8": 0, "k9": 0, "k10": 0, "k7_tc": 0, "k10_wgmma": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signature of every entry point, by source (all return an int: 0 or the
@@ -44,7 +46,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                 "pul_sum_blocks_per_sm": [_I, _I]},
     "pul_filter": {"pul_filter": [_P, _P, _F] + [_I] * 12 + [_P],
                    "pul_filter_blocks_per_sm": [_I, _I]},
-    "pul_matmul": {"pul_matmul": [_P] * 3 + [_I] * 12 + [_P]},
+    "pul_matmul": {"pul_matmul": [_P] * 3 + [_I] * 12 + [_P],
+                   "pul_matmul_wgmma": [_P] * 3 + [_I] * 11 + [_P]},
     "pul_dense_attention": {
         "pul_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _F] + [_I] * 5 + [_P],
         "pul_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _F] + [_I] * 7 + [_P],

@@ -32,7 +32,8 @@ launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
 kernel, so a run can show the main path went through them.
 
 The in-kernel PUL ring is budgeted against Hopper's shared memory by
-:func:`ring_plan`, :func:`mla_ring_plan` and :func:`attention_ring_plan`
+:func:`ring_plan`, :func:`mla_ring_plan`, :func:`attention_tc_plan` (K7 in
+bf16, on the tensor cores) and :func:`attention_ring_plan` (K7 in f32)
 (the counterparts of the reference's ``ring_scratch`` VMEM check).
 """
 from __future__ import annotations
@@ -59,10 +60,14 @@ from repro_torch.kernels._runtime import (  # noqa: F401 (re-exported)
 NEG_INF = -2.0e38
 #: element types the dense attention kernels K6/K7 take
 DENSE_DTYPES = (torch.float32, torch.bfloat16)
-#: head dim the dense attention kernels are built for (the source's kHd)
-DENSE_HD = 128
-#: query rows of one K7 block (the source's kRows): G heads x 64 / G tokens
+#: head dims the dense attention kernels K6/K7 are built for: every hd of the
+#: reference's tests and of the model zoo
+DENSE_HDS = (16, 32, 64, 112, 128, 256)
+#: query rows of one block of K7's f32 body (the source's kRows) and of its
+#: bf16 tensor-core body (kTcRows): flattened (position, head) pairs of one
+#: kv head's G heads
 Q_ROWS = 64
+TC_ROWS = 128
 #: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
 HEAD_BLOCK = 8
 
@@ -108,16 +113,41 @@ def kv_slot_bytes(hd: int, itemsize: int) -> int:
     return 2 * kv_chunk_rows(itemsize) * (hd * itemsize + 16)
 
 
-def attention_ring_plan(cfg: PULConfig, *, hd: int = DENSE_HD,
+def attention_ring_plan(cfg: PULConfig, *, hd: int = 128,
                         itemsize: int = 2) -> RingPlan:
-    """K7's ring: a slot holds one KV chunk (:func:`kv_slot_bytes`); besides
-    the ring a block keeps its Q_ROWS query rows in fp32 and the chunk's
-    (Q_ROWS, kv_chunk_rows) probabilities; the accumulator is in registers.
-    At hd = 128 and the default d = 4 BATCH that is 5 slots (of the 8
-    PULConfig asks for), 223,232 B bf16 and 209,920 B f32."""
+    """The ring of K7's f32 body: a slot holds one KV chunk
+    (:func:`kv_slot_bytes`); besides the ring a block keeps its Q_ROWS
+    query rows in fp32 and the chunk's (Q_ROWS, kv_chunk_rows)
+    probabilities; the accumulator is in registers. At hd = 128 and the
+    default d = 4 BATCH that is 5 slots (of the 8 PULConfig asks for),
+    223,232 B at itemsize 2 and 209,920 B f32."""
     aux = (Q_ROWS * hd + Q_ROWS * kv_chunk_rows(itemsize)) * 4
     return _plan(cfg, aux, kv_slot_bytes(hd, itemsize),
                  f"a {kv_chunk_rows(itemsize)}-key K and V chunk")
+
+
+def tc_chunk_rows(hd: int) -> int:
+    """Keys of one ring chunk of K7's bf16 body (the source's TcChunk::kBC):
+    64, or 32 at hd = 256, where the 16 x 256 fp32 O tile of a warp takes
+    128 registers."""
+    return 32 if hd == 256 else 64
+
+
+def attention_tc_plan(cfg: PULConfig, *, hd: int) -> RingPlan:
+    """The ring of K7's bf16 tensor-core body: a slot holds tc_chunk_rows(hd)
+    keys of K and of V in bf16, each row padded by one 16-byte granule;
+    beside the ring a block keeps its TC_ROWS query rows in bf16, padded
+    alike. At hd = 128 and the default d = 4 BATCH that is 5 slots of
+    34,816 B and 34,816 B of q, 208,896 B."""
+    row = hd * 2 + 16
+    return _plan(cfg, TC_ROWS * row, 2 * tc_chunk_rows(hd) * row,
+                 f"a {tc_chunk_rows(hd)}-key bf16 K and V chunk")
+
+
+def attention_body(dtype: torch.dtype) -> str:
+    """The K7 body that runs on the card for `dtype`: "mma.sync" (tensor
+    cores) for bf16, "fma" (CUDA cores) for f32."""
+    return "mma.sync" if dtype == torch.bfloat16 else "fma"
 
 
 # ---------------------------------------------------------------------- #
@@ -504,18 +534,20 @@ def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
 
 
 def _check_dense(q, k, v) -> None:
-    """What K6 and K7 take on the card: f32 or bf16 throughout, hd =
-    DENSE_HD, contiguous tensors on q's card."""
+    """What K6 and K7 take on the card: hd in DENSE_HDS, f32 or bf16
+    throughout, contiguous tensors on q's card. The head dim is checked
+    first, so that tensors on no device (``meta``) show the shapes the
+    kernels take."""
+    B, K, S, hd = k.shape
+    if hd not in DENSE_HDS:
+        raise ValueError(f"head dim {hd}: the kernel is built for "
+                         f"{DENSE_HDS}")
     if q.device.type != "cuda":
         raise ValueError(f"the dense attention kernels run on CUDA tensors, "
                          f"got {q.device}")
     if q.dtype not in DENSE_DTYPES:
         raise TypeError(f"q has dtype {q.dtype}, the kernel takes "
                         f"{', '.join(map(str, DENSE_DTYPES))}")
-    B, K, S, hd = k.shape
-    if hd != DENSE_HD:
-        raise ValueError(f"head dim {hd}: the kernel is built for "
-                         f"{DENSE_HD}")
     _check("q", q, q.shape, q.dtype, q.device)
     _check("k", k, (B, K, S, hd), q.dtype, q.device)
     _check("v", v, (B, K, S, hd), q.dtype, q.device)
@@ -546,9 +578,10 @@ def pul_attention(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
     H = K G, with the reference's signature (bt, bs: its query and KV block
     sizes; T % min(bt, T) == 0). Returns (B, H, T, hd) in q's type. CPU
     tensors take the plain version; CUDA tensors launch the kernel, which
-    takes f32 or bf16, hd = 128 and 64 % G == 0, and tiles by its own rule
-    (attention_ring_plan); bs keeps its meaning in the padded stream's
-    length."""
+    takes f32 or bf16, hd in DENSE_HDS and any G, and tiles by its own rule;
+    bs keeps its meaning in the padded stream's length. The body follows the
+    type (:func:`attention_body`): bf16 runs on the tensor cores
+    (attention_tc_plan), f32 on the CUDA cores (attention_ring_plan)."""
     B, H, T, hd = q.shape
     _, K, S, _ = k.shape
     if H % K:
@@ -563,11 +596,10 @@ def pul_attention(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
                                     window=window)
     G = H // K
     _check_dense(q, k, v)
-    if Q_ROWS % G:
-        raise ValueError(f"{G} query heads per kv head do not divide the "
-                         f"kernel's {Q_ROWS} query rows")
     s_pad = stream_length(S, bs)
-    plan = attention_ring_plan(cfg, hd=hd, itemsize=q.element_size())
+    tc = attention_body(q.dtype) == "mma.sync"
+    plan = (attention_tc_plan(cfg, hd=hd) if tc else
+            attention_ring_plan(cfg, hd=hd, itemsize=q.element_size()))
     out = torch.empty_like(q)
     rc = lib("pul_dense_attention").pul_flash_attention(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out), B, K, G, T, S, hd, s_pad,
@@ -576,4 +608,5 @@ def pul_attention(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
         softcap or 0.0, *_dense_args(cfg, plan, q))
     _raise_on(rc, "pul_flash_attention")
     LAUNCHES["k7"] += 1
+    LAUNCHES["k7_tc"] += tc
     return out

@@ -34,7 +34,6 @@ from repro_torch.kernels._runtime import (
     lib,
 )
 from repro_torch.kernels.pul_attention import (
-    DENSE_HD,
     _cap,
     _check_dense,
     _check_options,
@@ -60,7 +59,7 @@ class DecodePlan:
 
 
 def decode_ring_plan(cfg: PULConfig, *, B: int, K: int, G: int, s_pad: int,
-                     hd: int = DENSE_HD, itemsize: int = 2,
+                     hd: int = 128, itemsize: int = 2,
                      sms: int = 132) -> DecodePlan:
     """K6's ring and segments. A slot holds one KV chunk (as K7's); besides
     the ring a block keeps its G queries in fp32, the chunk's (G, chunk)
@@ -111,8 +110,8 @@ def pul_decode_attention(q, k, v, length, *, cfg: PULConfig = PULConfig(),
     """K6: q (B, H, hd), one token per head; k, v (B, K, S, hd) caches;
     length (B,) valid cache entries (<= S). Returns (B, H, hd) in q's type.
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 or bf16, hd = 128 and G = H / K <= 16; bs keeps its
-    meaning in the padded stream's length."""
+    which takes f32 or bf16, hd in DENSE_HDS and G = H / K <= 16; bs keeps
+    its meaning in the padded stream's length."""
     B, H, hd = q.shape
     _, K, S, _ = k.shape
     if H % K:
@@ -122,10 +121,10 @@ def pul_decode_attention(q, k, v, length, *, cfg: PULConfig = PULConfig(),
         return decode_attention_kernel_ref(q, k, v, length, bs=bs,
                                            scale=scale, softcap=softcap)
     G = H // K
-    _check_dense(q, k, v)
     if G > MAX_GROUP:
         raise ValueError(f"{G} query heads per kv head: the kernel holds at "
                          f"most {MAX_GROUP}")
+    _check_dense(q, k, v)
     length = torch.as_tensor(length, device=q.device).to(torch.int32)
     _check("length", length, (B,), torch.int32, q.device)
     s_pad = stream_length(S, bs)

@@ -4,14 +4,24 @@
 pul_matmul``: C = A B in (bm, bn) output tiles with fp32 accumulation and an
 ``out_dtype`` cast, the A and B tiles streamed along K through a preload
 ring (the paper's Fig. 1 roofline argument at tile granularity). The kernel
-is CUDA C++ for Hopper, ``csrc/pul_matmul.cu`` (see the note at its head):
-fp32 FMAs on the CUDA cores, no TF32; the ring streams chunks of K that
-:func:`matmul_ring_plan` picks so the slots fit shared memory.
+is CUDA C++ for Hopper, ``csrc/pul_matmul.cu`` (see the note at its head),
+with two bodies that :func:`matmul_body` chooses from the arguments:
+
+  * ``"wgmma"``: bf16 inputs with bm in (64, 128) and bn in (32, 64, 128).
+    Tensor cores (wgmma, fp32 accumulate) fed by TMA through an mbarrier
+    ring of K chunks, planned by :func:`matmul_tc_plan`.
+  * ``"fma"``: everything else (f32 inputs, bm = 32). fp32 FMAs on the CUDA
+    cores, no TF32; the ring streams chunks of K that
+    :func:`matmul_ring_plan` picks so the slots fit shared memory.
+
+The choice is a rule on the arguments, not a fallback: a build or launch
+failure of either body raises.
 
 Beside it is the plain version :func:`matmul_ref`, the fp32 product (the
 reference's ``kernels/ref.py::matmul_ref``). The wrapper takes it only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
-``LAUNCHES["k10"]`` counts its launches.
+``LAUNCHES["k10"]`` counts the launches of both bodies,
+``LAUNCHES["k10_wgmma"]`` those of the tensor-core body.
 """
 from __future__ import annotations
 
@@ -35,6 +45,17 @@ from repro_torch.kernels._runtime import (
 TILES = (32, 64, 128)
 #: input and output types the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
+#: output tile sides the tensor-core body takes (bf16 inputs)
+TC_BM = (64, 128)
+TC_BN = (32, 64, 128)
+#: K columns a tensor-core ring position may hold: one 128-, 64- or 32-byte
+#: swizzled row of bf16
+TC_CHUNKS = (64, 32, 16)
+#: bytes the tensor-core body keeps to align its tiles to the swizzle's
+#: 1024-byte atom
+TC_ALIGN = 1024
+#: the two mbarriers (full, empty) of one tensor-core ring slot
+TC_BARRIER_BYTES = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +88,33 @@ def matmul_ring_plan(cfg: PULConfig, *, bm: int, bk: int, bn: int,
     return MatmulPlan(ring.distance, ring.slots, ring.smem_bytes, chunk)
 
 
+def matmul_body(dtype: torch.dtype, bm: int, bn: int) -> str:
+    """The kernel body that runs a product of `dtype` inputs in (bm, bn)
+    output tiles: "wgmma" (tensor cores) for bf16 with bm in TC_BM and bn in
+    TC_BN, else "fma" (CUDA cores)."""
+    if dtype == torch.bfloat16 and bm in TC_BM and bn in TC_BN:
+        return "wgmma"
+    return "fma"
+
+
+def matmul_tc_plan(cfg: PULConfig, *, bm: int, bk: int,
+                   bn: int) -> MatmulPlan:
+    """The tensor-core body's ring: a position is one K chunk of bk_chunk
+    columns, the largest of TC_CHUNKS that divides bk (64 bf16 is one
+    128-byte swizzled row), holding the (bm, bk_chunk) A tile and the
+    (bk_chunk, bn) B tile beside their full and empty mbarriers. Distance
+    and slots come from PULConfig (2d BATCH, d + 1 SEQUENTIAL), clamped to
+    227 KB with TC_ALIGN bytes of alignment. At the default (128, 128, 128)
+    tiles and d = 4 that is 7 slots of 32 KB."""
+    chunk = next((c for c in TC_CHUNKS if bk % c == 0), None)
+    if chunk is None:
+        raise ValueError(f"a K tile of {bk} values is not whole chunks of "
+                         f"{TC_CHUNKS[-1]}")
+    ring = _plan(cfg, TC_ALIGN, (bm + bn) * chunk * 2 + TC_BARRIER_BYTES,
+                 f"a ({bm}, {chunk}) + ({chunk}, {bn}) bf16 tile pair")
+    return MatmulPlan(ring.distance, ring.slots, ring.smem_bytes, chunk)
+
+
 # ---------------------------------------------------------------------- #
 # plain version
 # ---------------------------------------------------------------------- #
@@ -85,7 +133,9 @@ def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """K10: C = A B, a (M, K) and b (K, N) of one type, M, K, N multiples of
     bm, bk, bn. Returns (M, N) in out_dtype. CPU tensors take the plain
     version (cast to out_dtype); CUDA tensors launch the kernel, which takes
-    f32 or bf16 inputs, f32 or bf16 output, and bm, bn in TILES."""
+    f32 or bf16 inputs, f32 or bf16 output, and bm, bn in TILES: bf16 with
+    bm in TC_BM and bn in TC_BN on the tensor-core body, the rest on the
+    CUDA-core body (:func:`matmul_body`)."""
     M, K = a.shape
     K2, N = b.shape
     if K != K2 or M % bm or K % bk or N % bn:
@@ -109,16 +159,24 @@ def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
             a.data_ptr() % CP_ASYNC_BYTES or b.data_ptr() % CP_ASYNC_BYTES:
         raise ValueError("rows of a and b must be whole 16-byte granules on "
                          "16-byte boundaries")
-    plan = matmul_ring_plan(cfg, bm=bm, bk=bk, bn=bn, itemsize=item)
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    rc = lib("pul_matmul").pul_matmul(
-        _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
-        plan.distance, plan.slots,
-        int(cfg.strategy is IssueStrategy.SEQUENTIAL), DTYPES.index(a.dtype),
-        int(out_dtype == torch.bfloat16), plan.smem_bytes,
-        _stream(a))
-    _raise_on(rc, "pul_matmul")
+    seq = int(cfg.strategy is IssueStrategy.SEQUENTIAL)
+    if matmul_body(a.dtype, bm, bn) == "wgmma":
+        plan = matmul_tc_plan(cfg, bm=bm, bk=bk, bn=bn)
+        rc = lib("pul_matmul").pul_matmul_wgmma(
+            _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
+            plan.distance, plan.slots, seq, int(out_dtype == torch.bfloat16),
+            plan.smem_bytes, _stream(a))
+        _raise_on(rc, "pul_matmul_wgmma")
+        LAUNCHES["k10_wgmma"] += 1
+    else:
+        plan = matmul_ring_plan(cfg, bm=bm, bk=bk, bn=bn, itemsize=item)
+        rc = lib("pul_matmul").pul_matmul(
+            _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
+            plan.distance, plan.slots, seq, DTYPES.index(a.dtype),
+            int(out_dtype == torch.bfloat16), plan.smem_bytes, _stream(a))
+        _raise_on(rc, "pul_matmul")
     LAUNCHES["k10"] += 1
     return out

@@ -24,8 +24,12 @@ from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels._runtime import SMEM_LIMIT_BYTES
 from repro_torch.kernels.pul_attention import (
+    DENSE_HDS,
+    TC_ROWS,
+    attention_body,
     attention_kernel_ref,
     attention_ring_plan,
+    attention_tc_plan,
     pul_attention,
 )
 from repro_torch.kernels.pul_decode import (
@@ -160,6 +164,25 @@ def test_attention_checks_raise():
         pul_attention(q, k, k, softcap=0.0)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("G", [5, 6])
+@pytest.mark.parametrize("hd", [16, 64, 256])
+def test_attention_plain_matches_reference_kernel_at_zoo_shapes(hd, G, dtype):
+    """The head dims of the reduced configs (16), musicgen (64) and gemma3
+    (256), and the groups of qwen2.5-32b (5) and grok (6), which the card
+    kernel takes: the plain version against the reference's kernel."""
+    B, K, T, S = 1, 2, 32, 48
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(10 + hd + G, B, K * G, K, T, S, hd,
+                                        dtype)
+    kw = dict(softcap=8.0) if G == 5 else dict(window=20)
+    want = ref_k7(jq, jk, jv, cfg=RefPULConfig(distance=2), bt=16, bs=16,
+                  **kw)
+    got = pul_attention(tq, tk, tv, cfg=PULConfig(distance=2), bt=16, bs=16,
+                        **kw)
+    assert got.dtype == tq.dtype
+    _close(got, want, DTYPES[dtype][2])
+
+
 # ------------------------------------------------------------------ K6
 @pytest.mark.parametrize("gqa", [1, 4])
 @pytest.mark.parametrize("distance", [1, 4])
@@ -217,6 +240,24 @@ def test_decode_oracle_matches_reference_oracle(softcap):
                                        softcap=softcap), want, TOL)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("G", [5, 6])
+@pytest.mark.parametrize("hd", [16, 64, 256])
+def test_decode_plain_matches_reference_kernel_at_zoo_shapes(hd, G, dtype):
+    B, K, S = 2, 2, 80
+    rng = np.random.default_rng(20 + hd + G)
+    q, k, v = (_rand(rng, (B, K * G, hd), 0.4), _rand(rng, (B, K, S, hd), 0.4),
+               _rand(rng, (B, K, S, hd)))
+    (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
+    length = np.asarray([S, 33], np.int32)
+    softcap = 10.0 if G == 6 else None
+    want = ref_k6(jq, jk, jv, jnp.asarray(length), bs=32, softcap=softcap)
+    got = pul_decode_attention(tq, tk, tv, torch.from_numpy(length), bs=32,
+                               softcap=softcap)
+    assert got.dtype == tq.dtype
+    _close(got, want, DTYPES[dtype][2])
+
+
 # ---------------------------------------------------------- ring plans
 @pytest.mark.parametrize("itemsize,slot", [(2, 34816), (4, 33792)])
 @pytest.mark.parametrize("cfg,want", [
@@ -262,3 +303,77 @@ def test_dense_wrappers_refuse_other_devices_instead_of_falling_back():
         pul_attention(meta, meta, meta)
     with pytest.raises(ValueError, match="CUDA"):
         pul_decode_attention(meta[:, :, 0], meta, meta, [3])
+
+
+@pytest.mark.parametrize("strategy", list(IssueStrategy),
+                         ids=lambda s: s.name.lower())
+@pytest.mark.parametrize("distance", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", DENSE_HDS)
+def test_attention_plans_fit_shared_memory_at_every_head_dim(hd, distance,
+                                                             strategy):
+    """K7's bf16 ring (TC_ROWS bf16 query rows beside chunks of 64 keys, 32
+    at hd 256, rows padded by a granule) and its f32 ring fit 227 KB at
+    every hd the kernels are built for, d and slots clamped to what fits."""
+    cfg = PULConfig(distance=distance, strategy=strategy)
+    seq = strategy is IssueStrategy.SEQUENTIAL
+    row = 2 * hd + 16
+    keys = 32 if hd == 256 else 64
+    tc = attention_tc_plan(cfg, hd=hd)
+    assert tc.smem_bytes == tc.slots * 2 * keys * row + TC_ROWS * row
+    f32 = attention_ring_plan(cfg, hd=hd, itemsize=4)
+    assert f32.smem_bytes == (f32.slots * 2 * 32 * (4 * hd + 16)
+                              + (64 * hd + 64 * 32) * 4)
+    for plan in (tc, f32):
+        assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+        assert 1 <= plan.distance <= distance
+        assert plan.slots >= plan.distance + seq
+    want = distance + 1 if seq else 2 * distance
+    if want * 2 * keys * row + TC_ROWS * row <= SMEM_LIMIT_BYTES:
+        assert (tc.distance, tc.slots) == (distance, want)   # fits whole
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("hd", DENSE_HDS)
+def test_decode_ring_plan_fits_at_every_head_dim(hd, itemsize):
+    for G in (1, 5, 6, 16):
+        for cfg in (PULConfig(), PULConfig(distance=8),
+                    PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL)):
+            plan = decode_ring_plan(cfg, B=2, K=8, G=G, s_pad=4096, hd=hd,
+                                    itemsize=itemsize)
+            assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+            assert plan.slots >= plan.distance >= 1
+            assert plan.n_seg * plan.seg_chunks * (64 if itemsize == 2
+                                                   else 32) >= 4096
+
+
+@pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma.sync"),
+                                        (torch.float32, "fma")])
+def test_attention_body_follows_dtype(dtype, body):
+    """bf16 runs on the tensor cores (mma.sync), f32 on the CUDA cores."""
+    assert attention_body(dtype) == body
+
+
+@pytest.mark.parametrize("hd,G", [(16, 1), (32, 6), (64, 5), (112, 5),
+                                  (128, 6), (256, 5), (256, 6)])
+def test_dense_wrappers_take_every_zoo_shape_on_meta(hd, G):
+    """Tensors on no device pass the checks of shape (head dim, group) and
+    stop only at the device: the card kernels take these shapes."""
+    q = torch.empty((1, 2 * G, 64, hd), device="meta")
+    k = torch.empty((1, 2, 64, hd), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pul_attention(q, k, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        pul_decode_attention(q[:, :, 0], k, k, [3])
+
+
+def test_dense_wrappers_refuse_other_head_dims_and_groups_on_meta():
+    q = torch.empty((1, 4, 64, 24), device="meta")
+    k = torch.empty((1, 2, 64, 24), device="meta")
+    with pytest.raises(ValueError, match="built for"):
+        pul_attention(q, k, k)
+    with pytest.raises(ValueError, match="built for"):
+        pul_decode_attention(q[:, :, 0], k, k, [3])
+    q17 = torch.empty((1, 34, 128), device="meta")
+    k17 = torch.empty((1, 2, 64, 128), device="meta")
+    with pytest.raises(ValueError, match="at most"):
+        pul_decode_attention(q17, k17, k17, [3])

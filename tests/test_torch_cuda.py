@@ -45,7 +45,11 @@ from repro_torch.kernels.pul_gather import (
     pul_gather,
     pul_page_gather,
 )
-from repro_torch.kernels.pul_matmul import matmul_ref, pul_matmul
+from repro_torch.kernels.pul_matmul import (
+    matmul_body,
+    matmul_ref,
+    pul_matmul,
+)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref
 
 # the module (the package exports the function pul_attention under its name)
@@ -448,6 +452,52 @@ def test_matmul_kernel_matches_plain_version(dev, dtype, out_dtype, shape,
                                want.cpu().numpy(), rtol=rtol, atol=rtol * 10)
 
 
+def _matmul_limit(a, b):
+    """2 sqrt(K) 2^-24 (|A| |B|): the random-walk size of fp32 rounding in a
+    K-term sum with every partial sum at its largest."""
+    K = a.shape[1]
+    return 2.0 * K ** 0.5 * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    PULConfig(distance=d, strategy=s) for d in (1, 3) for s in IssueStrategy],
+    ids=[f"d{d}-{s.name.lower()}" for d in (1, 3) for s in IssueStrategy])
+@pytest.mark.parametrize("shape,blocks", [
+    ((128, 128, 128), (64, 64, 64)),
+    ((128, 256, 384), (64, 128, 128)),
+    ((64, 512, 128), (64, 64, 128)),
+    ((256, 256, 256), (128, 128, 128)),
+    ((128, 96, 96), (128, 32, 32)),
+])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_wgmma_body_matches_plain_version(dev, out_dtype, shape,
+                                                 blocks, cfg):
+    """bf16 with bm >= 64 runs the tensor-core body: within 2 sqrt(K)
+    2^-24 (|A||B|) of the fp32 product (f32 out), or one bf16 rounding of
+    it (bf16 out); a planted fault (one K chunk of 16 left out) is not."""
+    M, K, N = shape
+    bm, bk, bn = blocks
+    assert matmul_body(torch.bfloat16, bm, bn) == "wgmma"
+    rng = np.random.default_rng(5)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, torch.bfloat16) for s in ((M, K), (K, N)))
+    before = (PA.LAUNCHES["k10"], PA.LAUNCHES["k10_wgmma"])
+    got = pul_matmul(a, b, cfg=cfg, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (PA.LAUNCHES["k10"], PA.LAUNCHES["k10_wgmma"]) == (
+        before[0] + 1, before[1] + 1)
+    want = matmul_ref(a, b)
+    limit = _matmul_limit(a, b)
+    if out_dtype == torch.bfloat16:
+        limit = limit + want.abs() * 2.0 ** -8      # the output's rounding
+    assert got.dtype == out_dtype
+    err = (got.float() - want).abs()
+    assert bool((err <= limit).all()), f"{(err / limit).max().item():.2f} x"
+    bad = want - a[:, :16].float() @ b[:16].float()
+    assert not bool(((bad - want).abs() <= limit).all())
+
+
 @pytest.mark.cuda
 def test_micro_launches_are_counted_and_checks_raise(dev):
     data = torch.randn((64, 16), device=dev)
@@ -495,7 +545,7 @@ def _dense(dev, dtype, *shapes, seed=0):
             for s, a in shapes]
 
 
-# (B, H, K, T, S, options): hd = 128 throughout
+# (B, H, K, T, S, options): hd = 128
 ATTN_CASES = {
     "causal-gqa2": (2, 4, 2, 80, 160, dict(bt=16)),
     "softcap+window+tail": (1, 8, 2, 64, 200,
@@ -527,7 +577,7 @@ def _attn_faults(q, k, v, kw):
     vz[:, :, cut:] = 0
     ref_kw = {n: x for n, x in kw.items() if n != "bt"}
     wrong = (dict(ref_kw, softcap=None) if kw.get("softcap")
-             else dict(ref_kw, scale=2.0 / 128 ** 0.5))
+             else dict(ref_kw, scale=2.0 / q.shape[-1] ** 0.5))
     return {"last chunk left out": PA.attention_kernel_ref(q, kz, vz, **ref_kw),
             "softcap or scale wrong": PA.attention_kernel_ref(q, k, v, **wrong)}
 
@@ -560,7 +610,48 @@ def test_attention_limit_rejects_planted_faults_on_cpu(dtype, case):
         assert not _dense_close(bad, want), what
 
 
-# (B, H, K, S, lengths, options): hd = 128 throughout
+# K7 at every head dim the kernels are built for and at group sizes that do
+# and do not divide 64 (qwen2.5-32b's 5, grok's 6); each group size takes
+# its own mask options: (T, S, options)
+SHAPE_OPTS = {
+    1: (40, 100, dict()),
+    2: (40, 100, dict(softcap=2.0, window=30)),
+    5: (40, 100, dict(causal=False, window=30)),
+    6: (96, 48, dict(bt=32, bs=40)),
+}
+
+
+def _shape_case(dev, dtype, hd, G):
+    T, S, kw = SHAPE_OPTS[G]
+    qs = 3.0 if "softcap" in kw else 0.3     # logits the softcap bends
+    q, k, v = _dense(dev, dtype, ((1, 2 * G, T, hd), qs), ((1, 2, S, hd), 0.3),
+                     ((1, 2, S, hd), 1.0), seed=hd + G)
+    return q, k, v, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("G", sorted(SHAPE_OPTS))
+@pytest.mark.parametrize("hd", PA.DENSE_HDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_takes_every_head_dim_and_group(dev, dtype, hd, G,
+                                                         cfg):
+    q, k, v, kw = _shape_case(dev, dtype, hd, G)
+    before = (PA.LAUNCHES["k7"], PA.LAUNCHES["k7_tc"])
+    got = PA.pul_attention(q, k, v, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert (PA.LAUNCHES["k7"], PA.LAUNCHES["k7_tc"]) == (before[0] + 1,
+                                                         before[1] + tc)
+    ref_kw = {n: x for n, x in kw.items() if n != "bt"}
+    want = PA.attention_kernel_ref(q, k, v, **ref_kw)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K7 - plain| {err:.3e}"
+    for what, bad in _attn_faults(q, k, v, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+# (B, H, K, S, lengths, options): hd = 128
 DECODE_CASES = {
     "qwen3-heads": (4, 16, 8, 1000, [1000, 999, 1, 0], {}),
     "segments+softcap": (2, 4, 2, 5000, [5000, 2100], dict(softcap=2.0)),
@@ -583,7 +674,7 @@ def _decode_faults(q, k, v, length, kw):
     row = int(cut.argmax())
     cut[row] -= 64
     wrong = (dict(kw, softcap=None) if kw.get("softcap")
-             else dict(kw, scale=2.0 / 128 ** 0.5))
+             else dict(kw, scale=2.0 / q.shape[-1] ** 0.5))
     return {"last chunk left out": decode_attention_kernel_ref(
                 q, k, v, cut, **kw),
             "softcap or scale wrong": decode_attention_kernel_ref(
@@ -605,6 +696,27 @@ def test_decode_kernel_matches_plain_version(dev, dtype, cfg, case):
         assert not _dense_close(bad, want), what
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("G", [5, 6])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_takes_other_head_dims_and_groups(dev, dtype, hd, G,
+                                                        cfg):
+    """K6 at musicgen's hd 64 and gemma3's 256, G 5 and 6, over 3,000 keys
+    (segments) with a length-0 row."""
+    q, k, v = _dense(dev, dtype, ((3, 2 * G, hd), 0.3), ((3, 2, 3000, hd), 0.3),
+                     ((3, 2, 3000, hd), 1.0), seed=hd + G)
+    length = torch.tensor([3000, 1234, 0], dtype=torch.int32, device=dev)
+    got = pul_decode_attention(q, k, v, length, cfg=cfg)
+    torch.cuda.synchronize()
+    want = decode_attention_kernel_ref(q, k, v, length)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K6 - plain| {err:.3e}"
+    for what, bad in _decode_faults(q, k, v, length, {}).items():
+        assert not _dense_close(bad, want), what
+
+
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_limit_rejects_planted_faults_on_cpu(dtype, case):
@@ -621,11 +733,15 @@ def test_dense_launches_are_counted_and_checks_raise(dev):
                      ((1, 2, 64, 128), 1.0), ((1, 2, 64, 128), 1.0))
     qd = q[:, :, 0].contiguous()
     length = torch.tensor([40], dtype=torch.int32, device=dev)
-    before = {n: PA.LAUNCHES[n] for n in ("k6", "k7")}
+    before = {n: PA.LAUNCHES[n] for n in ("k6", "k7", "k7_tc")}
     ops.attention_op(q, k, v)
     pul_decode_attention(qd, k, v, length)
+    # G = 3 does not divide 64 rows, hd 64: the kernel takes both
+    PA.pul_attention(q[:, :3, :, :64].contiguous(), k[:, :1, :, :64].contiguous(),
+                     v[:, :1, :, :64].contiguous())
     torch.cuda.synchronize()
-    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == {"k6": 1, "k7": 1}
+    launched = {"k6": 1, "k7": 2, "k7_tc": 2}
+    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == launched
     with pytest.raises(ValueError, match="is on"):
         PA.pul_attention(q, k.cpu(), v)
     with pytest.raises(TypeError, match="dtype"):
@@ -633,13 +749,10 @@ def test_dense_launches_are_counted_and_checks_raise(dev):
     with pytest.raises(TypeError, match="dtype"):
         PA.pul_attention(q, k.float(), v)
     with pytest.raises(ValueError, match="built for"):
-        PA.pul_attention(q[..., :64].contiguous(), k[..., :64].contiguous(),
-                         v[..., :64].contiguous())
+        PA.pul_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                         v[..., :24].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         PA.pul_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3), v)
-    with pytest.raises(ValueError, match="query rows"):
-        PA.pul_attention(q[:, :3].contiguous(), k[:, :1].contiguous(),
-                         v[:, :1].contiguous())
     with pytest.raises(TypeError, match="dtype"):
         pul_decode_attention(qd.float(), k, v, length)
     with pytest.raises(ValueError, match="shape"):
@@ -648,4 +761,4 @@ def test_dense_launches_are_counted_and_checks_raise(dev):
         pul_decode_attention(
             torch.zeros((1, 34, 128), dtype=torch.bfloat16, device=dev),
             k[:, :2], v[:, :2], length)
-    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == {"k6": 1, "k7": 1}
+    assert {n: PA.LAUNCHES[n] - before[n] for n in before} == launched

@@ -32,7 +32,14 @@ from repro_torch.kernels.pul_attention import (
     attention_kernel_ref,
 )
 from repro_torch.kernels.pul_filter import filter_ring_plan, pul_filter
-from repro_torch.kernels.pul_matmul import matmul_ring_plan, pul_matmul
+from repro_torch.kernels.pul_matmul import (
+    TC_BM,
+    TC_BN,
+    matmul_body,
+    matmul_ring_plan,
+    matmul_tc_plan,
+    pul_matmul,
+)
 from repro_torch.kernels.pul_gather import split_runs
 from repro_torch.kernels.pul_sum import pul_sum, sum_ring_plan
 
@@ -233,6 +240,46 @@ def test_matmul_default_tile_plan(itemsize):
     # the test shapes keep whole tiles where they fit
     assert matmul_ring_plan(PULConfig(distance=3), bm=64, bk=64, bn=64,
                             itemsize=4).bk_chunk == 64
+
+
+@pytest.mark.parametrize("strategy", list(IssueStrategy),
+                         ids=lambda s: s.name.lower())
+@pytest.mark.parametrize("distance", [1, 2, 4, 8])
+@pytest.mark.parametrize("bm,bn", [(bm, bn) for bm in TC_BM for bn in TC_BN])
+def test_matmul_tc_plan_fits_shared_memory(bm, bn, distance, strategy):
+    """The tensor-core body's ring at every tile it takes, for K tiles of
+    16 to 256: the K chunk is one swizzled row (64 bf16) where bk allows,
+    each slot holds the A and B tiles and two mbarriers, and distance and
+    slots follow PULConfig within 227 KB."""
+    cfg = PULConfig(distance=distance, strategy=strategy)
+    seq = strategy is IssueStrategy.SEQUENTIAL
+    for bk, chunk in ((16, 16), (32, 32), (64, 64), (96, 32), (128, 64),
+                      (256, 64)):
+        plan = matmul_tc_plan(cfg, bm=bm, bk=bk, bn=bn)
+        slot = (bm + bn) * chunk * 2 + 16
+        assert plan.bk_chunk == chunk
+        assert plan.smem_bytes == plan.slots * slot + 1024
+        assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+        assert plan.slots >= plan.distance + seq
+        assert 1 <= plan.distance <= distance
+        want_slots = distance + 1 if seq else 2 * distance
+        fits = (SMEM_LIMIT_BYTES - 1024) // slot
+        assert plan.slots == min(want_slots, fits)
+        if want_slots <= fits:
+            assert plan.distance == distance
+    with pytest.raises(ValueError, match="chunks of 16"):
+        matmul_tc_plan(cfg, bm=bm, bk=8, bn=bn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bm", [32, 64, 128])
+@pytest.mark.parametrize("bn", [32, 64, 128])
+def test_matmul_body_follows_dtype_and_tiles(dtype, bm, bn):
+    """bf16 with bm >= 64 runs on the tensor cores (wgmma), everything else
+    (f32, bm = 32) on the CUDA cores."""
+    want = "wgmma" if dtype == torch.bfloat16 and bm >= 64 else "fma"
+    assert matmul_body(dtype, bm, bn) == want
 
 
 # ------------------------------------------------------ wrappers, ops, ref
