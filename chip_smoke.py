@@ -9,15 +9,19 @@ exit code is not 0:
                      feed the H100 tiers of ``repro_torch.core.pul``
   2. build        -- compile the CUDA sources of ``src/repro_torch/csrc``, one
                      nvcc each, all started together
-  3. kernels      -- K1/K2 against their plain PyTorch versions at qwen3-1.7b
+  3. kernels      -- K1/K2 (split-KV: a split and a merge kernel per call)
+                     against their plain PyTorch versions at qwen3-1.7b
                      widths (bf16, two bf16 ulps of each row's largest value),
-                     planted faults that the limit must reject, times, bounds
-                     and plain times
+                     the split plan, planted faults that the limit must
+                     reject (one split left out of the merge among them),
+                     times at the plan's split count and at forced ones,
+                     bounds and plain times
   4. kernels-mla  -- the same for K3/K4 at deepseek-v2 widths
-  5. kernels-gather -- the PUL gather K5 against its plain version, bitwise,
-                     at the qwen3 and deepseek serving page geometries (with
-                     planted faults) and in three types at three distances;
-                     times, byte bounds, plain and index_select times
+  5. kernels-gather -- the PUL gather K5 (1D bulk copies) against its plain
+                     version, bitwise, at the qwen3 and deepseek serving page
+                     geometries (with planted faults) and in three types at
+                     three distances; the bulk plan (chunk, d, slots), times,
+                     byte bounds, plain and index_select times
   6. kernels-micro -- the paper's microbenchmark kernels against their plain
                      versions: K8 (SUM) and K9 (filter) on a 4 GiB table of
                      2^26 64-byte rows, K8 exactly equal to the fp64 sum (the
@@ -58,7 +62,7 @@ exit code is not 0:
  13. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
                      as in phase 10, one decode step against K3's
  14. summary      -- one JSON line listing the kernels, with the body each
-                     ran (wgmma, mma.sync or fma)
+                     ran (wgmma, mma.sync, split-kv, cp.async.bulk or fma)
  15. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
@@ -73,6 +77,12 @@ blocks each SM holds, where the paper's distance and unload order show on
 real copies:
 
     python3 -c "import chip_smoke; chip_smoke.slots_sweep()"
+
+and K5's chunk sizes beside index_select, and K1 at forced split counts and
+distances with its two kernels' device times:
+
+    python3 -c "import chip_smoke; chip_smoke.chunk_sweep()"
+    python3 -c "import chip_smoke; chip_smoke.split_sweep()"
 
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
@@ -107,7 +117,8 @@ from repro_torch.kernels.pul_decode import (  # noqa: E402
 from repro_torch.kernels.pul_filter import (  # noqa: E402
     filter_materialize_ref, filter_ref, pul_filter)
 from repro_torch.kernels.pul_gather import (  # noqa: E402
-    gather_ref, gather_ring_plan, page_gather_ref, pul_gather, pul_page_gather)
+    BODY as GATHER_BODY, gather_bulk_plan, gather_ref, page_gather_ref,
+    pul_gather, pul_page_gather)
 from repro_torch.kernels.pul_matmul import (  # noqa: E402
     matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
@@ -322,10 +333,11 @@ def _bound(c):
             nbytes)
 
 
-def _planted_faults(c, want, layer, kw):
+def _planted_faults(c, want, layer, kw, n_split):
     """Wrong answers the limit must reject, on the mixed case: the last
-    visible page of the length-1000 row skipped, and the current token not
-    folded in."""
+    visible page of the length-1000 row skipped, the current token not
+    folded in, and the merge with one split (of the n_split the plan gave)
+    left out."""
     row = c["lens"].tolist().index(1000)
     cut = c["lens"].clone()
     cut[row] = 1000 // P * P
@@ -337,12 +349,24 @@ def _planted_faults(c, want, layer, kw):
         "current token not folded":
             PA.paged_decode_attention_ref(
                 c["q"], c["kp"][layer], c["vp"][layer], c["pt"], c["lens"], **kw),
+        f"split {n_split // 2} of {n_split} left out of the merge":
+            PA.paged_decode_split_ref(
+                c["q"], c["kp"][layer], c["vp"][layer], c["pt"], c["lens"],
+                n_split=n_split, k_new=c["kn"], v_new=c["vn"],
+                drop_split=n_split // 2, **kw),
     }
     for what, bad in faults.items():
         if _close(bad, want):
             raise AssertionError(f"the bf16 limit lets a planted fault through: "
                                  f"{what}")
     print(f"[kernels] planted faults rejected by the limit: {', '.join(faults)}")
+
+
+def _split_plan(c, cfg):
+    """The split plan K1/K2 launch with on this card for case c."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return PA.split_plan_for(cfg, c["q"].shape, c["kp"].shape,
+                             c["pt"].shape[1], sms)
 
 
 def phase_kernels():
@@ -395,7 +419,8 @@ def phase_kernels():
                 raise AssertionError(f"{label} d={d}: K1 commit differs from "
                                      "the plain version's")
             if label == "mixed" and cfg is ring[0]:
-                _planted_faults(dict(c, kp=kp0, vp=vp0), want, layer, kw)
+                _planted_faults(dict(c, kp=kp0, vp=vp0), want, layer, kw,
+                                _split_plan(c, cfg).n_split)
             del kp0, vp0
             results["k1"].append(err1)
             results["k2"].append(err2)
@@ -421,14 +446,24 @@ def phase_kernels():
         c["q"], c["kp"][layer], c["vp"][layer], c["pt"], c["lens"],
         k_new=c["kn"], v_new=c["vn"], **kw), reps=10)
     bound_ms, bound_by, nbytes = _bound(c)
+    plan = _split_plan(c, cfg)
     print(f"[kernels] B=8 lengths {c['lens'].tolist()} d={d_eng}: K1 {k1_ms:.4f} ms"
           f" K2 {k2_ms:.4f} ms; plain {plain1_ms:.4f} / {plain2_ms:.4f} ms; "
-          f"bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B)")
+          f"bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B); split plan: "
+          f"{plan.n_split} splits of <= {plan.pages_per_split} pages, ring "
+          f"d={plan.distance}, {plan.slots} slots, {plan.smem_bytes} B a block"
+          f" (grid {plan.n_split} x {KV} x 8)")
+    forced = {n: _time_ms(lambda: PA.pul_paged_sweep_decode_attention(
+        c["q"], c["kp"], c["vp"], layer, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], cfg=cfg, n_split=n, **kw))
+        for n in (1, 2, 4, 8, 16, 32, 64)}
+    print("[kernels] K1 ms by forced split count: " + ", ".join(
+        f"{n}: {ms:.4f}" for n, ms in forced.items()))
     return {
         "k1": dict(max_abs_err=max(results["k1"]), ms=k1_ms, plain_ms=plain1_ms,
-                   bound_ms=bound_ms, bound_by=bound_by),
+                   bound_ms=bound_ms, bound_by=bound_by, body=PA.PAGED_BODY),
         "k2": dict(max_abs_err=max(results["k2"]), ms=k2_ms, plain_ms=plain2_ms,
-                   bound_ms=bound_ms, bound_by=bound_by),
+                   bound_ms=bound_ms, bound_by=bound_by, body=PA.PAGED_BODY),
     }
 
 
@@ -615,7 +650,7 @@ def phase_kernels_gather():
     for label, F, gqa in (("qwen3", 2 * L * KV * HD, H // KV),
                           ("deepseek", MLA_LAYERS * (KVR + DR), 1)):
         cfg = PULConfig(distance=engine_distance(F, gqa))
-        plan = gather_ring_plan(cfg, rows_per_req=P, row_bytes=F * 2)
+        plan = gather_bulk_plan(cfg, rows_per_req=P, row_bytes=F * 2)
         store = torch.randn((NF, P, F), generator=gen, device=dev,
                             dtype=torch.bfloat16)
         seed0 = torch.Generator(device=dev)
@@ -648,17 +683,26 @@ def phase_kernels_gather():
         flat = pt.reshape(-1)
         library_ms = _time_ms(lambda: torch.index_select(store, 0, flat),
                               reps=10)
+        # ten calls between two events, each after the one before rather
+        # than after the timer's sleep kernel: what a launch costs on its own
+        ms10 = _time_ms(lambda: [pul_page_gather(store, pt, cfg=cfg)
+                                 for _ in range(10)], reps=10) / 10
+        lib10 = _time_ms(lambda: [torch.index_select(store, 0, flat)
+                                  for _ in range(10)], reps=10) / 10
         nbytes = 2 * SLOTS * n_pages * P * F * 2 + pt.numel() * 4
         bound_ms = nbytes / HBM_PEAK * 1e3
         print(f"[kernels-gather] {label} store {tuple(store.shape)} bf16, page "
-              f"table {tuple(pt.shape)}: K5 {ms:.4f} ms (ring: d={plan.distance}"
-              f" of the engine's {cfg.distance}, {plan.slots} slots, tiles of "
-              f"{plan.tile_bytes} B x {plan.n_tiles}); plain {plain_ms:.4f} ms; "
-              f"index_select {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-              f"(bytes: {nbytes} B); planted faults rejected: {planted}")
+              f"table {tuple(pt.shape)}: K5 {ms:.4f} ms (bulk plan: chunks of "
+              f"{plan.chunk_bytes} B x {plan.n_chunks} a page, d="
+              f"{plan.distance} of the engine's {cfg.distance}, {plan.slots} "
+              f"slots, {plan.smem_bytes} B a block); index_select "
+              f"{library_ms:.4f} ms ({ms / library_ms:.3f}x); back to back "
+              f"K5 {ms10:.4f} ms, index_select {lib10:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes: {nbytes} B);"
+              f" planted faults rejected: {planted}")
         out[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by="bytes",
-                          library_ms=library_ms)
+                          library_ms=library_ms, body=GATHER_BODY)
         del store
         torch.cuda.empty_cache()
     return out
@@ -1491,6 +1535,111 @@ def slots_sweep():
     return out
 
 
+def split_sweep():
+    """One-off, not a phase of the smoke: K1 at the mixed decode case with
+    the split count and the ring distance forced (one split, the 63-page row
+    in one block, and the plan's 8), and the device time of its two kernels
+    under torch.profiler at the plan's split count, at one split and at 64
+    (a page a split). Prints [split] lines."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    c = _kernel_case(gen, dev, [0, 7, 16, 1000, 513, 250, 64, 999])
+    kw = dict(scale=1.0 / math.sqrt(HD), softcap=None, window=None)
+    layer = 5
+
+    def k1(cfg, n_split=None):
+        return PA.pul_paged_sweep_decode_attention(
+            c["q"], c["kp"], c["vp"], layer, c["pt"], c["lens"], c["kn"],
+            c["vn"], c["frames"], c["offs"], cfg=cfg, n_split=n_split, **kw)
+
+    print(_smi("name,power.limit"))
+    out = {}
+    for n_split in (1, 8):
+        for d in (1, 2, 4, 8, 16):
+            for strategy in IssueStrategy:
+                cfg = PULConfig(distance=d, strategy=strategy)
+                plan = PA.paged_split_plan(cfg, B=8, K=KV, G=H // KV, P=P,
+                                           hd=HD, n_pages=c["pt"].shape[1],
+                                           n_split=n_split)
+                ms = _time_ms(lambda: k1(cfg, n_split))
+                key = f"n_split {n_split} d={d} {strategy.name}"
+                out[key] = ms
+                print(f"[split] {key}: K1 {ms:.4f} ms (ring d={plan.distance}"
+                      f", {plan.slots} slots)")
+    cfg = PULConfig(distance=engine_distance())
+    for n_split in (None, 1, 64):
+        for _ in range(3):
+            k1(cfg, n_split)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                k1(cfg, n_split)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            dev_us = e.device_time
+            if e.count and dev_us and "kernel" in e.key:
+                print(f"[split] profiler, n_split {n_split or 'planned'}: "
+                      f"{e.key[:60]}: {e.count} calls, {dev_us:.2f} us each "
+                      "on the device")
+    print("[split] " + json.dumps(out))
+    return out
+
+
+def chunk_sweep():
+    """One-off, not a phase of the smoke: K5 at the two serving page
+    geometries and the engine's distance, with chunks of 8, 16 and 32 KB
+    (pul_gather.CHUNK_BYTES), BATCH with the store's one slot; and at 32
+    KB, SEQUENTIAL, and BATCH with no slot or two for stores still reading
+    (PULConfig.unload_distance 0, 2). index_select is timed in the same
+    loop (before and after the kernel); each point is checked bitwise
+    first. Prints one [chunks] line per point."""
+    gather_mod = importlib.import_module("repro_torch.kernels.pul_gather")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    n_pages = MAX_SEQ // P
+    NF = SLOTS * n_pages + 4
+    default = gather_mod.CHUNK_BYTES
+    print(_smi("name,power.limit"))
+    out = {}
+    for label, F, gqa in (("qwen3", 2 * L * KV * HD, H // KV),
+                          ("deepseek", MLA_LAYERS * (KVR + DR), 1)):
+        store = torch.randn((NF, P, F), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+        pt = torch.randperm(NF, generator=gen, device=dev)[
+            :SLOTS * n_pages].reshape(SLOTS, n_pages).to(torch.int32)
+        flat = pt.reshape(-1)
+        want = page_gather_ref(store, pt)
+        for chunk, strategy, lag in (
+                [(c, IssueStrategy.BATCH, 1) for c in (8192, 16384, 32768)]
+                + [(32768, IssueStrategy.SEQUENTIAL, 1),
+                   (32768, IssueStrategy.BATCH, 0),
+                   (32768, IssueStrategy.BATCH, 2)]):
+            gather_mod.CHUNK_BYTES = chunk
+            cfg = PULConfig(distance=engine_distance(F, gqa),
+                            strategy=strategy, unload_distance=lag)
+            plan = gather_bulk_plan(cfg, rows_per_req=P, row_bytes=F * 2)
+            if not torch.equal(pul_page_gather(store, pt, cfg=cfg), want):
+                raise AssertionError(f"{label} chunk {chunk}: K5 differs")
+            lib0 = _time_ms(lambda: torch.index_select(store, 0, flat))
+            ms = _time_ms(lambda: pul_page_gather(store, pt, cfg=cfg))
+            lib1 = _time_ms(lambda: torch.index_select(store, 0, flat))
+            key = (f"{label} chunk {chunk} {strategy.name} "
+                   f"unload_distance {lag}")
+            out[key] = ms
+            print(f"[chunks] {key}: K5 {ms:.4f} ms, index_select "
+                  f"{lib0:.4f} / {lib1:.4f} ms (d={plan.distance}, "
+                  f"{plan.slots} slots, {plan.smem_bytes} B a block)")
+        del store, want
+        torch.cuda.empty_cache()
+    gather_mod.CHUNK_BYTES = default
+    print("[chunks] " + json.dumps(out))
+    return out
+
+
 def _serve_two_paths(cfg, params, first, second, device="cuda"):
     """The request script through two decode paths whose token streams and
     bytes_hot_written must be bitwise equal. Returns (stats of each, the
@@ -1688,7 +1837,9 @@ def main():
                          "bound_by")},
                      "library_ms": kern[key].get("library_ms"),
                      # which body ran: "wgmma" or "mma.sync" on the tensor
-                     # cores, "fma" on the CUDA cores
+                     # cores, "split-kv" (K1/K2's split and merge kernels) or
+                     # "fma" on the CUDA cores, "cp.async.bulk" (K5's TMA
+                     # copies)
                      "body": kern[key].get("body", "fma")})
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -18,7 +18,8 @@ Steady-state of a distance-d pipeline over blocks with per-block compute time
 
 The reference's transfer-size chooser (`choose_block_rows`) budgets a ring
 against TPU VMEM; the port's kernels budget their rings against Hopper's
-shared memory instead (`kernels.pul_attention.ring_plan`).
+shared memory instead (`kernels.pul_attention.paged_split_plan` and its
+siblings).
 """
 from __future__ import annotations
 

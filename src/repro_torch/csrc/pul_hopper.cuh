@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks of the port's tensor-core kernels:
-// mbarriers, TMA 2D tile loads and their host-side tensor maps, the shared
-// memory descriptors of wgmma for the 32/64/128-byte swizzles, the wgmma
+// Hopper (sm_90a) building blocks of the port's kernels: mbarriers, TMA 2D
+// tile loads and their host-side tensor maps, 1D bulk copies between global
+// and shared memory (K5's gather), the shared memory descriptors of wgmma for the 32/64/128-byte swizzles, the wgmma
 // ops K10 issues (m64 n{32, 64, 128} k16, bf16 in, fp32 accumulate), and
 // ldmatrix / mma.sync m16n8k16 for K7's flash attention.
 //
@@ -60,11 +60,13 @@ __device__ __forceinline__ uint64_t global_ns() {
 // protocol fault) ends the launch with an error instead of hanging the card
 constexpr uint64_t kWaitLimitNs = 10ull * 1000 * 1000 * 1000;
 
+// The clock is read once every 64 polls: a poll that succeeds does not wait
+// behind a timer read.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done = 0;
   uint64_t t0 = 0;
-  while (true) {
+  for (uint32_t polls = 0;; ++polls) {
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -73,6 +75,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
+    if (polls % 64) continue;
     if (t0 == 0) {
       t0 = global_ns();
     } else if (global_ns() - t0 > kWaitLimitNs) {
@@ -98,6 +101,69 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // async-proxy ones (TMA, wgmma) on the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------- 1D bulk copies
+// One contiguous span of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) copied by the TMA unit in one instruction. A load reports its
+// bytes to bar (announced there by arrive_expect_tx); a store joins this
+// thread's current bulk group, which bulk_commit closes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's bulk groups are still reading
+// their shared-memory source (.read: their global writes may be in flight)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// the same for a runtime count; counts past 32 wait for 32 (earlier, never
+// later than asked)
+__device__ __forceinline__ void bulk_wait_read_dyn(int n) {
+  switch (n) {
+#define PUL_BULK_CASE(i)  \
+  case i:                 \
+    bulk_wait_read<i>();  \
+    break;
+    PUL_BULK_CASE(0) PUL_BULK_CASE(1) PUL_BULK_CASE(2) PUL_BULK_CASE(3)
+    PUL_BULK_CASE(4) PUL_BULK_CASE(5) PUL_BULK_CASE(6) PUL_BULK_CASE(7)
+    PUL_BULK_CASE(8) PUL_BULK_CASE(9) PUL_BULK_CASE(10) PUL_BULK_CASE(11)
+    PUL_BULK_CASE(12) PUL_BULK_CASE(13) PUL_BULK_CASE(14) PUL_BULK_CASE(15)
+    PUL_BULK_CASE(16) PUL_BULK_CASE(17) PUL_BULK_CASE(18) PUL_BULK_CASE(19)
+    PUL_BULK_CASE(20) PUL_BULK_CASE(21) PUL_BULK_CASE(22) PUL_BULK_CASE(23)
+    PUL_BULK_CASE(24) PUL_BULK_CASE(25) PUL_BULK_CASE(26) PUL_BULK_CASE(27)
+    PUL_BULK_CASE(28) PUL_BULK_CASE(29) PUL_BULK_CASE(30) PUL_BULK_CASE(31)
+#undef PUL_BULK_CASE
+    default:
+      bulk_wait_read<32>();
+      break;
+  }
+}
+
+// waits until every bulk group of this thread has completed, its global
+// writes included
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,

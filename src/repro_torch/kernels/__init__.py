@@ -4,13 +4,16 @@ from repro_torch.kernels.pul_attention import (
     LAUNCHES,
     NEG_INF,
     RingPlan,
+    SplitPlan,
     attention_body,
     attention_kernel_ref,
     attention_ring_plan,
     attention_tc_plan,
     mla_ring_plan,
     paged_decode_attention_ref,
+    paged_decode_split_ref,
     paged_mla_decode_attention_ref,
+    paged_split_plan,
     paged_sweep_decode_attention_ref,
     paged_sweep_mla_decode_attention_ref,
     pul_attention,
@@ -18,7 +21,6 @@ from repro_torch.kernels.pul_attention import (
     pul_paged_mla_decode_attention,
     pul_paged_sweep_decode_attention,
     pul_paged_sweep_mla_decode_attention,
-    ring_plan,
 )
 from repro_torch.kernels.pul_decode import (
     DecodePlan,
@@ -36,7 +38,7 @@ from repro_torch.kernels.pul_filter import (
 from repro_torch.kernels.pul_gather import (
     GatherPlan,
     gather_ref,
-    gather_ring_plan,
+    gather_bulk_plan,
     page_gather_ref,
     pul_gather,
     pul_page_gather,
@@ -58,7 +60,8 @@ SOURCES = ("pul_paged_decode", "pul_paged_mla_decode", "pul_gather",
            "pul_dense_attention", "pul_sum", "pul_filter", "pul_matmul")
 
 __all__ = [
-    "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_ring_plan", "ring_plan",
+    "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_ring_plan", "SplitPlan",
+    "paged_split_plan", "paged_decode_split_ref",
     "ref", "attention_ring_plan", "attention_tc_plan", "attention_body",
     "pul_attention", "attention_kernel_ref",
     "DecodePlan", "decode_ring_plan", "pul_decode_attention",
@@ -67,7 +70,7 @@ __all__ = [
     "pul_paged_mla_decode_attention", "pul_paged_sweep_mla_decode_attention",
     "paged_decode_attention_ref", "paged_sweep_decode_attention_ref",
     "paged_mla_decode_attention_ref", "paged_sweep_mla_decode_attention_ref",
-    "GatherPlan", "gather_ring_plan", "pul_gather", "pul_page_gather",
+    "GatherPlan", "gather_bulk_plan", "pul_gather", "pul_page_gather",
     "gather_ref", "page_gather_ref",
     "SumPlan", "sum_ring_plan", "pul_sum", "sum_ref",
     "FilterPlan", "filter_ring_plan", "pul_filter", "filter_ref",

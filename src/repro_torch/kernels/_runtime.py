@@ -30,18 +30,19 @@ LAUNCHES = {"k1": 0, "k2": 0, "k3": 0, "k4": 0, "k5": 0, "k6": 0, "k7": 0,
             "k8": 0, "k9": 0, "k10": 0, "k7_tc": 0, "k10_wgmma": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature of every entry point, by source (all return an int: 0 or the
 #: launch's CUDA error)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "pul_paged_decode": {
-        "pul_paged_sweep_decode": [_P] * 10 + [_I] * 8 + [_F, _F] + [_I] * 5 + [_P],
-        "pul_paged_decode": [_P] * 8 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
+        "pul_paged_sweep_decode": [_P] * 13 + [_I] * 9 + [_F, _F] + [_I] * 5 + [_P],
+        "pul_paged_decode": [_P] * 11 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     },
     "pul_paged_mla_decode": {
         "pul_paged_sweep_mla_decode": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
         "pul_paged_mla_decode": [_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
     },
-    "pul_gather": {"pul_gather": [_P] * 3 + [_I] * 9 + [_P]},
+    "pul_gather": {"pul_gather": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P]},
     "pul_sum": {"pul_sum": [_P] * 4 + [_I] * 11 + [_P],
                 "pul_sum_blocks_per_sm": [_I, _I]},
     "pul_filter": {"pul_filter": [_P, _P, _F] + [_I] * 12 + [_P],

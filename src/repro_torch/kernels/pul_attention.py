@@ -14,7 +14,10 @@ head of each file):
   * :func:`pul_paged_decode_attention` (K2) replaces
     ``pul_paged_decode_attention``: the same attention over one layer's page
     frames, with an optional current token and no commit.
-    K1/K2: ``csrc/pul_paged_decode.cu``.
+    K1/K2: ``csrc/pul_paged_decode.cu``, split-KV over the page table: a
+    split kernel streams each row's visible pages in n_split parts, and a
+    merge kernel folds the parts' softmax states with the current token
+    (and, for K1, commits it).
   * :func:`pul_paged_sweep_mla_decode_attention` (K3) and
     :func:`pul_paged_mla_decode_attention` (K4) are the absorbed-MLA twins
     (deepseek-v2) over compressed-KV planes ``(L, NF, P, kvr)`` and
@@ -29,15 +32,21 @@ Beside each kernel is its plain PyTorch version (``*_ref``): fp32 math on
 gathered pages plus an ``index_put_`` commit. A wrapper uses the plain
 version only for tensors on the CPU (the CPU tests); for CUDA tensors it
 launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
-kernel, so a run can show the main path went through them.
+kernel, so a run can show the main path went through them (one per K1/K2
+call, which launches the split and the merge kernel).
+:func:`paged_decode_split_ref` models K1/K2's split-and-merge arithmetic
+in plain PyTorch, for the tests and the smoke's planted fault.
 
 The in-kernel PUL ring is budgeted against Hopper's shared memory by
-:func:`ring_plan`, :func:`mla_ring_plan`, :func:`attention_tc_plan` (K7 in
-bf16, on the tensor cores) and :func:`attention_ring_plan` (K7 in f32)
-(the counterparts of the reference's ``ring_scratch`` VMEM check).
+:func:`paged_split_plan` (which also picks K1/K2's split count),
+:func:`mla_ring_plan`, :func:`attention_tc_plan` (K7 in bf16, on the tensor
+cores) and :func:`attention_ring_plan` (K7 in f32) (the counterparts of
+the reference's ``ring_scratch`` VMEM check).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -72,14 +81,50 @@ TC_ROWS = 128
 HEAD_BLOCK = 8
 
 
-def ring_plan(cfg: PULConfig, *, G: int, P: int, hd: int,
-              itemsize: int = 2) -> RingPlan:
-    """K1/K2's ring: a slot holds one page's K and V slab; besides the ring
-    the block keeps q and the fp32 accumulator (G, hd), the page's logits
-    (G, P) and m/l/corr (G,) in shared memory."""
-    aux = (2 * G * hd + G * P + 3 * G) * 4
-    return _plan(cfg, aux, 2 * P * hd * itemsize,
-                 f"a ({P}, {hd}) page slab pair")
+#: blocks per SM that K1/K2's split plan aims the grid at
+SPLIT_BLOCKS_PER_SM = 4
+#: query heads of one kv head K1/K2 hold (the source's kMaxG) and the
+#: widest head (kMaxHd: a row over one warp's lanes, 16 bytes each)
+PAGED_MAX_GROUP = 16
+PAGED_MAX_HD = 256
+#: warps of a K1/K2 split block (the source's kWarps), whose softmax states
+#: meet in shared memory at the block's end
+PAGED_WARPS = 4
+#: the K1/K2 body that runs on the card (the ``body`` field of the smoke's
+#: rows): split-KV on the CUDA cores
+PAGED_BODY = "split-kv"
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    distance: int         # pages preloaded ahead of the compute
+    slots: int            # ring slots, each one page's K and V slab
+    smem_bytes: int       # dynamic shared memory of one split block
+    n_split: int          # splits of each row's visible pages
+    pages_per_split: int  # most pages one split streams
+
+
+def paged_split_plan(cfg: PULConfig, *, B: int, K: int, G: int, P: int,
+                     hd: int, n_pages: int, sms: int = 132,
+                     n_split: Optional[int] = None) -> SplitPlan:
+    """K1/K2's split count and ring. n_split (unless given) aims the
+    (n_split, K, B) grid at SPLIT_BLOCKS_PER_SM blocks per SM, within
+    [1, n_pages]: 8 at the smoke's B = 8, K = 8 on 132 SMs. It uses the
+    shapes and the SM count only, never the layer, the planes' depth or the
+    lengths, so K1 and K2 get one plan and no host sync. A ring slot holds
+    one page's K and V slab; besides the ring a block keeps its warps'
+    softmax states (m, l and the (G, hd) accumulator, fp32) for the merge at
+    its end. The distance is clamped to the pages of a split
+    (ceil(n_pages / n_split)), then distance and slots to shared memory and
+    the wait table as for every ring."""
+    if n_split is None:
+        n_split = SPLIT_BLOCKS_PER_SM * sms // (B * K)
+    n_split = max(1, min(n_pages, n_split))
+    per = -(-n_pages // n_split)
+    aux = PAGED_WARPS * G * (hd + 2) * 4
+    ring = _plan(cfg.replace(distance=min(cfg.distance, per)), aux,
+                 2 * P * hd * 2, f"a ({P}, {hd}) page slab pair")
+    return SplitPlan(ring.distance, ring.slots, ring.smem_bytes, n_split, per)
 
 
 def head_block(H: int) -> int:
@@ -271,6 +316,78 @@ def paged_sweep_decode_attention_ref(q, k_planes, v_planes, layer: int,
     return out
 
 
+def paged_decode_split_ref(q, k_pages, v_pages, page_tables, lengths, *,
+                           n_split: int, scale: Optional[float] = None,
+                           softcap: Optional[float] = None,
+                           window: Optional[int] = None, k_new=None,
+                           v_new=None,
+                           drop_split: Optional[int] = None) -> torch.Tensor:
+    """The split-and-merge arithmetic of the K1/K2 kernels, in plain fp32
+    PyTorch, for the tests and the smoke's planted fault (the wrappers take
+    :func:`paged_decode_attention_ref` on the CPU). Shapes as K2.
+
+    Row b's visible pages [lo, hi) (lo from the window's first position, hi
+    = ceil(lengths[b] / P)) go to n_split splits of c = ceil((hi - lo) /
+    n_split) pages; split s keeps (m, l, acc) over the visible keys of
+    pages [lo + s c, min(hi, lo + (s + 1) c)), masked keys weighing 0, and
+    an empty split m = NEG_INF, l = acc = 0. The merge takes M = max(m_s,
+    logit_new) and gives (sum acc_s e^(m_s - M) + p_new v_new) / max(sum
+    l_s e^(m_s - M) + p_new, 1e-30). (The kernels run the same function in
+    base-2 units, logits times log2(e), with 2^x for e^x.) drop_split leaves
+    that split of every row out of the merge: a fault the checks must
+    reject."""
+    B, H, hd = q.shape
+    _, K, P, _ = k_pages.shape
+    n_pages = page_tables.shape[1]
+    G = H // K
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, K, G, hd)
+    out = torch.empty((B, K, G, hd), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        length = int(lengths[b])
+        lo_tok = max(0, length - window + 1) if window is not None else 0
+        lo, hi = lo_tok // P, min(-(-length // P), n_pages)
+        c = -(-max(0, hi - lo) // n_split)
+        ms, ls, accs = [], [], []
+        for s in range(n_split):
+            t0, t1 = lo + s * c, min(hi, lo + (s + 1) * c)
+            if t1 <= t0 or s == drop_split:
+                continue           # weighs 0 in the merge
+            pages = page_tables[b, t0:t1].long().to(k_pages.device)
+            kk = k_pages[pages].permute(1, 0, 2, 3).reshape(K, -1, hd).float()
+            vv = v_pages[pages].permute(1, 0, 2, 3).reshape(K, -1, hd).float()
+            jk = torch.arange(t0 * P, t1 * P, device=q.device)
+            vis = (jk < length) & (jk >= lo_tok)
+            logits = _cap(torch.einsum("kgd,ksd->kgs", qf[b], kk) * scale,
+                          softcap)
+            logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
+            m = logits.amax(dim=-1)
+            p = torch.where(vis, torch.exp(logits - m[..., None]),
+                            torch.zeros_like(logits))
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(torch.einsum("kgs,ksd->kgd", p, vv))
+        M = torch.full((K, G), NEG_INF, device=q.device)
+        for m in ms:
+            M = torch.maximum(M, m)
+        if k_new is not None:
+            ln = _cap(torch.einsum("kgd,kd->kg", qf[b], k_new[b].float())
+                      * scale, softcap)
+            M = torch.maximum(M, ln)
+        L = torch.zeros((K, G), device=q.device)
+        A = torch.zeros((K, G, hd), device=q.device)
+        for m, l, acc in zip(ms, ls, accs):
+            w = torch.exp(m - M)
+            L = L + l * w
+            A = A + acc * w[..., None]
+        if k_new is not None:
+            pn = torch.exp(ln - M)
+            L = L + pn
+            A = A + pn[..., None] * v_new[b].float()[:, None, :]
+        out[b] = A / L.clamp_min(1e-30)[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
 def paged_mla_decode_attention_ref(q_abs, q_rope, ckv_pages, kr_pages,
                                    page_tables, lengths, c_new, r_new, *,
                                    scale: float) -> torch.Tensor:
@@ -335,9 +452,15 @@ def _check_common(q, k, v, page_tables, lengths, k_new, v_new, plane_shape):
     K, P = plane_shape[-3], plane_shape[-2]
     if H % K:
         raise ValueError(f"{H} query heads do not group over {K} kv heads")
-    if (P * hd * 2) % 16:
-        raise ValueError(f"a ({P}, {hd}) bf16 page slab is not a multiple of "
-                         "the 16-byte cp.async granule")
+    if hd % 8 or not 16 <= hd <= PAGED_MAX_HD:
+        raise ValueError(f"head dim {hd}: the kernel takes whole 16-byte "
+                         f"granules of bf16, from 16 to {PAGED_MAX_HD}")
+    if H // K > PAGED_MAX_GROUP:
+        raise ValueError(f"{H // K} query heads per kv head: the kernel holds "
+                         f"at most {PAGED_MAX_GROUP}")
+    if any(t is not None and t.data_ptr() % 16 for t in (q, k_new, v_new)):
+        raise ValueError("q, k_new and v_new must start on 16-byte "
+                         "boundaries")
     dev = q.device
     _check("q", q, (B, H, hd), torch.bfloat16, dev)
     _check("k planes", k, plane_shape, torch.bfloat16, dev)
@@ -350,18 +473,48 @@ def _check_common(q, k, v, page_tables, lengths, k_new, v_new, plane_shape):
         _check("v_new", v_new, (B, K, hd), torch.bfloat16, dev)
 
 
+@functools.lru_cache(maxsize=256)
+def split_plan_for(cfg: PULConfig, q_shape, plane_shape, n_pages: int,
+                   sms: int, n_split: Optional[int] = None) -> SplitPlan:
+    """The plan both K1 and K2 launch with: q (B, H, hd) over planes whose
+    last three dims are (K, P, hd), K1's (L, NF, K, P, hd) or K2's (NP, K,
+    P, hd); the planes' leading dims and the layer do not enter it. Cached:
+    the decode step asks once per layer with the same shapes."""
+    B, H, hd = q_shape
+    K, P = plane_shape[-3], plane_shape[-2]
+    return paged_split_plan(cfg, B=B, K=K, G=H // K, P=P, hd=hd,
+                            n_pages=n_pages, sms=sms, n_split=n_split)
+
+
+def _split_launch(cfg: PULConfig, q, plane_shape, page_tables,
+                  n_split: Optional[int]):
+    """K1/K2's plan and fp32 workspace: one allocation on the caller's
+    stream, viewed as m and l (B, K, n_split, G) and acc (B, K, n_split, G,
+    hd)."""
+    B, H, hd = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = split_plan_for(cfg, tuple(q.shape), tuple(plane_shape),
+                          page_tables.shape[1], sms, n_split)
+    n = B * H * plan.n_split
+    work = torch.empty(n * (hd + 2), dtype=torch.float32, device=q.device)
+    return plan, (work[:n], work[n:2 * n], work[2 * n:])
+
+
 def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
                                cfg: PULConfig = PULConfig(),
                                scale: Optional[float] = None,
                                softcap: Optional[float] = None,
                                window: Optional[int] = None,
-                               k_new=None, v_new=None) -> torch.Tensor:
+                               k_new=None, v_new=None,
+                               n_split: Optional[int] = None) -> torch.Tensor:
     """K2: decode attention straight over one layer's page frames.
 
     q (B, H, hd); k_pages/v_pages (NP, K, P, hd); page_tables (B, n_pages)
     int32; lengths (B,) int32; k_new/v_new (B, K, hd), the current token,
     folded into the online softmax after the page stream. Returns (B, H, hd).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (bf16, hd a multiple of 8 from 16 to 256, G <= 16), split as
+    :func:`paged_split_plan` says unless n_split is given."""
     if (k_new is None) != (v_new is None):
         raise ValueError("k_new/v_new come as a pair")
     if q.device.type == "cpu":
@@ -372,12 +525,12 @@ def pul_paged_decode_attention(q, k_pages, v_pages, page_tables, lengths, *,
                   k_pages.shape)
     B, H, hd = q.shape
     NP, K, P, _ = k_pages.shape
-    plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
+    plan, work = _split_launch(cfg, q, k_pages.shape, page_tables, n_split)
     out = torch.empty_like(q)
     rc = lib("pul_paged_decode").pul_paged_decode(
         _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_tables),
-        _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(out),
-        B, K, H // K, P, hd, page_tables.shape[1], NP,
+        _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(out), *map(_ptr, work),
+        B, K, H // K, P, hd, page_tables.shape[1], plan.n_split,
         scale if scale is not None else 1.0 / math.sqrt(hd),
         softcap if softcap is not None else 0.0,
         window if window is not None else 0,
@@ -395,7 +548,8 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
                                      cfg: PULConfig = PULConfig(),
                                      scale: Optional[float] = None,
                                      softcap: Optional[float] = None,
-                                     window: Optional[int] = None
+                                     window: Optional[int] = None,
+                                     n_split: Optional[int] = None
                                      ) -> torch.Tensor:
     """K1: one layer step of the single-sweep paged decode.
 
@@ -404,7 +558,8 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
     v_new (B, K, hd), merged into the online softmax AND written to plane
     position (layer, frames[b], kv_h, offsets[b]); frames/offsets (B,) int32
     (the TRASH frame for inactive slots). Returns out (B, H, hd); the planes
-    are updated in place."""
+    are updated in place. On the card the split count is K2's
+    (:func:`paged_split_plan`) unless n_split is given."""
     if q.device.type == "cpu":
         return paged_sweep_decode_attention_ref(
             q, k_planes, v_planes, layer, page_tables, lengths, k_new, v_new,
@@ -417,12 +572,13 @@ def pul_paged_sweep_decode_attention(q, k_planes, v_planes, layer: int,
         raise ValueError(f"layer {layer} outside the planes' {L} layers")
     _check("frames", frames, (B,), torch.int32, q.device)
     _check("offsets", offsets, (B,), torch.int32, q.device)
-    plan = ring_plan(cfg, G=H // K, P=P, hd=hd)
+    plan, work = _split_launch(cfg, q, k_planes.shape, page_tables, n_split)
     out = torch.empty_like(q)
     rc = lib("pul_paged_decode").pul_paged_sweep_decode(
         _ptr(q), _ptr(k_planes), _ptr(v_planes), _ptr(page_tables),
         _ptr(lengths), _ptr(k_new), _ptr(v_new), _ptr(frames), _ptr(offsets),
-        _ptr(out), B, K, H // K, P, hd, page_tables.shape[1], NF, int(layer),
+        _ptr(out), *map(_ptr, work), B, K, H // K, P, hd,
+        page_tables.shape[1], NF, int(layer), plan.n_split,
         scale if scale is not None else 1.0 / math.sqrt(hd),
         softcap if softcap is not None else 0.0,
         window if window is not None else 0,

@@ -2,16 +2,20 @@
 
 :func:`pul_gather` replaces the reference's ``kernels/pul_gather.py::
 pul_gather``: ``out[i*r:(i+1)*r] = table[trace[i]*r : +r]`` through a
-preload ring. :func:`pul_page_gather` is its page form, the engine's
-assembly gather: a paged store ``(n_pages, P, F)`` gathered by page table
-into ``(n_seqs, pages_per_seq * P, F)``. The kernel is CUDA C++ for Hopper,
-``csrc/pul_gather.cu`` (see the note at its head).
+preload ring and an unload ring. :func:`pul_page_gather` is its page form,
+the engine's assembly gather: a paged store ``(n_pages, P, F)`` gathered by
+page table into ``(n_seqs, pages_per_seq * P, F)``. The kernel is CUDA C++
+for Hopper, ``csrc/pul_gather.cu`` (see the note at its head): each
+request's span is cut into chunks that 1D bulk copies (TMA) move into and
+out of a shared-memory ring.
 
 Beside it are the plain versions :func:`gather_ref` (``table[trace]``, the
 reference's ``kernels/ref.py::gather_ref``) and :func:`page_gather_ref`. A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. ``LAUNCHES["k5"]`` counts its
-launches. :func:`gather_ring_plan` budgets the ring against shared memory.
+launches. :func:`gather_bulk_plan` cuts the spans into chunks and budgets
+the ring against shared memory; :func:`stream_runs` cuts the stream into
+one run per block.
 """
 from __future__ import annotations
 
@@ -22,49 +26,66 @@ import torch
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
 from repro_torch.kernels._runtime import (
     LAUNCHES,
+    MAX_RING_DISTANCE,
+    SMEM_LIMIT_BYTES,
     _check,
-    _plan,
     _ptr,
     _raise_on,
     _stream,
     lib,
 )
 
-#: bytes of one ring slot the tile width aims at: a (rows_per_req, tile)
-#: slab; 14 such slots fit the 227 KB a block may use
-SLOT_TARGET_BYTES = 16384
-#: blocks per SM the host aims the grid at (run lengths shrink until then,
-#: but never below two ring depths of requests)
-BLOCKS_PER_SM = 4
+#: bytes of one chunk, the unit of a bulk copy and of a ring slot: a span
+#: longer than this is cut into CHUNK_BYTES chunks and a narrower last one
+CHUNK_BYTES = 32768
+#: shared memory of one SM (228 KB); each resident block also takes 1 KB
+SMEM_PER_SM_BYTES = 233472
+#: bytes of the mbarrier each ring slot carries
+MBARRIER_BYTES = 8
 #: element types the wrapper takes (the reference's tests: f32, bf16, int32)
 DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+#: the body that runs on the card (the ``body`` field of the smoke's rows)
+BODY = "cp.async.bulk"
 
 
 @dataclasses.dataclass(frozen=True)
 class GatherPlan:
-    distance: int       # requests preloaded ahead of the copy-out
-    slots: int          # ring slots, each one (rows_per_req, tile) slab
+    distance: int       # positions preloaded ahead of the store
+    slots: int          # ring slots, each one chunk and its mbarrier
     smem_bytes: int     # dynamic shared memory of one block
-    tile_bytes: int     # bytes of each row one block copies
-    n_tiles: int        # tiles across a row (the last may be narrower)
+    chunk_bytes: int    # bytes of a chunk (the last of a span may be fewer)
+    n_chunks: int       # chunks of one request's span
 
 
-def gather_ring_plan(cfg: PULConfig, *, rows_per_req: int,
+def gather_bulk_plan(cfg: PULConfig, *, rows_per_req: int,
                      row_bytes: int) -> GatherPlan:
-    """K5's ring: rows are cut into tiles so that a slot of rows_per_req
-    tile rows is about SLOT_TARGET_BYTES; distance and slots are clamped to
-    shared memory and to the 32-entry wait table as for K1-K4. Raises for a
-    row that is not whole 16-byte cp.async granules."""
+    """K5's stream and ring: a request's span of rows_per_req * row_bytes
+    is cut into chunks of CHUNK_BYTES (or one chunk of the whole span), and
+    each slot holds a chunk and its mbarrier. A slot is loaded from global
+    memory and stored back from itself, so besides the preload ring's
+    slots (PULConfig's, 2d BATCH, d + 1 SEQUENTIAL) the ring keeps
+    cfg.unload_distance slots for stores still reading theirs: a reload
+    waits only for the store that many positions back (0: for every store
+    issued, the synchronous flush). Distance and slots are clamped to
+    shared memory and to the 32-entry wait table. Raises for a row that is
+    not whole 16-byte granules."""
     if row_bytes < CP_ASYNC_BYTES or row_bytes % CP_ASYNC_BYTES:
         raise ValueError(
             f"a row of {row_bytes} B is not a whole number of "
             f"{CP_ASYNC_BYTES}-byte cp.async granules")
-    tile = SLOT_TARGET_BYTES // rows_per_req // CP_ASYNC_BYTES * CP_ASYNC_BYTES
-    tile = min(row_bytes, max(CP_ASYNC_BYTES, tile))
-    ring = _plan(cfg, 0, rows_per_req * tile,
-                 f"a ({rows_per_req}, {tile} B) request slab")
-    return GatherPlan(ring.distance, ring.slots, ring.smem_bytes, tile,
-                      -(-row_bytes // tile))
+    span = rows_per_req * row_bytes
+    chunk = min(span, CHUNK_BYTES)
+    slot = chunk + MBARRIER_BYTES
+    seq = int(cfg.strategy is IssueStrategy.SEQUENTIAL)
+    lag = cfg.unload_distance
+    max_slots = SMEM_LIMIT_BYTES // slot
+    d = min(cfg.distance, MAX_RING_DISTANCE, max_slots - seq - lag)
+    if d < 1:
+        raise ValueError(f"a {chunk} B chunk leaves no ring in the "
+                         f"{SMEM_LIMIT_BYTES} B of shared memory")
+    want = cfg.slots if cfg.slots is not None else (d + 1 if seq else 2 * d)
+    slots = min(max(want, d + seq) + lag, max_slots)
+    return GatherPlan(d, slots, slots * slot, chunk, -(-span // chunk))
 
 
 def split_runs(n: int, distance: int, pes: int) -> int:
@@ -75,11 +96,13 @@ def split_runs(n: int, distance: int, pes: int) -> int:
     return -(-n // n_runs)
 
 
-def run_length(n_req: int, n_tiles: int, distance: int, sms: int) -> int:
-    """Requests one block walks: few enough that the grid of (runs, tiles)
-    reaches BLOCKS_PER_SM blocks per SM, and at least two ring depths (or
-    every request) so the ring runs full."""
-    return split_runs(n_req, distance, -(-BLOCKS_PER_SM * sms // n_tiles))
+def stream_runs(n_pos: int, distance: int, smem_bytes: int, sms: int) -> int:
+    """Blocks of K5, each walking one run of the stream (the kernel splits
+    the n_pos positions evenly): one for each block the card holds at once
+    (as many as fit an SM's shared memory, on every SM), but no more than
+    leave each run two ring depths, so its ring runs full."""
+    per_sm = max(1, SMEM_PER_SM_BYTES // (smem_bytes + 1024))
+    return max(1, min(per_sm * sms, n_pos // (2 * distance)))
 
 
 # ---------------------------------------------------------------------- #
@@ -129,7 +152,7 @@ def pul_gather(table: torch.Tensor, trace: torch.Tensor, *,
     if table.data_ptr() % CP_ASYNC_BYTES:
         raise ValueError("table rows must start on 16-byte boundaries")
     row_bytes = W * table.element_size()
-    plan = gather_ring_plan(cfg, rows_per_req=rows_per_req,
+    plan = gather_bulk_plan(cfg, rows_per_req=rows_per_req,
                             row_bytes=row_bytes)
     out = torch.empty((n * rows_per_req, W), dtype=table.dtype,
                       device=table.device)
@@ -137,8 +160,9 @@ def pul_gather(table: torch.Tensor, trace: torch.Tensor, *,
         return out
     sms = torch.cuda.get_device_properties(table.device).multi_processor_count
     rc = lib("pul_gather").pul_gather(
-        _ptr(table), _ptr(trace), _ptr(out), n, rows_per_req, row_bytes,
-        plan.tile_bytes, run_length(n, plan.n_tiles, plan.distance, sms),
+        _ptr(table), _ptr(trace), _ptr(out), n, rows_per_req * row_bytes,
+        plan.chunk_bytes,
+        stream_runs(n * plan.n_chunks, plan.distance, plan.smem_bytes, sms),
         plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
         _stream(table))

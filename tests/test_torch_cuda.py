@@ -14,8 +14,10 @@ the MLA pair K3/K4 are held against their plain PyTorch versions
 in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
 commits bitwise equal to the plain commits. Planted faults (the last visible
-page of the longest row skipped, the current token not folded) must fall
-outside that limit; that check also runs on the CPU. The dense attention
+page of the longest row skipped, the current token not folded, and for K1/K2
+one split left out of the merge) must fall outside that limit; that check
+also runs on the CPU. K1/K2 are also held at forced split counts, from one
+split to one page a split, and K5's bulk copies at ragged and 16-byte rows. The dense attention
 pair, K7 (flash attention) and K6 (decode over a dense cache), is held the
 same way in bf16 and to rtol = atol = 3e-4 in f32, at d = 1 and 4 in both
 issue orders, with its own planted faults (the last KV chunk lost, the
@@ -180,6 +182,68 @@ def test_launches_are_counted_and_checks_raise(dev):
             c["vn"], c["frames"], c["offs"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 2, 8, 64])
+@pytest.mark.parametrize("cfg", [
+    PULConfig(distance=1), PULConfig(distance=3),
+    PULConfig(distance=3, strategy=IssueStrategy.SEQUENTIAL)],
+    ids=["d1", "d3", "d3-seq"])
+def test_kernels_hold_at_every_split_count(dev, cfg, n_split):
+    """qwen3 width over 64 pages, rows of 0, 1, 999 and 1000 tokens, at
+    forced split counts: K1 and K2 within the limit of the plain version,
+    K1 == K2 bitwise, the commit bitwise, one launch a call, and a merge
+    that drops one split outside the limit."""
+    c = _case(dev, 4, 16, 8, 128, 16, 64, 2, [0, 1, 999, 1000])
+    kp0, vp0 = c["kp"].clone(), c["vp"].clone()
+    before = dict(PA.LAUNCHES)
+    out2 = PA.pul_paged_decode_attention(
+        c["q"], c["kp"][1], c["vp"][1], c["pt"], c["lens"], k_new=c["kn"],
+        v_new=c["vn"], cfg=cfg, n_split=n_split)
+    out1 = PA.pul_paged_sweep_decode_attention(
+        c["q"], c["kp"], c["vp"], 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], cfg=cfg, n_split=n_split)
+    no_new = PA.pul_paged_decode_attention(
+        c["q"], kp0[1], vp0[1], c["pt"], c["lens"], cfg=cfg, n_split=n_split)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["k1"] == before["k1"] + 1
+    assert PA.LAUNCHES["k2"] == before["k2"] + 2
+    want = PA.paged_sweep_decode_attention_ref(
+        c["q"], kp0, vp0, 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"])
+    _assert_close(out1, want)
+    _assert_close(no_new, PA.paged_decode_attention_ref(
+        c["q"], kp0[1], vp0[1], c["pt"], c["lens"]))
+    assert torch.equal(out1, out2)
+    assert torch.equal(c["kp"], kp0) and torch.equal(c["vp"], vp0)
+    dropped = PA.paged_decode_split_ref(
+        c["q"], kp0[1], vp0[1], c["pt"], c["lens"], n_split=n_split,
+        k_new=c["kn"], v_new=c["vn"], drop_split=n_split // 2)
+    assert not _close(dropped, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 5, 8, 16])
+@pytest.mark.parametrize("hd", [32, 64, 112, 256])
+def test_kernels_take_other_head_dims_and_groups(dev, hd, G):
+    """Every lane-group width (hd / 8 lanes a key) and head bound of the
+    split kernel: K1 within the limit of the plain version, K1 == K2."""
+    c = _case(dev, 3, 2 * G, 2, hd, 16, 6, 2, [0, 17, 90], seed=hd + G)
+    kp0, vp0 = c["kp"].clone(), c["vp"].clone()
+    out2 = PA.pul_paged_decode_attention(
+        c["q"], c["kp"][1], c["vp"][1], c["pt"], c["lens"], k_new=c["kn"],
+        v_new=c["vn"], softcap=8.0)
+    out1 = PA.pul_paged_sweep_decode_attention(
+        c["q"], c["kp"], c["vp"], 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], softcap=8.0)
+    torch.cuda.synchronize()
+    want = PA.paged_sweep_decode_attention_ref(
+        c["q"], kp0, vp0, 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], softcap=8.0)
+    _assert_close(out1, want)
+    assert torch.equal(out1, out2)
+    assert torch.equal(c["kp"], kp0) and torch.equal(c["vp"], vp0)
+
+
 # ---------------------------------------------------------------- MLA: K3/K4
 def _mla_case(dev, B, H, kvr, dr, P, n_pages, L, lengths, seed=0):
     rng = np.random.default_rng(seed)
@@ -327,6 +391,32 @@ def test_page_gather_kernel_matches_plain_version(dev, case, distance):
     got = pul_page_gather(store, pt, cfg=PULConfig(distance=distance))
     torch.cuda.synchronize()
     assert torch.equal(got, page_gather_ref(store, pt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [
+    PULConfig(distance=1), PULConfig(distance=4),
+    PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL),
+    PULConfig(distance=14)], ids=["d1", "d4", "d4-seq", "d14"])
+@pytest.mark.parametrize("rows_per_req", [1, 16])
+@pytest.mark.parametrize("row_bytes", [16, 6912])
+def test_gather_kernel_takes_ragged_and_tiny_rows(dev, row_bytes,
+                                                  rows_per_req, cfg):
+    """Bitwise at deepseek-v2's 6,912 B rows (a 110,592 B page: three 32 KB
+    chunks and a ragged 12,288 B one) and at 16-byte rows (a chunk of one
+    granule), with repeated trace entries."""
+    rng = np.random.default_rng(5)
+    W = row_bytes // 2
+    table = torch.from_numpy(rng.standard_normal(
+        (12 * rows_per_req, W)).astype(np.float32)).to(dev, torch.bfloat16)
+    trace = torch.from_numpy(np.array([3, 0, 11, 3, 3, 7, 0, 5, 9, 1, 2,
+                                       11, 4], np.int32)).to(dev)
+    before = PA.LAUNCHES["k5"]
+    got = pul_gather(table, trace, cfg=cfg, rows_per_req=rows_per_req)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["k5"] == before + 1
+    want = gather_ref(table.reshape(12, rows_per_req * W), trace)
+    assert torch.equal(got, want.reshape(-1, W))
 
 
 @pytest.mark.cuda

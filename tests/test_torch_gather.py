@@ -4,8 +4,8 @@ On the CPU each wrapper takes its plain version; the same numpy inputs go
 through the reference's Pallas kernels in interpret mode (the shapes of
 tests/test_kernels.py). A gather moves values without arithmetic, so the
 comparison is bitwise (raw bits for bf16). The CUDA kernel itself runs only
-on the card (tests/test_torch_cuda.py); its ring plan and grid split are
-plain Python and are checked here at the serving geometries.
+on the card (tests/test_torch_cuda.py); its plan (chunks, ring) and grid
+split are plain Python and are checked here at the serving geometries.
 """
 import importlib
 import jax.numpy as jnp
@@ -20,11 +20,13 @@ from repro.kernels.pul_gather import pul_page_gather as ref_page_gather
 from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels.pul_gather import (
     gather_ref,
-    gather_ring_plan,
+    CHUNK_BYTES,
+    MBARRIER_BYTES,
+    gather_bulk_plan,
     page_gather_ref,
     pul_gather,
     pul_page_gather,
-    run_length,
+    stream_runs,
 )
 
 # the module (the package exports the function pul_attention under its name)
@@ -110,53 +112,76 @@ QWEN3_ROW, DEEPSEEK_ROW = 57344 * 2, 3456 * 2
 
 
 @pytest.mark.parametrize("row_bytes,distance,strategy,want", [
-    # 1 KB of each of 16 rows per slot: 14 slots of 16 KB fit 227 KB
-    (QWEN3_ROW, 4, IssueStrategy.BATCH, (4, 8, 1024, 112)),
-    (QWEN3_ROW, 4, IssueStrategy.SEQUENTIAL, (4, 5, 1024, 112)),
-    (QWEN3_ROW, 21, IssueStrategy.BATCH, (14, 14, 1024, 112)),
-    (QWEN3_ROW, 64, IssueStrategy.SEQUENTIAL, (13, 14, 1024, 112)),
-    # deepseek's planner d* = 28 clamps to 14; 6.75 tiles -> 7, the last
-    # 768 B wide
-    (DEEPSEEK_ROW, 28, IssueStrategy.BATCH, (14, 14, 1024, 7)),
+    # a 1,835,008 B qwen3 page is 56 chunks of 32 KB; 7 slots of a chunk
+    # and its mbarrier fit 227 KB. One of them is the store's (the default
+    # unload_distance 1), so BATCH's 2d + 1 clamp to 7 and d to 6
+    (QWEN3_ROW, 4, IssueStrategy.BATCH, (4, 7, 32768, 56)),
+    (QWEN3_ROW, 4, IssueStrategy.SEQUENTIAL, (4, 6, 32768, 56)),
+    (QWEN3_ROW, 21, IssueStrategy.BATCH, (6, 7, 32768, 56)),
+    (QWEN3_ROW, 64, IssueStrategy.SEQUENTIAL, (5, 7, 32768, 56)),
+    # deepseek's planner d* = 28 clamps to 6; a 110,592 B page is three
+    # chunks of 32 KB and a last one of 12,288 B
+    (DEEPSEEK_ROW, 28, IssueStrategy.BATCH, (6, 7, 32768, 4)),
 ], ids=["qwen3-d4", "qwen3-d4-seq", "qwen3-d21", "qwen3-d64-seq",
         "deepseek-d28"])
 def test_gather_ring_plan_clamps_at_serving_geometries(row_bytes, distance,
                                                        strategy, want):
-    plan = gather_ring_plan(PULConfig(distance=distance, strategy=strategy),
+    plan = gather_bulk_plan(PULConfig(distance=distance, strategy=strategy),
                             rows_per_req=16, row_bytes=row_bytes)
-    assert (plan.distance, plan.slots, plan.tile_bytes, plan.n_tiles) == want
-    assert plan.smem_bytes == plan.slots * 16 * plan.tile_bytes
+    assert (plan.distance, plan.slots, plan.chunk_bytes, plan.n_chunks) == want
+    assert plan.smem_bytes == plan.slots * (plan.chunk_bytes + MBARRIER_BYTES)
     assert plan.smem_bytes <= PA.SMEM_LIMIT_BYTES
+    # without the store's slot (a synchronous flush) d reaches the slots
+    flush = gather_bulk_plan(PULConfig(distance=distance, strategy=strategy,
+                                       unload_distance=0),
+                             rows_per_req=16, row_bytes=row_bytes)
+    seq = strategy is IssueStrategy.SEQUENTIAL
+    assert flush.distance == min(distance, 7 - seq)
 
 
 def test_gather_ring_plan_small_rows_clamp_to_wait_table():
-    plan = gather_ring_plan(PULConfig(distance=64), rows_per_req=1,
+    plan = gather_bulk_plan(PULConfig(distance=64), rows_per_req=1,
                             row_bytes=1024)
+    # 2d preload slots and the store's one
     assert (plan.distance, plan.slots) == (PA.MAX_RING_DISTANCE,
-                                           2 * PA.MAX_RING_DISTANCE)
-    assert plan.tile_bytes == 1024 and plan.n_tiles == 1
+                                           2 * PA.MAX_RING_DISTANCE + 1)
+    assert plan.chunk_bytes == 1024 and plan.n_chunks == 1
 
 
 @pytest.mark.parametrize("row_bytes", [0, 8, 100, 1000])
 def test_gather_ring_plan_rejects_rows_off_the_granule(row_bytes):
     with pytest.raises(ValueError, match="16-byte cp.async granules"):
-        gather_ring_plan(PULConfig(), rows_per_req=16, row_bytes=row_bytes)
+        gather_bulk_plan(PULConfig(), rows_per_req=16, row_bytes=row_bytes)
 
 
 def test_gather_ring_plan_rejects_a_slab_beyond_shared_memory():
-    with pytest.raises(ValueError, match="does not fit"):
-        gather_ring_plan(PULConfig(distance=1), rows_per_req=20000,
-                         row_bytes=1024)
+    """A request far beyond shared memory (20,000 rows of 1 KB) is no
+    longer refused, as the tile plan did: the bulk plan cuts its span into
+    CHUNK_BYTES chunks, and only the chunks pass through the ring."""
+    plan = gather_bulk_plan(PULConfig(distance=1), rows_per_req=20000,
+                            row_bytes=1024)
+    assert plan.chunk_bytes == CHUNK_BYTES
+    assert plan.n_chunks == -(-20000 * 1024 // CHUNK_BYTES)
+    assert plan.smem_bytes <= PA.SMEM_LIMIT_BYTES
 
 
-@pytest.mark.parametrize("n_req,n_tiles,distance,want", [
-    (512, 112, 4, 103),     # qwen3 smoke: 5 runs x 112 tiles = 560 blocks
-    (512, 7, 14, 27),       # deepseek: 19 runs of >= 2 ring depths
-    (40, 1, 8, 14),         # the reference test shape
-    (3, 1, 8, 3),           # fewer requests than a ring depth
+@pytest.mark.parametrize("n_pos,distance,smem_bytes,want", [
+    # qwen3 smoke: 512 pages x 56 chunks, one 229,432 B block per SM
+    (512 * 56, 4, 229432, 132),
+    # deepseek: 512 pages x 4 chunks at d = 6, still every SM
+    (512 * 4, 6, 229432, 132),
+    # the reference test shape: 40 one-chunk requests at d = 8; 12 blocks
+    # would fit an SM, but runs keep two ring depths
+    (40, 8, 17 * 1032, 2),
+    (3, 8, 17 * 1032, 1),           # fewer positions than a ring depth
 ])
-def test_run_length_fills_the_card_and_the_ring(n_req, n_tiles, distance, want):
-    assert run_length(n_req, n_tiles, distance, sms=132) == want
+def test_run_length_fills_the_card_and_the_ring(n_pos, distance, smem_bytes,
+                                                want):
+    runs = stream_runs(n_pos, distance, smem_bytes, sms=132)
+    assert runs == want
+    # the kernel's even split: every run is full, and at least 2d long
+    # unless the stream is shorter
+    assert n_pos // runs >= min(n_pos, 2 * distance)
 
 
 def test_gather_wrappers_never_fall_back_off_cpu():

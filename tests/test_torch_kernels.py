@@ -139,30 +139,36 @@ def test_bf16_plain_version_matches_fp32_reference():
 
 
 # ---------------------------------------------------------------- ring plan
+# K1/K2's ring lives in paged_split_plan: at n_split = 1 a split streams
+# every page of a row, so only shared memory and the wait table clamp it
 @pytest.mark.parametrize("distance,strategy,want", [
     # full qwen3 width: the TPU tiers' d = 21 asks for 42 slots (336 KB);
-    # 28 slots of 8 KB fit the 227 KB a block may use
-    (21, IssueStrategy.BATCH, (21, 28)),
+    # 27 slots of 8 KB fit the 227 KB a block may use beside the four warps'
+    # 4,160 B of softmax state
+    (21, IssueStrategy.BATCH, (21, 27)),
     (1, IssueStrategy.BATCH, (1, 2)),
     (4, IssueStrategy.SEQUENTIAL, (4, 5)),
-    (64, IssueStrategy.BATCH, (28, 28)),
+    (64, IssueStrategy.BATCH, (27, 27)),
 ])
 def test_ring_plan_clamps_to_shared_memory(distance, strategy, want):
-    plan = PA.ring_plan(PULConfig(distance=distance, strategy=strategy),
-                        G=2, P=16, hd=128)
+    plan = PA.paged_split_plan(PULConfig(distance=distance, strategy=strategy),
+                               B=8, K=8, G=2, P=16, hd=128, n_pages=64,
+                               n_split=1)
     assert (plan.distance, plan.slots) == want
     assert plan.smem_bytes <= PA.SMEM_LIMIT_BYTES
 
 
 def test_ring_plan_small_pages_clamp_to_wait_table():
-    plan = PA.ring_plan(PULConfig(distance=64), G=2, P=8, hd=16)
+    plan = PA.paged_split_plan(PULConfig(distance=64), B=1, K=1, G=2, P=8,
+                               hd=16, n_pages=64, n_split=1)
     assert plan.distance == PA.MAX_RING_DISTANCE
     assert plan.slots == 2 * PA.MAX_RING_DISTANCE
 
 
 def test_ring_plan_rejects_a_slab_beyond_shared_memory():
     with pytest.raises(ValueError, match="does not fit"):
-        PA.ring_plan(PULConfig(distance=1), G=2, P=512, hd=256)
+        PA.paged_split_plan(PULConfig(distance=1), B=1, K=1, G=2, P=512,
+                            hd=256, n_pages=4)
 
 
 def test_wrapper_never_falls_back_off_cpu():
