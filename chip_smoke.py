@@ -16,7 +16,9 @@ exit code is not 0:
                      reject (one split left out of the merge among them),
                      times at the plan's split count and at forced ones,
                      bounds and plain times
-  4. kernels-mla  -- the same for K3/K4 at deepseek-v2 widths
+  4. kernels-mla  -- the same for K3/K4 (split-KV, the products on the
+                     tensor cores) at deepseek-v2 widths, with the fp32
+                     workspace's bytes beside the pages'
   5. kernels-gather -- the PUL gather K5 (1D bulk copies) against its plain
                      version, bitwise, at the qwen3 and deepseek serving page
                      geometries (with planted faults) and in three types at
@@ -62,7 +64,8 @@ exit code is not 0:
  13. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
                      as in phase 10, one decode step against K3's
  14. summary      -- one JSON line listing the kernels, with the body each
-                     ran (wgmma, mma.sync, split-kv, cp.async.bulk or fma)
+                     ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
+                     cp.async.bulk or fma)
  15. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
@@ -78,11 +81,12 @@ real copies:
 
     python3 -c "import chip_smoke; chip_smoke.slots_sweep()"
 
-and K5's chunk sizes beside index_select, and K1 at forced split counts and
-distances with its two kernels' device times:
+and K5's chunk sizes beside index_select, and K1 (and K3) at forced split
+counts and distances with their two kernels' device times:
 
     python3 -c "import chip_smoke; chip_smoke.chunk_sweep()"
     python3 -c "import chip_smoke; chip_smoke.split_sweep()"
+    python3 -c "import chip_smoke; chip_smoke.mla_split_sweep()"
 
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
@@ -142,7 +146,7 @@ MLA_LAYERS = 6
 # published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
 # dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
 # every bound uses, and float32 flop/s outside the tensor cores, where the
-# kernels do their math today (printed beside the K3/K4 bound)
+# first K3/K4 design did its math (printed beside the K3/K4 bound)
 H100_SXM = "H100 80GB HBM3"
 HBM_PEAK, BF16_TC_PEAK, FP32_PEAK = 3.35e12, 989e12, 67e12
 
@@ -488,10 +492,12 @@ def _mla_case(gen, dev, lengths):
 def _mla_bound(c, commit):
     """Least time for K3 (commit) or K4 on this card: bytes each input read
     once and each output written once (visible page slabs once, though the
-    kernel reads each H / Hb times) over the HBM peak, against the flops of
+    split kernel reads each ceil(H / 64) times, twice at 128 heads, and its
+    fp32 workspace is not counted) over the HBM peak, against the flops of
     the visible positions and the current token, 2 * (2 kvr + dr) per token
     and head, over the bf16 peak (the operands' type). Also returns the time
-    of the same flops on the fp32 CUDA cores, where the kernel does them."""
+    of the same flops on the fp32 CUDA cores, where the first design did
+    them."""
     lens = c["lens"].tolist()
     pages = sum(-(-n // P) for n in lens)
     nbytes = pages * P * (KVR + DR) * 2
@@ -507,10 +513,35 @@ def _mla_bound(c, commit):
             nbytes, flops, flops / FP32_PEAK * 1e3)
 
 
-def _mla_planted_faults(c, want, layer, scale):
+def _mla_split_plan(c, cfg, n_split=None):
+    """The split plan K3/K4 launch with on this card for case c."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, H_, kvr = c["qa"].shape
+    return PA.mla_split_plan_for(cfg, B, H_, P, kvr, c["qr"].shape[-1],
+                                 c["pt"].shape[1], sms, n_split)
+
+
+def _mla_workspace(c, plan):
+    """(bytes of the fp32 workspace a K3/K4 call allocates, bytes its
+    non-empty splits write, bytes of the visible pages, bytes the split
+    kernel reads of them: once per block of 64 heads)."""
+    B, H_, kvr = c["qa"].shape
+    row = H_ * (kvr + 2) * 4
+    written = pages = 0
+    for n in c["lens"].tolist():
+        hi = -(-n // P)
+        per = -(-hi // plan.n_split)
+        written += (-(-hi // per) if per else 0) * row
+        pages += hi * P * (kvr + DR) * 2
+    return (B * plan.n_split * row, written, pages,
+            pages * -(-H_ // PA.MLA_HEADS))
+
+
+def _mla_planted_faults(c, want, layer, scale, n_split):
     """Wrong answers the limit must reject, on the mixed case: the last
-    visible page of the length-1000 row skipped, and the current token not
-    folded in."""
+    visible page of the length-1000 row skipped, the current token not
+    folded in, and the merge with one split (of the n_split the plan gave)
+    left out."""
     row = c["lens"].tolist().index(1000)
     cut = c["lens"].clone()
     cut[row] = 1000 // P * P
@@ -522,6 +553,10 @@ def _mla_planted_faults(c, want, layer, scale):
         "current token not folded":
             PA.paged_mla_decode_attention_ref(*args, c["lens"], None, None,
                                               scale=scale),
+        f"split {n_split // 2} of {n_split} left out of the merge":
+            PA.paged_mla_decode_split_ref(
+                *args, c["lens"], c["cn"], c["rn"], scale=scale,
+                n_split=n_split, drop_split=n_split // 2),
     }
     for what, bad in faults.items():
         if _close(bad, want):
@@ -532,7 +567,8 @@ def _mla_planted_faults(c, want, layer, scale):
 
 
 def phase_kernels_mla():
-    """K3/K4 against their plain versions at deepseek-v2 widths."""
+    """K3/K4 (split-KV: a split and a merge kernel per call) against their
+    plain versions at deepseek-v2 widths."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -547,7 +583,7 @@ def phase_kernels_mla():
         ring = [PULConfig(distance=d) for d in sorted({1, d_eng})]
         ring.append(PULConfig(distance=d_eng, strategy=IssueStrategy.SEQUENTIAL))
         for cfg in ring:
-            plan = PA.mla_ring_plan(cfg, H=MLA_H, P=P, kvr=KVR, dr=DR)
+            plan = _mla_split_plan(c, cfg)
             d = (f"{cfg.distance}{'' if cfg.strategy is IssueStrategy.BATCH else ' seq'}"
                  f" (ring: d={plan.distance}, {plan.slots} slots)")
             rest = (c["pt"], c["lens"], c["cn"], c["rn"])
@@ -573,7 +609,8 @@ def phase_kernels_mla():
                 raise AssertionError(f"{label} d={d}: K3 commit differs from "
                                      "the plain version's")
             if label == "mixed" and cfg is ring[0]:
-                _mla_planted_faults(dict(c, cp=cp0, rp=rp0), want, layer, scale)
+                _mla_planted_faults(dict(c, cp=cp0, rp=rp0), want, layer,
+                                    scale, plan.n_split)
             del cp0, rp0
             results["k3"].append(err3)
             results["k4"].append(err4)
@@ -596,8 +633,22 @@ def phase_kernels_mla():
         *args3, scale=scale), reps=10)
     plain4_ms = _time_ms(lambda: PA.paged_mla_decode_attention_ref(
         *args4, scale=scale), reps=10)
-    # load balance: with about one block per SM, a time near the mixed case's
-    # with every row at the longest length means the longest row sets it
+    plan = _mla_split_plan(c, cfg)
+    alloc, written, page_bytes, page_reads = _mla_workspace(c, plan)
+    print(f"[kernels-mla] split plan: {plan.n_split} splits of <= "
+          f"{plan.pages_per_split} pages, ring d={plan.distance}, {plan.slots} "
+          f"slots, {plan.smem_bytes} B a block (grid {plan.n_split} x "
+          f"{-(-MLA_H // PA.MLA_HEADS)} x 8); fp32 workspace {alloc} B "
+          f"allocated, {written} B written by the non-empty splits and read "
+          f"by the merge, beside {page_bytes} B of visible pages "
+          f"({page_reads} B read by the split blocks)")
+    forced = {n: _time_ms(lambda: PA.pul_paged_sweep_mla_decode_attention(
+        *args3, scale=scale, cfg=cfg, n_split=n))
+        for n in (1, 2, 4, 8, 16, 32, 64)}
+    print("[kernels-mla] K3 ms by forced split count: " + ", ".join(
+        f"{n}: {ms:.4f}" for n, ms in forced.items()))
+    # every row at the longest length: all 128 blocks stream 8 pages, so the
+    # time follows the pages, not the longest row alone
     f = _mla_case(gen, dev, [1000] * len(cases[0][1]))
     full_ms = _time_ms(lambda: PA.pul_paged_mla_decode_attention(
         f["qa"], f["qr"], f["cp"][2], f["rp"][2], f["pt"], f["lens"], f["cn"],
@@ -616,7 +667,7 @@ def phase_kernels_mla():
               f"{fp32_ms:.5f} ms")
         out[key] = dict(max_abs_err=max(results[key]), ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms,
-                        bound_by=bound_by)
+                        bound_by=bound_by, body=PA.MLA_BODY)
     return out
 
 
@@ -1397,7 +1448,8 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
     """One-off, not a phase of the smoke: where a decode tick's time goes.
     torch.profiler over 4 pure decode ticks of one decode path (PATHS) at
     the smoke configuration of `arch` (8 requests, all admitted at tick 0).
-    Prints one [profile] line."""
+    Prints one [profile] line: the top kernels, and the port's own kernels
+    (K1-K5 on this path) by name."""
     from torch.profiler import ProfilerActivity, profile
     cfg = smoke_config(arch)
     params = init_params(cfg, seed=0, device="cuda")
@@ -1428,6 +1480,15 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the port's own kernels, all of them: the __global__ functions of
+    # csrc/, each in a top-level anonymous namespace
+    csrc = "".join(p.read_text() for p in _build.CSRC_DIR.glob("*.cu"))
+    names = set(re.findall(r"__global__[^{;]*?(\w+_kernel)\s*\(", csrc))
+    ours = {}
+    for name, ms in by_name.items():
+        m = re.match(r"(?:void )?\(anonymous namespace\)::((\w+)[^(]*)", name)
+        if m and m.group(2) in names:
+            ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms
     ops = sum(1 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CPU
               and e.name.startswith("aten::") and e.cpu_parent is None)
@@ -1438,7 +1499,8 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
              "device_idle_share": 1.0 - busy / (wall * 1e3),
              "kernels_per_tick": len(kernels) / ticks,
              "top_level_aten_ops_per_tick": ops / ticks,
-             "top_kernels_ms_per_tick": [(n[:60], ms / ticks) for n, ms in top]}
+             "top_kernels_ms_per_tick": [(n[:60], ms / ticks) for n, ms in top],
+             "port_kernels_ms_per_tick": {k: ms / ticks for k, ms in ours.items()}}
     print("[profile] " + json.dumps(stats))
     return stats
 
@@ -1585,6 +1647,57 @@ def split_sweep():
                       f"{e.key[:60]}: {e.count} calls, {dev_us:.2f} us each "
                       "on the device")
     print("[split] " + json.dumps(out))
+    return out
+
+
+def mla_split_sweep():
+    """One-off, not a phase of the smoke: K3 at the mixed decode case with
+    the split count and the ring distance forced (one split, the 63-page
+    row in one block, and the plan's 8), and the device time of its split
+    and merge kernels under torch.profiler at the plan's split count, at
+    one split and at 64 (a page a split). Prints [mla-split] lines."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    c = _mla_case(gen, dev, [0, 7, 16, 1000, 513, 250, 64, 999])
+    scale = 1.0 / math.sqrt(MLA_QK)
+
+    def k3(cfg, n_split=None):
+        return PA.pul_paged_sweep_mla_decode_attention(
+            c["qa"], c["qr"], c["cp"], c["rp"], 2, c["pt"], c["lens"],
+            c["cn"], c["rn"], c["frames"], c["offs"], scale=scale, cfg=cfg,
+            n_split=n_split)
+
+    print(_smi("name,power.limit"))
+    out = {}
+    for n_split in (1, 8):
+        for d in (1, 2, 4, 8):
+            for strategy in IssueStrategy:
+                cfg = PULConfig(distance=d, strategy=strategy)
+                plan = _mla_split_plan(c, cfg, n_split)
+                ms = _time_ms(lambda: k3(cfg, n_split))
+                key = f"n_split {n_split} d={d} {strategy.name}"
+                out[key] = ms
+                print(f"[mla-split] {key}: K3 {ms:.4f} ms (ring d="
+                      f"{plan.distance}, {plan.slots} slots)")
+    cfg = PULConfig(distance=engine_distance(MLA_LAYERS * (KVR + DR), 1))
+    for n_split in (None, 1, 64):
+        for _ in range(3):
+            k3(cfg, n_split)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                k3(cfg, n_split)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            dev_us = e.device_time
+            if e.count and dev_us and "kernel" in e.key:
+                print(f"[mla-split] profiler, n_split {n_split or 'planned'}: "
+                      f"{e.key[:60]}: {e.count} calls, {dev_us:.2f} us each "
+                      "on the device")
+    print("[mla-split] " + json.dumps(out))
     return out
 
 
@@ -1837,9 +1950,10 @@ def main():
                          "bound_by")},
                      "library_ms": kern[key].get("library_ms"),
                      # which body ran: "wgmma" or "mma.sync" on the tensor
-                     # cores, "split-kv" (K1/K2's split and merge kernels) or
-                     # "fma" on the CUDA cores, "cp.async.bulk" (K5's TMA
-                     # copies)
+                     # cores, "split-kv mma.sync" (K3/K4's split and merge
+                     # kernels, the products on the tensor cores), "split-kv"
+                     # (K1/K2's, on the CUDA cores) or "fma" on the CUDA
+                     # cores, "cp.async.bulk" (K5's TMA copies)
                      "body": kern[key].get("body", "fma")})
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -9,10 +9,11 @@ from repro_torch.kernels.pul_attention import (
     attention_kernel_ref,
     attention_ring_plan,
     attention_tc_plan,
-    mla_ring_plan,
+    mla_split_plan,
     paged_decode_attention_ref,
     paged_decode_split_ref,
     paged_mla_decode_attention_ref,
+    paged_mla_decode_split_ref,
     paged_split_plan,
     paged_sweep_decode_attention_ref,
     paged_sweep_mla_decode_attention_ref,
@@ -60,8 +61,8 @@ SOURCES = ("pul_paged_decode", "pul_paged_mla_decode", "pul_gather",
            "pul_dense_attention", "pul_sum", "pul_filter", "pul_matmul")
 
 __all__ = [
-    "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_ring_plan", "SplitPlan",
-    "paged_split_plan", "paged_decode_split_ref",
+    "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_split_plan", "SplitPlan",
+    "paged_split_plan", "paged_decode_split_ref", "paged_mla_decode_split_ref",
     "ref", "attention_ring_plan", "attention_tc_plan", "attention_body",
     "pul_attention", "attention_kernel_ref",
     "DecodePlan", "decode_ring_plan", "pul_decode_attention",

@@ -39,8 +39,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "pul_paged_decode": [_P] * 11 + [_I] * 7 + [_F, _F] + [_I] * 5 + [_P],
     },
     "pul_paged_mla_decode": {
-        "pul_paged_sweep_mla_decode": [_P] * 11 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
-        "pul_paged_mla_decode": [_P] * 9 + [_I] * 8 + [_F] + [_I] * 4 + [_P],
+        "pul_paged_sweep_mla_decode": [_P] * 14 + [_I] * 9 + [_F] + [_I] * 4 + [_P],
+        "pul_paged_mla_decode": [_P] * 12 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
     },
     "pul_gather": {"pul_gather": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P]},
     "pul_sum": {"pul_sum": [_P] * 4 + [_I] * 11 + [_P],

@@ -21,7 +21,9 @@ head of each file):
   * :func:`pul_paged_sweep_mla_decode_attention` (K3) and
     :func:`pul_paged_mla_decode_attention` (K4) are the absorbed-MLA twins
     (deepseek-v2) over compressed-KV planes ``(L, NF, P, kvr)`` and
-    ``(L, NF, P, dr)``: ``csrc/pul_paged_mla_decode.cu``.
+    ``(L, NF, P, dr)``: ``csrc/pul_paged_mla_decode.cu``, split-KV over the
+    page table as K1/K2, with 64 heads a block and the logit and value
+    products on the tensor cores (mma.sync).
   * :func:`pul_attention` (K7) replaces ``pul_attention``: flash attention
     over a dense (B, K, S, hd) KV with GQA, end-aligned causal masking, a
     sliding window and a softcap, the entry point of ``ops.attention_op``:
@@ -32,16 +34,17 @@ Beside each kernel is its plain PyTorch version (``*_ref``): fp32 math on
 gathered pages plus an ``index_put_`` commit. A wrapper uses the plain
 version only for tensors on the CPU (the CPU tests); for CUDA tensors it
 launches its kernel or raises. ``LAUNCHES`` counts kernel launches per
-kernel, so a run can show the main path went through them (one per K1/K2
-call, which launches the split and the merge kernel).
-:func:`paged_decode_split_ref` models K1/K2's split-and-merge arithmetic
-in plain PyTorch, for the tests and the smoke's planted fault.
+kernel, so a run can show the main path went through them (one per K1-K4
+call, which launches a split and a merge kernel).
+:func:`paged_decode_split_ref` and :func:`paged_mla_decode_split_ref` model
+the split-and-merge arithmetic in plain PyTorch, for the tests and the
+smoke's planted fault.
 
 The in-kernel PUL ring is budgeted against Hopper's shared memory by
 :func:`paged_split_plan` (which also picks K1/K2's split count),
-:func:`mla_ring_plan`, :func:`attention_tc_plan` (K7 in bf16, on the tensor
-cores) and :func:`attention_ring_plan` (K7 in f32) (the counterparts of
-the reference's ``ring_scratch`` VMEM check).
+:func:`mla_split_plan` (K3/K4's), :func:`attention_tc_plan` (K7 in bf16, on
+the tensor cores) and :func:`attention_ring_plan` (K7 in f32) (the
+counterparts of the reference's ``ring_scratch`` VMEM check).
 """
 from __future__ import annotations
 
@@ -77,8 +80,22 @@ DENSE_HDS = (16, 32, 64, 112, 128, 256)
 #: kv head's G heads
 Q_ROWS = 64
 TC_ROWS = 128
-#: query heads one K3/K4 block holds (the MLA source's kMaxHeads)
-HEAD_BLOCK = 8
+#: query heads of one K3/K4 split block (the MLA source's kHeads): four m16
+#: tiles; head rows past H are zero and never written out
+MLA_HEADS = 64
+#: most splits of a K3/K4 row (the source's kMaxSplits: the merge keeps a
+#: weight per split and head in shared memory)
+MLA_MAX_SPLITS = 256
+#: widest c_kv row K3/K4 take (a warp's half of it is its fp32 accumulator:
+#: 128 registers at 512)
+MLA_MAX_KVR = 512
+#: shared memory of a K3/K4 split block besides its ring and q tile: the
+#: double-buffered exchange of the logits' partial sums (the source's
+#: kXchgFloats)
+MLA_XCHG_BYTES = 16384
+#: the K3/K4 body that runs on the card (the ``body`` field of the smoke's
+#: rows): split-KV with the products on the tensor cores
+MLA_BODY = "split-kv mma.sync"
 
 
 #: blocks per SM that K1/K2's split plan aims the grid at
@@ -127,23 +144,37 @@ def paged_split_plan(cfg: PULConfig, *, B: int, K: int, G: int, P: int,
     return SplitPlan(ring.distance, ring.slots, ring.smem_bytes, n_split, per)
 
 
-def head_block(H: int) -> int:
-    """Query heads per K3/K4 block: the largest divisor of H up to
-    HEAD_BLOCK (8 at deepseek-v2's 128 heads)."""
-    return math.gcd(H, HEAD_BLOCK)
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def mla_ring_plan(cfg: PULConfig, *, H: int, P: int, kvr: int, dr: int,
-                  itemsize: int = 2) -> RingPlan:
-    """K3/K4's ring: a slot holds one page's (P, kvr) c_kv and (P, dr) k_rope
-    slab; besides the ring a block of Hb = head_block(H) heads keeps q_abs
-    and the fp32 accumulator (Hb, kvr), q_rope (Hb, dr), the page's logits
-    (Hb, P) and m/l/corr (Hb,) in fp32. At deepseek-v2 width (Hb = 8, P = 16)
-    10 slots of 18,432 B fit."""
-    Hb = head_block(H)
-    aux = (2 * Hb * kvr + Hb * dr + Hb * P + 3 * Hb) * 4
-    return _plan(cfg, aux, P * (kvr + dr) * itemsize,
+def mla_split_plan(cfg: PULConfig, *, B: int, H: int, P: int, kvr: int,
+                   dr: int, n_pages: int, sms: int = 132,
+                   n_split: Optional[int] = None) -> SplitPlan:
+    """K3/K4's split count and ring. n_split (unless given) aims the
+    (n_split, ceil(H / MLA_HEADS), B) grid at one block per SM, within [1,
+    min(n_pages, MLA_MAX_SPLITS)]: 132 // (8 x 2) = 8 at the smoke's B = 8,
+    H = 128. It uses the shapes and the SM count only, never the layer, the
+    planes' depth or the lengths, so K3 and K4 get one plan and no host
+    sync. A shared row holds one token's c | r features, F = kvr + dr
+    rounded up to 16 (zeros past dr), plus one 16-byte pad granule; a ring
+    slot holds one page's rows, P rounded up to 16 (zero rows past P), and
+    its mbarrier (16 B reserved); besides the ring a block keeps its
+    MLA_HEADS heads' q_abs | q_rope rows (zero rows past H), their mbarrier
+    and the MLA_XCHG_BYTES exchange. At deepseek-v2 width a slot is 18,704
+    B beside 91,152 B, so 7 fit. The distance is clamped to the pages of a
+    split (ceil(n_pages / n_split)), then distance and slots to shared
+    memory and the wait table as for every ring."""
+    if n_split is None:
+        n_split = sms // (B * -(-H // MLA_HEADS))
+    n_split = max(1, min(n_pages, MLA_MAX_SPLITS, n_split))
+    per = -(-n_pages // n_split)
+    row = (kvr + _round16(dr)) * 2 + 16
+    aux = MLA_HEADS * row + MLA_XCHG_BYTES + 16
+    ring = _plan(cfg.replace(distance=min(cfg.distance, per)), aux,
+                 _round16(P) * row + 16,
                  f"a ({P}, {kvr}) + ({P}, {dr}) page slab pair")
+    return SplitPlan(ring.distance, ring.slots, ring.smem_bytes, n_split, per)
 
 
 def kv_chunk_rows(itemsize: int) -> int:
@@ -441,6 +472,70 @@ def paged_sweep_mla_decode_attention_ref(q_abs, q_rope, ckv_planes, kr_planes,
     return out
 
 
+def paged_mla_decode_split_ref(q_abs, q_rope, ckv_pages, kr_pages,
+                               page_tables, lengths, c_new, r_new, *,
+                               scale: float, n_split: int,
+                               drop_split: Optional[int] = None
+                               ) -> torch.Tensor:
+    """The split-and-merge arithmetic of the K3/K4 kernels, in plain fp32
+    PyTorch, for the tests and the smoke's planted fault (the wrappers take
+    :func:`paged_mla_decode_attention_ref` on the CPU). Shapes as K4.
+
+    Row b's visible pages [0, hi), hi = ceil(lengths[b] / P), go to n_split
+    splits of c = ceil(hi / n_split) pages; split s keeps (m, l, acc) over
+    the visible positions of pages [s c, min(hi, (s + 1) c)), masked ones
+    weighing 0; an empty split is left out. The merge takes M = max(m_s,
+    logit_new) and gives (sum acc_s e^(m_s - M) + p_new c_new) / max(sum
+    l_s e^(m_s - M) + p_new, 1e-30). (The kernels run the same function in
+    base-2 units, with P rounded to bf16 before the value product.)
+    drop_split leaves that split of every row out of the merge: a fault the
+    checks must reject."""
+    B, H, kvr = q_abs.shape
+    P = ckv_pages.shape[1]
+    n_pages = page_tables.shape[1]
+    qa, qr = q_abs.float(), q_rope.float()
+    out = torch.empty((B, H, kvr), dtype=torch.float32, device=q_abs.device)
+    for b in range(B):
+        length = int(lengths[b])
+        hi = min(-(-length // P), n_pages)
+        c = -(-hi // n_split)
+        ms, ls, accs = [], [], []
+        for s in range(n_split):
+            t0, t1 = s * c, min(hi, (s + 1) * c)
+            if t1 <= t0 or s == drop_split:
+                continue           # weighs 0 in the merge
+            pages = page_tables[b, t0:t1].long().to(ckv_pages.device)
+            cc = ckv_pages[pages].reshape(-1, kvr).float()
+            rr = kr_pages[pages].reshape(cc.shape[0], -1).float()
+            vis = torch.arange(t0 * P, t1 * P, device=q_abs.device) < length
+            logits = (qa[b] @ cc.T + qr[b] @ rr.T) * scale         # (H, S)
+            logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
+            m = logits.amax(dim=-1)
+            p = torch.where(vis, torch.exp(logits - m[:, None]),
+                            torch.zeros_like(logits))
+            ms.append(m)
+            ls.append(p.sum(dim=-1))
+            accs.append(p @ cc)
+        M = torch.full((H,), NEG_INF, device=q_abs.device)
+        for m in ms:
+            M = torch.maximum(M, m)
+        if c_new is not None:
+            ln = (qa[b] @ c_new[b].float() + qr[b] @ r_new[b].float()) * scale
+            M = torch.maximum(M, ln)
+        L = torch.zeros((H,), device=q_abs.device)
+        A = torch.zeros((H, kvr), device=q_abs.device)
+        for m, l, acc in zip(ms, ls, accs):
+            w = torch.exp(m - M)
+            L = L + l * w
+            A = A + acc * w[:, None]
+        if c_new is not None:
+            pn = torch.exp(ln - M)
+            L = L + pn
+            A = A + pn[:, None] * c_new[b].float()[None, :]
+        out[b] = A / L.clamp_min(1e-30)[:, None]
+    return out.to(q_abs.dtype)
+
+
 # ---------------------------------------------------------------------- #
 # kernel wrappers
 # ---------------------------------------------------------------------- #
@@ -596,9 +691,16 @@ def _check_mla(q_abs, q_rope, ckv, kr, page_tables, lengths, c_new, r_new):
                          f"{q_abs.device}")
     B, H, kvr = q_abs.shape
     dr = q_rope.shape[-1]
-    if kvr % 8 or dr % 8:
-        raise ValueError(f"a bf16 row of {kvr} (c_kv) or {dr} (k_rope) values "
-                         "is not a whole number of 16-byte cp.async granules")
+    if kvr % 32 or not 32 <= kvr <= MLA_MAX_KVR:
+        raise ValueError(f"a c_kv row of {kvr}: the kernel takes multiples of "
+                         f"32 from 32 to {MLA_MAX_KVR} (a warp's half of the "
+                         "value columns in whole 16-column tiles)")
+    if dr % 8 or dr < 8:
+        raise ValueError(f"a k_rope row of {dr} values is not a whole number "
+                         "of 16-byte cp.async granules")
+    if any(t.data_ptr() % 16 for t in (q_abs, q_rope, ckv, kr, c_new, r_new)):
+        raise ValueError("q_abs, q_rope, the planes, c_new and r_new must "
+                         "start on 16-byte boundaries")
     dev = q_abs.device
     _check("q_abs", q_abs, (B, H, kvr), torch.bfloat16, dev)
     _check("q_rope", q_rope, (B, H, dr), torch.bfloat16, dev)
@@ -611,10 +713,38 @@ def _check_mla(q_abs, q_rope, ckv, kr, page_tables, lengths, c_new, r_new):
     _check("r_new", r_new, (B, dr), torch.bfloat16, dev)
 
 
+@functools.lru_cache(maxsize=256)
+def mla_split_plan_for(cfg: PULConfig, B: int, H: int, P: int, kvr: int,
+                       dr: int, n_pages: int, sms: int,
+                       n_split: Optional[int] = None) -> SplitPlan:
+    """:func:`mla_split_plan`, cached: the decode step asks once per layer
+    with the same shapes, and K3 and K4 ask with the same."""
+    return mla_split_plan(cfg, B=B, H=H, P=P, kvr=kvr, dr=dr,
+                          n_pages=n_pages, sms=sms, n_split=n_split)
+
+
+def _mla_split_launch(cfg: PULConfig, q_abs, P: int, dr: int, page_tables,
+                      n_split: Optional[int]):
+    """K3/K4's plan and fp32 workspace: one allocation on the caller's
+    stream, viewed as acc (B, n_split, H, kvr) first (its float4 reads stay
+    16-byte aligned), then m and l (B, n_split, H)."""
+    B, H, kvr = q_abs.shape
+    sms = torch.cuda.get_device_properties(q_abs.device).multi_processor_count
+    plan = mla_split_plan_for(cfg, B, H, P, kvr, dr, page_tables.shape[1],
+                              sms, n_split)
+    n = B * plan.n_split * H
+    work = torch.empty(n * (kvr + 2), dtype=torch.float32,
+                       device=q_abs.device)
+    return plan, (work[n * kvr:n * (kvr + 1)], work[n * (kvr + 1):],
+                  work[:n * kvr])
+
+
 def pul_paged_mla_decode_attention(q_abs, q_rope, ckv_pages, kr_pages,
                                    page_tables, lengths, c_new, r_new, *,
                                    scale: float,
-                                   cfg: PULConfig = PULConfig()) -> torch.Tensor:
+                                   cfg: PULConfig = PULConfig(),
+                                   n_split: Optional[int] = None
+                                   ) -> torch.Tensor:
     """K4: absorbed-MLA decode attention straight over one layer's
     compressed-KV page frames.
 
@@ -623,7 +753,9 @@ def pul_paged_mla_decode_attention(q_abs, q_rope, ckv_pages, kr_pages,
     (B, n_pages) int32; lengths (B,) int32; c_new / r_new (B, kvr) / (B, dr),
     the current token, folded in after the page stream. Returns o_c
     (B, H, kvr); the caller applies the absorbed v up-projection. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel (bf16,
+    kvr a multiple of 32 up to 512, dr a multiple of 8), split as
+    :func:`mla_split_plan` says unless n_split is given."""
     if q_abs.device.type == "cpu":
         return paged_mla_decode_attention_ref(
             q_abs, q_rope, ckv_pages, kr_pages, page_tables, lengths, c_new,
@@ -633,13 +765,13 @@ def pul_paged_mla_decode_attention(q_abs, q_rope, ckv_pages, kr_pages,
     B, H, kvr = q_abs.shape
     NP, P, _ = ckv_pages.shape
     dr = q_rope.shape[-1]
-    plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
+    plan, work = _mla_split_launch(cfg, q_abs, P, dr, page_tables, n_split)
     out = torch.empty_like(q_abs)
     rc = lib("pul_paged_mla_decode").pul_paged_mla_decode(
         _ptr(q_abs), _ptr(q_rope), _ptr(ckv_pages), _ptr(kr_pages),
         _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new), _ptr(out),
-        B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NP, scale,
-        plan.distance, plan.slots,
+        *map(_ptr, work), B, H, P, kvr, dr, page_tables.shape[1],
+        plan.n_split, scale, plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
         _stream(q_abs))
     _raise_on(rc, "pul_paged_mla_decode")
@@ -651,7 +783,8 @@ def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
                                          layer: int, page_tables, lengths,
                                          c_new, r_new, frames, offsets, *,
                                          scale: float,
-                                         cfg: PULConfig = PULConfig()
+                                         cfg: PULConfig = PULConfig(),
+                                         n_split: Optional[int] = None
                                          ) -> torch.Tensor:
     """K3: absorbed-MLA layer step of the single-sweep paged decode.
 
@@ -660,7 +793,8 @@ def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
     (B, kvr) / (B, dr) are merged into the online softmax AND written to
     (layer, frames[b], offsets[b]); frames/offsets (B,) int32 (the TRASH
     frame for inactive slots). Returns o_c (B, H, kvr); the planes are
-    updated in place."""
+    updated in place. On the card the split count is K4's
+    (:func:`mla_split_plan`) unless n_split is given."""
     if q_abs.device.type == "cpu":
         return paged_sweep_mla_decode_attention_ref(
             q_abs, q_rope, ckv_planes, kr_planes, layer, page_tables, lengths,
@@ -674,13 +808,13 @@ def pul_paged_sweep_mla_decode_attention(q_abs, q_rope, ckv_planes, kr_planes,
         raise ValueError(f"layer {layer} outside the planes' {L} layers")
     _check("frames", frames, (B,), torch.int32, q_abs.device)
     _check("offsets", offsets, (B,), torch.int32, q_abs.device)
-    plan = mla_ring_plan(cfg, H=H, P=P, kvr=kvr, dr=dr)
+    plan, work = _mla_split_launch(cfg, q_abs, P, dr, page_tables, n_split)
     out = torch.empty_like(q_abs)
     rc = lib("pul_paged_mla_decode").pul_paged_sweep_mla_decode(
         _ptr(q_abs), _ptr(q_rope), _ptr(ckv_planes), _ptr(kr_planes),
         _ptr(page_tables), _ptr(lengths), _ptr(c_new), _ptr(r_new),
-        _ptr(frames), _ptr(offsets), _ptr(out),
-        B, H, head_block(H), P, kvr, dr, page_tables.shape[1], NF, int(layer),
+        _ptr(frames), _ptr(offsets), _ptr(out), *map(_ptr, work),
+        B, H, P, kvr, dr, page_tables.shape[1], NF, int(layer), plan.n_split,
         scale, plan.distance, plan.slots,
         int(cfg.strategy is IssueStrategy.SEQUENTIAL), plan.smem_bytes,
         _stream(q_abs))

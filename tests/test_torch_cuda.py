@@ -14,10 +14,11 @@ the MLA pair K3/K4 are held against their plain PyTorch versions
 in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
 commits bitwise equal to the plain commits. Planted faults (the last visible
-page of the longest row skipped, the current token not folded, and for K1/K2
-one split left out of the merge) must fall outside that limit; that check
-also runs on the CPU. K1/K2 are also held at forced split counts, from one
-split to one page a split, and K5's bulk copies at ragged and 16-byte rows. The dense attention
+page of the longest row skipped, the current token not folded, and one
+split left out of the merge) must fall outside that limit; that check
+also runs on the CPU. K1-K4 are also held at forced split counts, from one
+split to one page a split, K3/K4 with NaN and Inf in the masked rows of the
+pages they read, and K5's bulk copies at ragged and 16-byte rows. The dense attention
 pair, K7 (flash attention) and K6 (decode over a dense cache), is held the
 same way in bf16 and to rtol = atol = 3e-4 in f32, at d = 1 and 4 in both
 issue orders, with its own planted faults (the last KV chunk lost, the
@@ -263,7 +264,16 @@ def _mla_case(dev, B, H, kvr, dr, P, n_pages, L, lengths, seed=0):
 
 MLA_CASES = {
     "reduced": (3, 4, 32, 8, 8, 6, 2, [0, 17, 40]),
-    # deepseek-v2 width: 128 heads in 16 blocks of 8, kv_lora 512, rope 64
+    # one split block of 64 head rows: 48 of them padding, then none
+    "h16": (3, 16, 64, 16, 16, 6, 2, [0, 17, 90]),
+    "h64": (4, 64, 512, 64, 16, 8, 2, [0, 1, 16, 120]),
+    # pages of two 16-key chunks, and of 24 rows (8 of the slot's padding);
+    # no row is full (the engine never decodes one: its commit row would
+    # lie past the last page)
+    "p32": (3, 16, 64, 16, 32, 4, 2, [0, 40, 127]),
+    "p24": (3, 16, 64, 8, 24, 4, 2, [5, 30, 95]),
+    # deepseek-v2 width: 128 heads in two split blocks of 64, kv_lora 512,
+    # rope 64
     "deepseek-width": (8, 128, 512, 64, 16, 64, 2,
                        [0, 7, 16, 1000, 513, 250, 64, 999]),
 }
@@ -290,6 +300,8 @@ def _assert_mla_faults_rejected(c, cp, rp, want):
     PULConfig(distance=3, strategy=IssueStrategy.SEQUENTIAL)],
     ids=["d1", "d3", "d3-seq"])
 def test_mla_kernels_match_plain_versions(dev, case, cfg):
+    """K3/K4 at H 4, 16, 64 and 128 (one or two split blocks of 64 head
+    rows) against the plain version; K3 == K4 and the commit bitwise."""
     c = _mla_case(dev, *MLA_CASES[case])
     cp0, rp0 = c["cp"].clone(), c["rp"].clone()
     rest = (c["pt"], c["lens"], c["cn"], c["rn"])
@@ -321,6 +333,72 @@ def test_mla_limit_rejects_planted_faults_on_cpu(case):
     _assert_mla_faults_rejected(c, c["cp"][1], c["rp"][1], want)
 
 
+MLA_RINGS = [PULConfig(distance=1), PULConfig(distance=3),
+             PULConfig(distance=3, strategy=IssueStrategy.SEQUENTIAL)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 2, 8, 64])
+@pytest.mark.parametrize("cfg", MLA_RINGS, ids=["d1", "d3", "d3-seq"])
+def test_mla_kernels_hold_at_every_split_count(dev, cfg, n_split):
+    """deepseek-v2 width over 64 pages, rows of 0, 1, 999 and 1000 tokens,
+    at forced split counts: K3 and K4 within the limit of the plain version,
+    K3 == K4 bitwise, the commit bitwise, one launch a call, and a merge
+    that drops one split outside the limit."""
+    c = _mla_case(dev, 4, 128, 512, 64, 16, 64, 2, [0, 1, 999, 1000])
+    cp0, rp0 = c["cp"].clone(), c["rp"].clone()
+    rest = (c["pt"], c["lens"], c["cn"], c["rn"])
+    before = dict(PA.LAUNCHES)
+    out4 = PA.pul_paged_mla_decode_attention(
+        c["qa"], c["qr"], c["cp"][1], c["rp"][1], *rest, scale=c["scale"],
+        cfg=cfg, n_split=n_split)
+    out3 = PA.pul_paged_sweep_mla_decode_attention(
+        c["qa"], c["qr"], c["cp"], c["rp"], 1, *rest, c["frames"], c["offs"],
+        scale=c["scale"], cfg=cfg, n_split=n_split)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["k3"] == before["k3"] + 1
+    assert PA.LAUNCHES["k4"] == before["k4"] + 1
+    want = PA.paged_sweep_mla_decode_attention_ref(
+        c["qa"], c["qr"], cp0, rp0, 1, *rest, c["frames"], c["offs"],
+        scale=c["scale"])
+    _assert_close(out3, want)
+    assert torch.equal(out3, out4)
+    assert torch.equal(c["cp"], cp0) and torch.equal(c["rp"], rp0)
+    dropped = PA.paged_mla_decode_split_ref(
+        c["qa"], c["qr"], cp0[1], rp0[1], *rest, scale=c["scale"],
+        n_split=n_split, drop_split=n_split // 2)
+    assert not _close(dropped, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [1, 8])
+@pytest.mark.parametrize("cfg", [MLA_RINGS[0], MLA_RINGS[2]],
+                         ids=["d1", "d3-seq"])
+def test_mla_kernels_ignore_nan_in_masked_rows(dev, cfg, n_split):
+    """NaN (c_kv) and Inf (k_rope) in every row at or past `length` of each
+    row's tail page, the commit row among them: K4 and K3 give a finite
+    `out`, bitwise the one they give on clean pages (a masked row never
+    enters the value product, where 0 x Inf would be NaN)."""
+    c = _mla_case(dev, 4, 128, 512, 64, 16, 64, 2, [5, 17, 999, 40])
+    rest = (c["pt"], c["lens"], c["cn"], c["rn"])
+    kw = dict(scale=c["scale"], cfg=cfg, n_split=n_split)
+    clean = PA.pul_paged_mla_decode_attention(
+        c["qa"], c["qr"], c["cp"][1], c["rp"][1], *rest, **kw)
+    P = c["cp"].shape[2]
+    for b, n in enumerate(c["lens"].tolist()):
+        frame = int(c["pt"][b, n // P])
+        c["cp"][1, frame, n % P:] = float("nan")
+        c["rp"][1, frame, n % P:] = float("inf")
+    out4 = PA.pul_paged_mla_decode_attention(
+        c["qa"], c["qr"], c["cp"][1], c["rp"][1], *rest, **kw)
+    out3 = PA.pul_paged_sweep_mla_decode_attention(
+        c["qa"], c["qr"], c["cp"], c["rp"], 1, *rest, c["frames"], c["offs"],
+        **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out3).all()
+    assert torch.equal(out3, clean) and torch.equal(out4, clean)
+
+
 @pytest.mark.cuda
 def test_mla_launches_are_counted_and_checks_raise(dev):
     c = _mla_case(dev, 2, 4, 32, 8, 8, 2, 1, [3, 9])
@@ -350,6 +428,11 @@ def test_mla_launches_are_counted_and_checks_raise(dev):
         PA.pul_paged_mla_decode_attention(
             big["qa"], big["qr"], big["cp"][0], big["rp"][0], big["pt"],
             big["lens"], big["cn"], big["rn"], scale=big["scale"])
+    odd = _mla_case(dev, 1, 4, 48, 8, 8, 1, 1, [3])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        PA.pul_paged_mla_decode_attention(
+            odd["qa"], odd["qr"], odd["cp"][0], odd["rp"][0], odd["pt"],
+            odd["lens"], odd["cn"], odd["rn"], scale=odd["scale"])
 
 
 # ---------------------------------------------------------------- gather: K5

@@ -273,32 +273,6 @@ def test_mla_sweep_and_per_layer_plain_versions_agree_bitwise():
     assert torch.equal(out3, out4)
 
 
-@pytest.mark.parametrize("H,distance,strategy,want", [
-    # deepseek-v2 width: 8-head blocks, 10 slots of 18,432 B fit beside
-    # 35,424 B of q, accumulator and softmax state; the planner's d* at six
-    # layers (28) is clamped to them
-    (128, 28, IssueStrategy.BATCH, (10, 10, 219744)),
-    (128, 28, IssueStrategy.SEQUENTIAL, (9, 10, 219744)),
-    (128, 4, IssueStrategy.BATCH, (4, 8, 182880)),
-    (128, 1, IssueStrategy.BATCH, (1, 2, 72288)),
-])
-def test_mla_ring_plan_clamps_to_shared_memory(H, distance, strategy, want):
-    plan = PA.mla_ring_plan(PULConfig(distance=distance, strategy=strategy),
-                            H=H, P=16, kvr=512, dr=64)
-    assert (plan.distance, plan.slots, plan.smem_bytes) == want
-    assert plan.smem_bytes <= PA.SMEM_LIMIT_BYTES
-
-
-@pytest.mark.parametrize("H,want", [(128, 8), (4, 4), (6, 2), (16, 8)])
-def test_mla_head_block_divides_the_heads(H, want):
-    assert PA.head_block(H) == want and H % want == 0
-
-
-def test_mla_ring_plan_rejects_a_slab_beyond_shared_memory():
-    with pytest.raises(ValueError, match="does not fit"):
-        PA.mla_ring_plan(PULConfig(distance=1), H=128, P=256, kvr=512, dr=64)
-
-
 def test_mla_wrappers_never_fall_back_off_cpu():
     q = torch.empty((1, 4, 32), device="meta")
     qr = torch.empty((1, 4, 8), device="meta")
