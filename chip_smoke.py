@@ -28,9 +28,11 @@ exit code is not 0:
                      versions: K8 (SUM) and K9 (filter) on a 4 GiB table of
                      2^26 64-byte rows, K8 exactly equal to the fp64 sum (the
                      values make every order exact), K9 bitwise in both modes
-                     and at both unload distances; K10 at 4096^3 bf16 -> f32,
-                     2048^3 f32 and 4096^3 bf16 -> bf16 through
-                     ops.matmul_op, within 2 sqrt(K) 2^-24 (|A||B|) (plus
+                     and at both unload distances, on that f32 table and on
+                     its values as a 2 GiB bf16 table, with the bit-vector's
+                     TMA tile plan and materialize's time and bound; K10 at
+                     4096^3 bf16 -> f32, 2048^3 f32 and 4096^3 bf16 -> bf16
+                     through ops.matmul_op, within 2 sqrt(K) 2^-24 (|A||B|) (plus
                      one bf16 rounding for the bf16 output), both bf16 cases
                      on the wgmma body (its own launch count); a planted fault
                      each; times, bounds, plain times, torch.matmul for K10
@@ -45,11 +47,14 @@ exit code is not 0:
                      4096, f32 at 1024, qwen2.5-32b's group of 5 and
                      gemma3-12b's hd 256 with window 1024, both at
                      T = S = 4096) and K6 over a dense qwen3 cache of
-                     32768 at 8 lengths; launches counted on that path, every
+                     32768 at 8 lengths (split-KV: its plan, blocks an SM and
+                     segments, and every row at 32768 too); launches counted
+                     on that path, every
                      bf16 case on the tensor-core body (its own count); each
                      against its plain version (bf16 two ulps of the row's
                      largest value, f32 3e-4) at d in {1, 4} in both issue
-                     orders; planted faults; times, bounds, plain times and
+                     orders; planted faults (for K6 also one segment's piece
+                     left out of the merge); times, bounds, plain times and
                      scaled_dot_product_attention's times
   9. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
@@ -65,7 +70,7 @@ exit code is not 0:
                      as in phase 10, one decode step against K3's
  14. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
-                     cp.async.bulk or fma)
+                     cp.async.bulk, cp.async.bulk.tensor or fma)
  15. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes (device busy share, top kernels) is a
@@ -88,11 +93,19 @@ counts and distances with their two kernels' device times:
     python3 -c "import chip_smoke; chip_smoke.split_sweep()"
     python3 -c "import chip_smoke; chip_smoke.mla_split_sweep()"
 
+and K6 at forced segment sizes and distances with its two kernels' device
+times, and the probe of how many bytes the card fetches for a short read of
+a row (K9's bound):
+
+    python3 -c "import chip_smoke; chip_smoke.decode_sweep()"
+    python3 -c "import chip_smoke; chip_smoke.sector_probe()"
+
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import importlib
@@ -117,9 +130,11 @@ from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
 from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
 from repro_torch.kernels import SOURCES, _build, ops  # noqa: E402
 from repro_torch.kernels.pul_decode import (  # noqa: E402
-    decode_attention_kernel_ref, pul_decode_attention)
+    DECODE_BODY, decode_attention_kernel_ref, decode_attention_split_ref,
+    decode_pieces, decode_ring_plan, pul_decode_attention)
+from repro_torch.kernels._runtime import _blocks_per_sm  # noqa: E402
 from repro_torch.kernels.pul_filter import (  # noqa: E402
-    filter_materialize_ref, filter_ref, pul_filter)
+    filter_materialize_ref, filter_ref, filter_ring_plan, pul_filter)
 from repro_torch.kernels.pul_gather import (  # noqa: E402
     BODY as GATHER_BODY, gather_bulk_plan, gather_ref, page_gather_ref,
     pul_gather, pul_page_gather)
@@ -852,6 +867,29 @@ def _decode_inputs(gen, dev):
     return q, k, v, lens
 
 
+def _decode_bound(lengths):
+    """(bytes, byte time, flop time) of K6 at these lengths: the visible K
+    and V rows, q and out, the lengths; 4 G hd flops a visible key."""
+    visible = sum(lengths)
+    nbytes = (visible * KV * HD * 2 * 2 + 2 * len(lengths) * H * HD * 2
+              + len(lengths) * 4)
+    return (nbytes, nbytes / HBM_PEAK * 1e3,
+            4.0 * H * HD * visible / BF16_TC_PEAK * 1e3)
+
+
+def _decode_plan(dev, cfg=PULConfig(), seg_chunks=None):
+    """K6's plan at the smoke's shapes, with the card's occupancy."""
+    plan = decode_ring_plan(cfg, B=len(DECODE_LENGTHS), K=KV, G=H // KV,
+                            s_pad=DECODE_S, hd=HD, itemsize=2,
+                            seg_chunks=seg_chunks)
+    if dev.type != "cuda":
+        return plan
+    bps = _blocks_per_sm("pul_dense_attention", HD, 1, H // KV,
+                         plan.smem_bytes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return dataclasses.replace(plan, blocks_per_sm=bps, grid=sms * bps)
+
+
 def phase_kernels_attn(device="cuda"):
     """K7 and K6 on their main path (ops.attention_op at its default tiles
     and ring, pul_decode_attention), launches counted there; each case
@@ -955,6 +993,10 @@ def phase_kernels_attn(device="cuda"):
         err6 = max(err6, _dense_check(
             pul_decode_attention(q6, k6, v6, lens, cfg=cfg), want,
             f"K6 d={cfg.distance} {cfg.strategy.name}"))
+    plan = _decode_plan(dev)
+    seg, pieces = decode_pieces(plan, DECODE_LENGTHS, KV)
+    n_segs = -(-sum(c1 - c0 for cuts in pieces.values() for c0, c1 in cuts)
+               // seg)
     faults = {}
     for what, row, cut in (("the length-129 row's second chunk left out",
                             DECODE_LENGTHS.index(129), 64),
@@ -963,10 +1005,13 @@ def phase_kernels_attn(device="cuda"):
         short = lens.clone()
         short[row] = cut
         faults[what] = decode_attention_kernel_ref(q6, k6, v6, short)
+    faults["one segment's piece of every long row left out of the merge"] = (
+        decode_attention_split_ref(q6, k6, v6, lens, plan=plan, drop_piece=1))
     for what, bad in faults.items():
         if _dense_err(bad, want) <= 1.0:
             raise AssertionError(f"K6: the limit lets a planted fault "
                                  f"through: {what}")
+    planted = "; ".join(faults)
     del want, faults
     ms = _time_ms(lambda: pul_decode_attention(q6, k6, v6, lens))
     plain_ms = _time_ms(lambda: decode_attention_kernel_ref(q6, k6, v6, lens),
@@ -974,23 +1019,35 @@ def phase_kernels_attn(device="cuda"):
     mask = (torch.arange(DECODE_S, device=dev)[None, :]
             < lens[:, None])[:, None, None, :]
     library_ms = _time_ms(_sdpa(q6[:, :, None], k6, v6, attn_mask=mask))
-    visible = sum(DECODE_LENGTHS)
-    nbytes = visible * KV * HD * 2 * 2 + 2 * q6.numel() * 2 + lens.numel() * 4
-    t_bytes = nbytes / HBM_PEAK * 1e3
-    t_ops = 4.0 * H * HD * visible / BF16_TC_PEAK * 1e3
+    nbytes, t_bytes, t_ops = _decode_bound(DECODE_LENGTHS)
     rows["K6"] = dict(max_abs_err=err6, ms=ms, plain_ms=plain_ms,
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                      library_ms=library_ms, body="fma")
+                      library_ms=library_ms, body=DECODE_BODY)
     print(f"[kernels-attn] K6 B=8 H={H} K={KV} S={DECODE_S} bf16 lengths "
-          f"{list(DECODE_LENGTHS)}: max|K6-plain| {err6:.3e} within the limit "
-          f"at the default ring and at d=1/4 BATCH/SEQUENTIAL; planted "
-          f"faults rejected: the length-129 row's second chunk, the longest "
-          f"row's last 2048 keys; K6 {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
-          f"GB/s of visible K/V), plain {plain_ms:.4f} ms, SDPA with a "
-          f"length mask {library_ms:.4f} ms (K6 {ms / library_ms:.2f} x), "
-          f"bound {rows['K6']['bound_ms']:.4f} ms "
-          f"({rows['K6']['bound_by']}, {nbytes} B)")
+          f"{list(DECODE_LENGTHS)}, body {DECODE_BODY} (chunks of "
+          f"{plan.chunk_keys} keys, d={plan.distance}, {plan.slots} slots, "
+          f"{plan.smem_bytes} B a block, {plan.blocks_per_sm} blocks/SM, "
+          f"grid {plan.grid}; {n_segs} segments of {seg} chunks, at most "
+          f"{max(map(len, pieces.values()))} pieces a row): max|K6-plain| "
+          f"{err6:.3e} within the limit at the default ring and at d=1/4 "
+          f"BATCH/SEQUENTIAL; planted faults rejected: {planted}; K6 "
+          f"{ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s of visible K/V), plain "
+          f"{plain_ms:.4f} ms, SDPA with a length mask {library_ms:.4f} ms "
+          f"(K6 {ms / library_ms:.2f} x), bound {rows['K6']['bound_ms']:.4f} "
+          f"ms ({rows['K6']['bound_by']}, {nbytes} B)")
+    # every row at the full cache: the same path, the most bytes
+    full = torch.full_like(lens, DECODE_S)
+    err = _dense_check(pul_decode_attention(q6, k6, v6, full),
+                       decode_attention_kernel_ref(q6, k6, v6, full),
+                       "K6 every row at 32768")
+    full_ms = _time_ms(lambda: pul_decode_attention(q6, k6, v6, full))
+    fbytes, ft_bytes, _ = _decode_bound((DECODE_S,) * len(DECODE_LENGTHS))
+    print(f"[kernels-attn] K6 every row at {DECODE_S}: max|K6-plain| "
+          f"{err:.3e} within the limit; K6 {full_ms:.4f} ms "
+          f"({fbytes / full_ms / 1e6:.1f} GB/s), bound {ft_bytes:.4f} ms "
+          f"(bytes, {fbytes} B), {full_ms / ft_bytes:.2f} x")
+    rows["K6-full"] = dict(ms=full_ms, bound_ms=ft_bytes, max_abs_err=err)
     out = {"k7": dict(rows["K7-prefill"], max_abs_err=k7_err),
            "k6": rows["K6"]}
     return out, launches, rows
@@ -1033,20 +1090,28 @@ def _k8_bound(n_req, req_bytes):
     return (n_req * (req_bytes + 4) + 4) / HBM_PEAK * 1e3
 
 
-#: the least the card reads of a row: one 32-byte sector
-SECTOR = 32
+#: the least the card reads of a row: the 64-byte DRAM fetch that holds
+#: column 0, which sector_probe() shows the card making for a 16- or 32-byte
+#: read of each 64-byte row (measured on one H100)
+FETCH = 64
 
 
-def _k9_bytes(materialize, kept):
-    """(least bytes K9's function moves, bytes the kernel moves) on the
-    table, `kept` rows passing. The predicate needs column 0, one sector of
-    each row; materialize also reads the rest of each kept row and writes
-    the whole table, bit-vector writes the words. The kernel reads every row
-    whole (the paper's record scan, whose unit is the row)."""
-    table = MICRO_ROWS * MICRO_W * 4
-    out = table if materialize else MICRO_ROWS // 8
-    rest = kept * (MICRO_W * 4 - SECTOR) if materialize else 0
-    return MICRO_ROWS * SECTOR + rest + out, table + out
+def _k9_bytes(materialize, kept, row_bytes=None, n_rows=None):
+    """(least bytes K9's function moves, bytes the kernel moves) on a table
+    of n_rows rows of row_bytes, `kept` rows passing. The predicate needs
+    column 0, which the card fetches in the 64-byte unit holding it (the
+    whole row where rows are 64 B or shorter); materialize also reads the
+    rest of each kept row and writes the whole table, bit-vector writes the
+    words. The bit-vector kernel's TMA tiles read min(row, 64) B of each
+    row; materialize reads rows whole. Default: the smoke's f32 table."""
+    row_bytes = row_bytes or MICRO_W * 4
+    n_rows = n_rows or MICRO_ROWS
+    table = n_rows * row_bytes
+    col0 = n_rows * min(row_bytes, FETCH)
+    if materialize:
+        return col0 + kept * (row_bytes - min(row_bytes, FETCH)) + table, \
+            2 * table
+    return col0 + n_rows // 8, col0 + n_rows // 8
 
 
 def _words(t):
@@ -1129,21 +1194,66 @@ def phase_kernels_micro(device="cuda"):
                                      "fault through: one word reversed")
             del got
         del want9
+    plan = filter_ring_plan(PULConfig(), rows=128, width=MICRO_W,
+                            materialize=False, n_rows=MICRO_ROWS)
+    bps = (_blocks_per_sm("pul_filter", 0, 0, plan.smem_bytes)
+           if dev.type == "cuda" else "not queried")
     ms = _time_ms(lambda: pul_filter(table, 0.25))
     plain_ms = _time_ms(lambda: filter_ref(table, 0.25), reps=10)
     kept = int((table[:, 0] > 0.25).sum())
     nbytes, moved = _k9_bytes(False, kept)
     bound = nbytes / HBM_PEAK * 1e3
+    mat_ms = _time_ms(lambda: pul_filter(table, 0.25, materialize=True))
+    mat_plan = filter_ring_plan(PULConfig(), rows=128, width=MICRO_W,
+                                materialize=True)
+    mat_bytes, mat_moved = _k9_bytes(True, kept)
     print(f"[kernels-micro] K9 the same table, rows_per_block 128, threshold "
           f"0.25 ({kept} rows kept): bitwise equal in both modes at "
           f"unload_distance 0 and 1; planted fault rejected: word {w}'s bit "
-          f"order reversed; K9 bit-vector {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, library: none, bound {bound:.4f} ms (bytes: {nbytes} B, a "
-          f"{SECTOR}-byte sector of each row and the words; the kernel reads "
-          f"the rows whole, {moved} B, {moved / HBM_PEAK * 1e3:.4f} ms)")
+          f"order reversed; bit-vector body {plan.body} (tiles of "
+          f"{plan.box_rows} rows x {plan.tile_bytes} B, slots of "
+          f"{plan.slot_bytes} B, d={plan.distance}, {plan.slots} slots, "
+          f"{plan.smem_bytes} B a block, {bps} blocks/SM): K9 bit-vector "
+          f"{ms:.4f} ms ({moved / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} "
+          f"ms, library: none, bound {bound:.4f} ms (bytes: {nbytes} B, the "
+          f"{FETCH}-byte fetch holding column 0 of each row and the words); "
+          f"materialize (body {mat_plan.body}) {mat_ms:.4f} ms, bound "
+          f"{mat_bytes / HBM_PEAK * 1e3:.4f} ms ({mat_bytes} B; it moves "
+          f"{mat_moved} B)")
     out["k9"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bound, bound_by="bytes", library_ms=None)
+                     bound_ms=bound, bound_by="bytes", library_ms=None,
+                     body=plan.body)
     del want_bv, bad
+    # K9 on a bf16 table of the same values (eighths are exact in bf16):
+    # 32-byte rows, two to a fetch
+    tb = table.to(torch.bfloat16)
+    for materialize in (False, True):
+        want9 = (filter_materialize_ref if materialize else filter_ref)(
+            tb, 0.25)
+        for ud in (0, 1):
+            got = pul_filter(tb, 0.25, materialize=materialize,
+                             cfg=PULConfig(unload_distance=ud))
+            if not torch.equal(_words(got), _words(want9)):
+                raise AssertionError(f"K9 bf16 materialize={materialize} "
+                                     f"unload_distance={ud}: not bitwise "
+                                     "equal to the plain version")
+            del got
+        del want9
+    bf_plan = filter_ring_plan(PULConfig(), rows=128, width=MICRO_W,
+                               materialize=False, itemsize=2,
+                               n_rows=MICRO_ROWS)
+    bf_ms = _time_ms(lambda: pul_filter(tb, 0.25))
+    bf_mat_ms = _time_ms(lambda: pul_filter(tb, 0.25, materialize=True))
+    bf_bytes = _k9_bytes(False, kept, MICRO_W * 2)[0]
+    bf_mat = _k9_bytes(True, kept, MICRO_W * 2)[0]
+    print(f"[kernels-micro] K9 bf16 table {tuple(tb.shape)} "
+          f"({tb.numel() * 2 / 2 ** 30:.0f} GiB, 32-byte rows): bitwise equal in both modes at unload_distance 0 and 1; "
+          f"tiles of {bf_plan.tile_bytes} B ({bf_plan.body}); bit-vector "
+          f"{bf_ms:.4f} ms, "
+          f"bound {bf_bytes / HBM_PEAK * 1e3:.4f} ms ({bf_bytes} B); "
+          f"materialize {bf_mat_ms:.4f} ms, bound "
+          f"{bf_mat / HBM_PEAK * 1e3:.4f} ms ({bf_mat} B)")
+    del tb
     # K10 through the path's entry point, ops.matmul_op
     cases = []
     for label, n, dtype, out_dtype in MATMULS:
@@ -1272,7 +1382,8 @@ def phase_paper(table, device="cuda"):
                      f"unload_distance={ud}")
             sweep[label] = ms
             print(f"[paper] k9 {label}: {ms:.4f} ms, "
-                  f"{moved / ms / 1e6:.1f} GB/s of whole rows and result; "
+                  f"{moved / ms / 1e6:.1f} GB/s of what the kernel reads and "
+                  "writes; "
                   f"bound {nbytes / HBM_PEAK * 1e3:.4f} ms ({nbytes} B)")
     print("[paper] " + json.dumps({"launches": launches, "ms": sweep}))
     return launches
@@ -1526,8 +1637,6 @@ def slots_sweep():
     PEs on the card shrink towards the paper's few: where the distance and
     the unload order matter on real copies. Prints one [slots] line per
     point and returns the times."""
-    from repro_torch.kernels._runtime import _blocks_per_sm
-    from repro_torch.kernels.pul_filter import filter_ring_plan
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1574,7 +1683,7 @@ def slots_sweep():
                 cfg = _slots_for(
                     filter_plan,
                     lambda p: _blocks_per_sm("pul_filter", int(materialize),
-                                             p.smem_bytes),
+                                             0, p.smem_bytes),
                     PULConfig(unload_distance=ud), per_sm)
                 want9 = (filter_materialize_ref if materialize
                          else filter_ref)(table, 0.25)
@@ -1585,15 +1694,79 @@ def slots_sweep():
                 ms = _time_ms(lambda: pul_filter(
                     table, 0.25, cfg=cfg, materialize=materialize))
                 plan = filter_plan(cfg)
-                blocks = _blocks_per_sm("pul_filter", int(materialize),
+                blocks = _blocks_per_sm("pul_filter", int(materialize), 0,
                                         plan.smem_bytes)
                 key = (f"k9 cap {per_sm} blocks/SM {blocks} "
                        f"{'materialize' if materialize else 'bit-vector'} "
                        f"unload_distance={ud}")
                 out[key] = ms
                 print(f"[slots] {key}: {ms:.4f} ms, {moved / ms / 1e6:.1f} "
-                      f"GB/s of whole rows and result ({plan.slots} slots)")
+                      f"GB/s of what the kernel moves ({plan.slots} slots)")
     print("[slots] " + json.dumps(out))
+    return out
+
+
+def sector_probe():
+    """One-off, not a phase of the smoke: how many bytes the card fetches
+    for a short read of a row. The probe kernel (csrc/probes/
+    sector_probe.cu, built here and by nothing else) reads the first 16, 32
+    or 64 B of every row of the 4 GiB table viewed as 64-, 128- and
+    256-byte rows, at the card's L2 fetch granularity and at 32 B
+    (cudaLimitMaxL2FetchGranularity, set here and put back); then K9's
+    bit-vector on the table as 64-byte rows (tiles of the whole row) and as
+    128-byte rows (tiles of its first 64 B). If a 16-byte read of a 64-byte
+    row takes as long as the whole row, the card fetches 64 B for it.
+    Prints one [probe] line per point and returns the times."""
+    probe = ctypes.CDLL(str(_build.build("sector_probe",
+                                         _build.CSRC_DIR / "probes")))
+    probe.sector_probe.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    probe.l2_fetch_granularity.argtypes = [ctypes.c_int]
+    from repro_torch.kernels._runtime import _ptr, _stream
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    table = _micro_table(gen, dev)
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(_smi("name,power.limit"))
+    out = {}
+    default = probe.l2_fetch_granularity(-1)
+    try:
+        for gran in (default, 32):
+            probe.l2_fetch_granularity(gran)
+            for row_bytes, read in ((64, 64), (64, 16), (64, 32), (128, 128),
+                                    (128, 16), (128, 64), (256, 16)):
+                rows = table.numel() * 4 // row_bytes
+
+                def run():
+                    rc = probe.sector_probe(
+                        _ptr(table), _ptr(word), rows, row_bytes, read,
+                        132 * 8, _stream(table))
+                    if rc:
+                        raise RuntimeError(f"sector probe: CUDA error {rc}")
+                ms = _time_ms(run)
+                key = (f"L2 fetch granularity {gran}: {read} B of each of "
+                       f"{rows} rows of {row_bytes} B")
+                out[key] = ms
+                print(f"[probe] {key}: {ms:.4f} ms ({rows * read / ms / 1e6:.1f}"
+                      f" GB/s asked, {rows * max(read, FETCH) / ms / 1e6:.1f} "
+                      f"GB/s at {FETCH} B a row)")
+    finally:
+        probe.l2_fetch_granularity(default)
+    # the same bytes as 2^26 rows of 64 B (a tile of the whole row) and as
+    # 2^25 rows of 128 B (a tile of its first 64 B, on the tensor map)
+    for wide in (table, table.view(-1, 2 * MICRO_W)):
+        row_bytes = wide.shape[1] * 4
+        want = filter_ref(wide, 0.25)
+        got = pul_filter(wide, 0.25)
+        if not torch.equal(_words(got), _words(want)):
+            raise AssertionError(f"K9 on {row_bytes}-byte rows: not bitwise "
+                                 "equal")
+        ms = _time_ms(lambda: pul_filter(wide, 0.25))
+        key = f"K9 bit-vector, tiles of 64 B of each {row_bytes}-byte row"
+        out[key] = ms
+        print(f"[probe] {key}: {ms:.4f} ms")
+    print("[probe] " + json.dumps(out))
     return out
 
 
@@ -1698,6 +1871,55 @@ def mla_split_sweep():
                       f"{e.key[:60]}: {e.count} calls, {dev_us:.2f} us each "
                       "on the device")
     print("[mla-split] " + json.dumps(out))
+    return out
+
+
+def decode_sweep():
+    """One-off, not a phase of the smoke: K6 at the smoke's lengths with the
+    segment size forced (16, 64 and 256 chunks, and the card's balanced
+    cut) and the ring distance forced (d 1, 2, 4, 8) in both issue orders,
+    each checked against the plain version first; then the device time of
+    its split and merge kernels under torch.profiler at the balanced cut,
+    at 16 and at 256 chunks a segment. Prints [decode] lines."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    q, k, v, lens = _decode_inputs(gen, dev)
+    want = decode_attention_kernel_ref(q, k, v, lens)
+    print(_smi("name,power.limit"))
+    out = {}
+    for seg in (None, 16, 64, 256):
+        for d in (1, 2, 4, 8):
+            for strategy in IssueStrategy:
+                cfg = PULConfig(distance=d, strategy=strategy)
+                plan = _decode_plan(dev, cfg, seg)
+                _dense_check(pul_decode_attention(q, k, v, lens, cfg=cfg,
+                                                  seg_chunks=seg), want,
+                             f"K6 seg {seg} d={d} {strategy.name}")
+                ms = _time_ms(lambda: pul_decode_attention(
+                    q, k, v, lens, cfg=cfg, seg_chunks=seg))
+                key = f"seg {seg or 'balanced'} d={d} {strategy.name}"
+                out[key] = ms
+                print(f"[decode] {key}: K6 {ms:.4f} ms (ring d="
+                      f"{plan.distance}, {plan.slots} slots, "
+                      f"{plan.blocks_per_sm} blocks/SM)")
+    for seg in (None, 16, 256):
+        for _ in range(3):
+            pul_decode_attention(q, k, v, lens, seg_chunks=seg)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                pul_decode_attention(q, k, v, lens, seg_chunks=seg)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            dev_us = e.device_time
+            if e.count and dev_us and "kernel" in e.key:
+                print(f"[decode] profiler, seg {seg or 'balanced'}: "
+                      f"{e.key[:60]}: {e.count} calls, {dev_us:.2f} us each "
+                      "on the device")
+    print("[decode] " + json.dumps(out))
     return out
 
 
@@ -1952,8 +2174,9 @@ def main():
                      # which body ran: "wgmma" or "mma.sync" on the tensor
                      # cores, "split-kv mma.sync" (K3/K4's split and merge
                      # kernels, the products on the tensor cores), "split-kv"
-                     # (K1/K2's, on the CUDA cores) or "fma" on the CUDA
-                     # cores, "cp.async.bulk" (K5's TMA copies)
+                     # (K1/K2's and K6's, on the CUDA cores) or "fma" on the
+                     # CUDA cores, "cp.async.bulk" (K5's TMA copies),
+                     # "cp.async.bulk.tensor" (K9's TMA tiles)
                      "body": kern[key].get("body", "fma")})
     print(smi)
     print(json.dumps({"kernels": rows}))

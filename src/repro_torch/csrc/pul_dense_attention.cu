@@ -9,11 +9,11 @@
 //       masked;
 //   K6  repro/kernels/pul_decode.py : pul_decode_attention (_kernel) -- one
 //       query token per head over a cache masked at length[b], softcap.
-// Every kernel is an online softmax over KV chunks streamed through the same
-// shared-memory ring (stream_chunks below), templated on the head dim, hd in
-// {16, 32, 64, 112, 128, 256}: every hd of the reference's tests and of the
-// model zoo. The TPU kernels' constants are kept: masked logits are
-// NEG_INF = -2e38 (finite), and l >= 1e-30 at the end.
+// Every kernel is an online softmax over KV chunks streamed through a
+// shared-memory ring, templated on the head dim, hd in {16, 32, 64, 112,
+// 128, 256}: every hd of the reference's tests and of the model zoo. The
+// TPU kernels' constants are kept: masked logits are NEG_INF = -2e38
+// (finite), and l >= 1e-30 at the end.
 //
 // Bounds on this card. K7 is bound by operations: 4 hd flops per visible
 // (query, key) pair, 137 GFLOP for the causal 4096^2 qwen3 prefill (B 2,
@@ -39,21 +39,23 @@
 //   * f32: flash_kernel, fp32 FMAs on the CUDA cores (no TF32): 64 rows over
 //     256 threads as a 16 x 16 grid, q and the chunk's probabilities in fp32
 //     shared memory, the accumulator in registers, chunks of 32 keys.
-// K6 (decode_kernel) does its few flops per byte as fp32 FMAs in both types.
+// K6 (decode_split_kernel, decode_merge_kernel) does its few flops per byte
+// as fp32 FMAs on the CUDA cores in both types.
 //
 // What the design does about the bounds:
 //   * GQA: a block holds the queries of all G heads of one kv head, so each
 //     KV chunk crosses HBM once per kv head, not once per query head. K7's
 //     rows are the flattened (position, head) pairs of those G heads: row r
 //     of the (T G) rows is position r / G of head r % G, each with its own
-//     mask, so any G works; K6's block is the G heads of one token;
-//   * the ring (core/pipeline.py PreloadStream / pul_loop, pul_ring.cuh): a
-//     chunk of BC keys, BC rows of K then of V, is copied by 16-byte
-//     cp.async into slot c % slots, `distance` chunks ahead of the compute.
-//     BATCH issues chunk i + d after computing chunk i, SEQUENTIAL before
-//     it. Rows past S are zero-filled, as the TPU's padding of the stream.
-//     Each row carries one spare 16-byte granule, so that the eight rows
-//     ldmatrix (or eight threads) read at once hit eight bank groups;
+//     mask, so any G works; K6's block carries the G heads of one token;
+//   * K7's ring (core/pipeline.py PreloadStream / pul_loop, pul_ring.cuh,
+//     stream_chunks below): a chunk of BC keys, BC rows of K then of V, is
+//     copied by 16-byte cp.async into slot c % slots, `distance` chunks
+//     ahead of the compute. BATCH issues chunk i + d after computing chunk
+//     i, SEQUENTIAL before it. Rows past S are zero-filled, as the TPU's
+//     padding of the stream. Each row carries one spare 16-byte granule, so
+//     that the eight rows ldmatrix (or eight threads) read at once hit eight
+//     bank groups;
 //   * tiles: the TPU kernel holds a (bt, hd) q tile, a (bt, hd) fp32
 //     accumulator and (bt, bs) logits in VMEM; at bt = bs = hd = 128 that is
 //     192 KB before any ring slot. Here the accumulator lives in registers,
@@ -70,12 +72,34 @@
 //     A block holding such a row streams every chunk; positions past s_pad
 //     (inside the last chunk) take -inf, so p = 0 there. The bf16 body skips
 //     the mask of a chunk that every row of its block sees whole;
-//   * K6 has one query per head, so a block of one (b, kv head) has far too
-//     little work to hide the stream's latency: the keys are split into
-//     segments of seg_chunks chunks, one block each (grid (segments, K, B)),
-//     each writing its (m, l, acc) in fp32, and a second kernel merges the
-//     segments: M = max m, out = sum(acc e^(m - M)) / sum(l e^(m - M)). A
-//     segment past the visible keys writes m = -inf and streams nothing.
+//   * K6 has one query per head, a few flops per byte, and rows of any
+//     length: what bounds it is keeping every SM's share of HBM (about 25
+//     GB/s) in flight and no SM idle. Split-KV on a persistent grid: every
+//     block reads `lengths` on the card (the host never does) and counts
+//     the chunks each (b, kv head) row streams, ceil(length / BC) (every
+//     chunk of the padded stream at length 0); the chunks of all rows, in
+//     (b, kv head, chunk) order, are cut into segments of equal size,
+//     balanced over the grid (or forced), block x taking segments x, x +
+//     grid, ... as one stream, so no block is spent past a row's length.
+//     One thread of the block keeps d chunks in flight with two 1D bulk
+//     copies each (a chunk's K rows and V rows are contiguous), onto an
+//     mbarrier per slot; each warp releases a slot on a second mbarrier,
+//     which the issuing thread waits on before refilling it: no block
+//     barrier per chunk. A chunk is at most 32 KB (kDecChunkBytes), the ring
+//     budgeted for three blocks an SM (the host's decode_ring_plan): at hd
+//     128 bf16, two chunks of 64 keys in flight a block;
+//   * K6's arithmetic is off the block barrier: warp w carries two query
+//     heads (G <= 2) or four and a share of each chunk's keys; a team of
+//     kLPK lanes reads a key's row (conflict-free, rows are read along their
+//     length), reduces its dot products by shuffles, and keeps its own
+//     (m, l, acc) in
+//     registers, updated once per four keys (base-2 units, one ex2 a
+//     logit). Where a row's piece of the stream ends (its last chunk or the
+//     segment's), the teams merge by shuffles, the warps through shared
+//     memory, and the block writes the piece's (m, l, acc) in fp32; a second
+//     kernel merges each row's pieces: M = max m, out = sum(acc 2^(m - M)) /
+//     max(sum(l 2^(m - M)), 1e-30). Keys past S are the stream's zero rows
+//     (a zero logit before the mask, no value) and are not copied.
 //
 // K7 visits query tiles heaviest first (the causal diagonal's far end).
 
@@ -109,19 +133,14 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 struct Params {
-  const void* q;     // K7 (B, H, T, hd); K6 (B, K, G, hd)
+  const void* q;     // (B, H, T, hd)
   const void* k;     // (B, K, S, hd)
   const void* v;
   void* out;         // like q
-  const int* lengths;  // K6 (B,): visible cache positions
-  float* part_m;     // K6 (B, K, n_seg, G) segment maxima
-  float* part_l;     // K6 (B, K, n_seg, G) segment sums
-  float* part_acc;   // K6 (B, K, n_seg, G, hd) segment accumulators
   int K, G, T, S, s_pad;
   float scale, softcap;  // softcap <= 0: none
   int causal, window;    // window <= 0: none
   int distance, slots, sequential;
-  int seg_chunks, n_seg;
 };
 
 // A ring slot: BC keys of K, then BC keys of V, each row of hd values
@@ -136,7 +155,7 @@ struct Ring {
   static constexpr int kElems = 2 * BC * kRowStride;
 };
 
-// the chunk of K6 and of K7's f32 body: 64 bf16 or 32 f32 keys
+// the chunk of K7's f32 body: 32 f32 keys
 template <typename T, int HD>
 using Chunk = Ring<T, HD, sizeof(T) == 2 ? 64 : 32>;
 // the chunk of K7's bf16 body: 64 keys, 32 at hd 256 (registers)
@@ -623,162 +642,464 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------- K6
-// Block (segment, kv head, b): the G query heads of kv head kvh over the
-// chunks of one segment. Logits: TPK threads per key, each with its own
-// granules of the row; softmax: one warp per head; values: thread e owns
-// accumulator entries e + 256 i of the (G, hd) tile.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) decode_kernel(Params p) {
-  using C = Chunk<T, HD>;
-  constexpr int BC = C::kBC, EPV = C::kEpv, RS = C::kRowStride;
-  constexpr int GR = HD / EPV;                          // granules of a row
-  constexpr int TPK = GR < kThreads / BC ? GR : kThreads / BC;  // threads per key
-  constexpr int NK = (GR + TPK - 1) / TPK;              // granules per thread
-  constexpr int MAXE = (kMaxG * HD + kThreads - 1) / kThreads;  // accumulator entries
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  float* q_s = reinterpret_cast<float*>(smem + (size_t)p.slots * C::kElems * sizeof(T));
-  float* s_s = q_s + p.G * HD;     // (G, BC) logits, then probabilities
-  float* m_s = s_s + p.G * BC;
-  float* l_s = m_s + p.G;
-  float* c_s = l_s + p.G;
+// Split-KV over the cache, on a persistent grid (see the note at the head).
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecChunkBytes = 32768;  // K and V rows of one ring chunk
+// shared memory a split block keeps to, so that three share an SM (the
+// host's DECODE_SMEM_BYTES)
+constexpr int kDecSmemBytes = 233472 / 3 - 1024;
+constexpr int kMiniBatch = 4;       // warp steps per online-softmax update
+constexpr float kNegInf2 = kNegInf * kLog2e;  // NEG_INF in base-2 units
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int seg = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = p.G, S = p.S, length = p.lengths[b];
-  const size_t part = ((size_t)b * p.K + kvh) * p.n_seg + seg;
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
 
-  // chunks of this segment that hold a visible key; with none visible in
-  // the whole row (length 0) every chunk of the padded stream
-  const int n_chunks = (p.s_pad + BC - 1) / BC;
-  const int vis_chunks = length > 0 ? min((length + BC - 1) / BC, n_chunks)
-                                    : n_chunks;
-  const int c0 = seg * p.seg_chunks;
-  const int c1 = min(c0 + p.seg_chunks, vis_chunks);
-  if (c0 >= c1) {  // nothing here: a segment that weighs 0 in the merge
-    for (int e = tid; e < G * HD; e += kThreads) p.part_acc[part * G * HD + e] = 0.f;
-    if (tid < G) {
-      p.part_m[part * G + tid] = -INFINITY;
-      p.part_l[part * G + tid] = 0.f;
+__host__ __device__ constexpr int pow2_floor(int x) {
+  int p = 1;
+  while (p * 2 <= x) p *= 2;
+  return p;
+}
+
+// K6's shapes: a warp carries HPW query heads (2 where G <= 2, else 4); a
+// row of HD values of T is kGR 16-byte granules; a team of kLPK lanes reads
+// one key's row (kNG granules a lane: two where a warp carries 2 heads, so
+// that a team is half as wide and its dot products need one shuffle level
+// less), a warp step kKPW keys; a ring chunk is kBC keys of K, then kBC of
+// V, at most 32 KB.
+template <typename T, int HD, int HPW>
+struct Dec {
+  static constexpr int kRowBytes = HD * (int)sizeof(T);
+  static constexpr int kGR = kRowBytes / kGranule;
+  static constexpr int kLPKRaw = pow2_ceil(kGR) / (HPW == 2 ? 2 : 1);
+  static constexpr int kLPK = kLPKRaw < 1 ? 1 : kLPKRaw > 32 ? 32 : kLPKRaw;
+  static constexpr int kNG = (kGR + kLPK - 1) / kLPK;
+  static constexpr int kEPV = kGranule / (int)sizeof(T);
+  static constexpr int kVPL = kNG * kEPV;  // values of a row one lane holds
+  static constexpr int kKPW = 32 / kLPK;
+  // the block merge's exchange, (m, l, acc) of each warp's heads, and the
+  // block's chunk total
+  static constexpr int kXBytes =
+      kDecWarps * HPW * (HD + 2) * (int)sizeof(float) + 16;
+  // chunks of at most kDecChunkBytes, two of them within kDecSmemBytes
+  static constexpr int kChunkCap = (kDecSmemBytes - kXBytes) / 2 - 16;
+  static constexpr int kBCRaw = pow2_floor(
+      (kChunkCap < kDecChunkBytes ? kChunkCap : kDecChunkBytes) / 2 /
+      kRowBytes);
+  static constexpr int kBC = kBCRaw < 8 ? 8 : kBCRaw > 128 ? 128 : kBCRaw;
+  static constexpr int kChunkBytes = 2 * kBC * kRowBytes;
+};
+
+struct DecodeParams {
+  const void* q;       // (B, K, G, hd)
+  const void* k;       // (B, K, S, hd)
+  const void* v;
+  void* out;           // like q
+  const int* lengths;  // (B,): visible cache positions
+  float* part_m;       // (B K, n_piece, G) piece maxima, base-2 units
+  float* part_l;       // (B K, n_piece, G) piece sums
+  float* part_acc;     // (B K, n_piece, G, hd) piece accumulators
+  int* part_n;         // (B K,) pieces of each row
+  int B, K, G, S, s_pad;
+  float scale, softcap;  // softcap <= 0: none
+  int distance, slots, sequential;
+  int chunk_keys;  // keys of a ring chunk, as the host planned (Dec::kBC)
+  int seg_chunks;  // > 0: chunks of a segment, forced; 0: balanced
+  int min_seg;     // balanced segments take at least this many chunks
+  int n_piece;     // partial slots of a row
+};
+
+// chunks of BC keys row b streams: those that hold a visible key; with none
+// visible (length 0) every chunk of the padded stream
+__device__ __forceinline__ int vis_chunks(int length, int n_chunks, int BC) {
+  return length > 0 ? min((length + BC - 1) / BC, n_chunks) : n_chunks;
+}
+
+// A position of the block's chunk stream: chunk c of row (b, kvh), global
+// chunk index j (rows in (b, kvh) order, each vis chunks long), inside
+// segment u, which ends before chunk `end`.
+struct Cursor {
+  long long j, end;
+  int u, b, kvh, c, vis;
+  bool done;
+};
+
+// Every lane of the calling warp: place the cursor at global chunk j, by a
+// warp-wide prefix sum over the rows' chunk counts.
+template <int BC>
+__device__ __forceinline__ void locate(Cursor& cur, const DecodeParams& p,
+                                       int n_chunks) {
+  const int lane = threadIdx.x & 31;
+  long long before = 0;
+  for (int base = 0; base < p.B; base += 32) {
+    const int b = base + lane;
+    const int vis = b < p.B ? vis_chunks(p.lengths[b], n_chunks, BC) : 0;
+    const long long w = (long long)p.K * vis;
+    long long incl = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long t = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += t;
     }
-    return;
-  }
-
-  const T* q = static_cast<const T*>(p.q) + ((size_t)b * p.K + kvh) * G * HD;
-  for (int e = tid; e < G * HD; e += kThreads) q_s[e] = to_f32(q[e]);
-  if (tid < G) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[MAXE];
-#pragma unroll
-  for (int i = 0; i < MAXE; ++i) acc[i] = 0.f;
-
-  const size_t head = ((size_t)b * p.K + kvh) * S * HD;
-  const T* kh = static_cast<const T*>(p.k) + head;
-  const T* vh = static_cast<const T*>(p.v) + head;
-  __syncthreads();  // q_s, m_s, l_s set
-
-  stream_chunks<C>(p, ring, kh, vh, c0, c1 - c0, [&](const T* slot, int c) {
-    const T* sk = slot;
-    const T* sv = slot + BC * RS;
-    const int j = tid / TPK, part_k = tid % TPK;
-    if (j < BC) {  // logits (G, BC); whole warps sit out where TPK BC < 256
-      float kf[NK * EPV];
-#pragma unroll
-      for (int i = 0; i < NK; ++i) {
-        if (i * TPK + part_k < GR)
-          load16<T>(sk + j * RS + (i * TPK + part_k) * EPV, kf + i * EPV);
-        else
-#pragma unroll
-          for (int e = 0; e < EPV; ++e) kf[i * EPV + e] = 0.f;
-      }
-      const int jk = c * BC + j;
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < NK; ++i) {
-          if (i * TPK + part_k >= GR) continue;
-          const float* qg = q_s + g * HD + (i * TPK + part_k) * EPV;
-#pragma unroll
-          for (int e = 0; e < EPV; ++e) dot = fmaf(qg[e], kf[i * EPV + e], dot);
-        }
-#pragma unroll
-        for (int o = TPK / 2; o > 0; o >>= 1)
-          dot += __shfl_xor_sync(0xffffffffu, dot, o);
-        if (part_k == 0)
-          s_s[g * BC + j] =
-              masked(cap(dot * p.scale, p.softcap), jk, jk < length, p.s_pad);
-      }
+    const unsigned hit = __ballot_sync(0xffffffffu, cur.j < before + incl);
+    if (hit) {
+      const int src = __ffs(hit) - 1;
+      const long long rel =
+          cur.j - before - __shfl_sync(0xffffffffu, incl - w, src);
+      cur.vis = __shfl_sync(0xffffffffu, vis, src);
+      cur.b = base + src;
+      cur.kvh = (int)(rel / cur.vis);
+      cur.c = (int)(rel % cur.vis);
+      return;
     }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {  // online softmax, one warp a head
-      float x[BC / 32], bmax = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < BC / 32; ++i) {
-        x[i] = s_s[g * BC + lane + 32 * i];
-        bmax = fmaxf(bmax, x[i]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, o));
-      const float m = m_s[g], new_m = fmaxf(m, bmax);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < BC / 32; ++i) {
-        const float pj = expf(x[i] - new_m);
-        s_s[g * BC + lane + 32 * i] = pj;
-        sum += pj;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m - new_m);
-        m_s[g] = new_m;
-        l_s[g] = l_s[g] * corr + sum;
-        c_s[g] = corr;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < MAXE; ++i) {
-      const int e = tid + kThreads * i;
-      if (e < G * HD) {
-        const int g = e / HD, col = e - g * HD;
-        float pv = 0.f;
-        for (int j2 = 0; j2 < BC; ++j2)
-          pv = fmaf(s_s[g * BC + j2], to_f32(sv[j2 * RS + col]), pv);
-        acc[i] = acc[i] * c_s[g] + pv;
-      }
-    }
-  });
-
-#pragma unroll
-  for (int i = 0; i < MAXE; ++i) {
-    const int e = tid + kThreads * i;
-    if (e < G * HD) p.part_acc[part * G * HD + e] = acc[i];
-  }
-  if (tid < G) {
-    p.part_m[part * G + tid] = m_s[tid];
-    p.part_l[part * G + tid] = l_s[tid];
+    before += __shfl_sync(0xffffffffu, incl, 31);
   }
 }
 
-// The merge of K6's segments, block (kv head, b): out = sum_s acc_s
-// e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30) with M = max_s m_s.
+// the cursor at the first chunk of segment u (done past the last segment)
+template <int BC>
+__device__ __forceinline__ void seek(Cursor& cur, const DecodeParams& p,
+                                     int u, int n_segs, long long seg,
+                                     long long total, int n_chunks) {
+  cur.u = u;
+  cur.done = u >= n_segs;
+  if (cur.done) return;
+  cur.j = (long long)u * seg;
+  cur.end = min(cur.j + seg, total);
+  locate<BC>(cur, p, n_chunks);
+}
+
+// the next position of the block's stream: the next chunk of the row, the
+// next row, or the block's next segment (gridDim.x segments on)
+template <int BC>
+__device__ __forceinline__ void advance(Cursor& cur, const DecodeParams& p,
+                                        int n_segs, long long seg,
+                                        long long total, int n_chunks) {
+  if (++cur.j == cur.end) {
+    seek<BC>(cur, p, cur.u + gridDim.x, n_segs, seg, total, n_chunks);
+    return;
+  }
+  if (++cur.c == cur.vis) {
+    cur.c = 0;
+    if (++cur.kvh == p.K) {
+      cur.kvh = 0;
+      cur.vis = vis_chunks(p.lengths[++cur.b], n_chunks, BC);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void widen16(const void* p, float* out) {
+  load16<T>(reinterpret_cast<const T*>(p), out);
+}
+
+// Block x: the segments x, x + grid, ... of the chunks of every row, in
+// (b, kv head, chunk) order, as one stream through its ring. Warp w carries
+// heads hg * 4 .. hg * 4 + 3 (hg = w / NKG) and keys kg = w % NKG of each
+// chunk; its teams of kLPK lanes each own their keys' (m, l, acc), merged
+// (shuffles, then the block through shared memory) where a row's piece of
+// the stream ends: its last chunk, or the segment's.
+template <typename T, int HD, int HPW>
+__global__ void __launch_bounds__(kDecThreads, 3)
+    decode_split_kernel(DecodeParams p) {
+  using D = Dec<T, HD, HPW>;
+  constexpr int kHeadsPerWarp = HPW;
+  constexpr int BC = D::kBC, RB = D::kRowBytes, LPK = D::kLPK,
+                VPL = D::kVPL, EPV = D::kEPV, KPW = D::kKPW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* ring = smem;
+  float* xacc = reinterpret_cast<float*>(smem + (size_t)p.slots * D::kChunkBytes);
+  float* xm = xacc + kDecWarps * kHeadsPerWarp * HD;
+  float* xl = xm + kDecWarps * kHeadsPerWarp;
+  uint64_t* full = reinterpret_cast<uint64_t*>(xl + kDecWarps * kHeadsPerWarp);
+  uint64_t* empty = full + p.slots;
+  long long* s_total = reinterpret_cast<long long*>(empty + p.slots);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n_chunks = (p.s_pad + BC - 1) / BC;
+
+  // the chunks every row streams, and the segments' size
+  if (warp == 0) {
+    long long total = 0;
+    for (int b = lane; b < p.B; b += 32)
+      total += (long long)p.K * vis_chunks(p.lengths[b], n_chunks, BC);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      total += __shfl_xor_sync(0xffffffffu, total, off);
+    if (lane == 0) {
+      *s_total = total;
+      for (int s = 0; s < p.slots; ++s) {
+        mbar_init(&full[s], 1);
+        mbar_init(&empty[s], kDecWarps);
+      }
+      fence_mbar_init();
+    }
+  }
+  __syncthreads();
+  const long long total = *s_total;
+  const long long seg =
+      p.seg_chunks > 0
+          ? p.seg_chunks
+          : max((long long)p.min_seg, (total + gridDim.x - 1) / gridDim.x);
+  const int n_segs = (int)((total + seg - 1) / seg);
+  if ((int)blockIdx.x >= n_segs) return;  // no chunk left for this block
+
+  // this warp's heads and keys
+  const int n_hg = (p.G + kHeadsPerWarp - 1) / kHeadsPerWarp;
+  const int nkg = kDecWarps / n_hg;
+  const int hg = warp / nkg, kg = warp % nkg;
+  const bool active = hg < n_hg;
+  const int h0 = hg * kHeadsPerWarp;
+  const int nh = active ? min(kHeadsPerWarp, p.G - h0) : 0;
+  const int team = lane / LPK, tl = lane % LPK;
+  const int steps = (BC + nkg * KPW - 1) / (nkg * KPW);
+
+  const T* kbase = static_cast<const T*>(p.k);
+  const T* vbase = static_cast<const T*>(p.v);
+  const int d = p.distance;
+
+  // PRELOAD (warp 0; lane 0 issues): position i, at cursor pc, into slot
+  // i % slots, once the warps have released what it held
+  Cursor pc;
+  if (warp == 0) seek<BC>(pc, p, blockIdx.x, n_segs, seg, total, n_chunks);
+  int issued = 0;
+  auto issue = [&]() {
+    if (pc.done) return;
+    const int s = issued % p.slots;
+    if (lane == 0) {
+      if (issued >= p.slots) mbar_wait(&empty[s], ((issued / p.slots) - 1) & 1);
+      const int rows = min(BC, p.S - pc.c * BC);
+      const uint32_t bytes = rows > 0 ? (uint32_t)rows * RB : 0u;
+      mbar_arrive_expect_tx(&full[s], 2 * bytes);
+      if (bytes) {
+        const size_t off =
+            (((size_t)pc.b * p.K + pc.kvh) * p.S + (size_t)pc.c * BC) * HD;
+        unsigned char* dst = ring + (size_t)s * D::kChunkBytes;
+        bulk_load(dst, kbase + off, bytes, &full[s]);
+        bulk_load(dst + BC * RB, vbase + off, bytes, &full[s]);
+      }
+    }
+    ++issued;
+    advance<BC>(pc, p, n_segs, seg, total, n_chunks);
+  };
+  if (warp == 0)
+    for (int i = 0; i < d; ++i) issue();
+
+  // COMPUTE: every warp walks the same stream with its own cursor
+  Cursor cc;
+  seek<BC>(cc, p, blockIdx.x, n_segs, seg, total, n_chunks);
+  float q[kHeadsPerWarp][VPL], acc[kHeadsPerWarp][VPL];
+  float m[kHeadsPerWarp], l[kHeadsPerWarp];
+  bool fresh = true;  // a piece starts here: its q, its empty state
+  for (int i = 0; !cc.done; ++i) {
+    if (fresh) {
+      const T* qh = static_cast<const T*>(p.q) +
+                    (((size_t)cc.b * p.K + cc.kvh) * p.G + h0) * HD;
+#pragma unroll
+      for (int h = 0; h < kHeadsPerWarp; ++h) {
+        m[h] = kNegInf2;
+        l[h] = 0.f;
+#pragma unroll
+        for (int n = 0; n < D::kNG; ++n) {
+          const int gi = tl + n * LPK;
+          if (h < nh && gi < D::kGR)
+            widen16<T>(qh + (size_t)h * HD + gi * EPV, &q[h][n * EPV]);
+          else
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) q[h][n * EPV + e] = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPV; ++e) acc[h][n * EPV + e] = 0.f;
+        }
+      }
+      fresh = false;
+    }
+    const int s = i % p.slots;
+    if (p.sequential && warp == 0) issue();  // PL[i + d]; slots >= d + 1
+    mbar_wait(&full[s], (i / p.slots) & 1);
+    const unsigned char* sk = ring + (size_t)s * D::kChunkBytes;
+    const unsigned char* sv = sk + BC * RB;
+    const int length = p.lengths[cc.b];
+    if (active) {
+      for (int s0 = 0; s0 < steps; s0 += kMiniBatch) {
+        float x[kHeadsPerWarp][kMiniBatch];
+#pragma unroll
+        for (int st = 0; st < kMiniBatch; ++st) {
+          const int kl = ((s0 + st) * nkg + kg) * KPW + team;
+          const int jk = cc.c * BC + kl;
+          float kf[VPL];
+          const bool row = s0 + st < steps && kl < BC && jk < p.S;
+#pragma unroll
+          for (int n = 0; n < D::kNG; ++n) {
+            const int gi = tl + n * LPK;
+            if (row && gi < D::kGR)
+              widen16<T>(sk + kl * RB + gi * kGranule, &kf[n * EPV]);
+            else
+#pragma unroll
+              for (int e = 0; e < EPV; ++e) kf[n * EPV + e] = 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < kHeadsPerWarp; ++h) {
+            if (h >= nh) continue;  // nh is the warp's: no lane diverges
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < VPL; ++e) dot = fmaf(q[h][e], kf[e], dot);
+#pragma unroll
+            for (int off = LPK / 2; off > 0; off >>= 1)
+              dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            // keys past S are the stream's zero rows (dot 0); keys past the
+            // chunk's end or the padded stream weigh nothing
+            x[h][st] = s0 + st < steps && kl < BC
+                           ? masked(cap(dot * p.scale, p.softcap), jk,
+                                    jk < length, p.s_pad) * kLog2e
+                           : -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < kHeadsPerWarp; ++h) {
+          if (h >= nh) continue;
+          float bmax = x[h][0];
+#pragma unroll
+          for (int st = 1; st < kMiniBatch; ++st) bmax = fmaxf(bmax, x[h][st]);
+          const float new_m = fmaxf(m[h], bmax);
+          const float corr = fast_exp2(m[h] - new_m);
+          float sum = 0.f;
+#pragma unroll
+          for (int st = 0; st < kMiniBatch; ++st) {
+            x[h][st] = fast_exp2(x[h][st] - new_m);
+            sum += x[h][st];
+          }
+          l[h] = l[h] * corr + sum;
+          m[h] = new_m;
+#pragma unroll
+          for (int e = 0; e < VPL; ++e) acc[h][e] *= corr;
+        }
+#pragma unroll
+        for (int st = 0; st < kMiniBatch; ++st) {
+          const int kl = ((s0 + st) * nkg + kg) * KPW + team;
+          const int jk = cc.c * BC + kl;
+          if (!(s0 + st < steps && kl < BC && jk < p.S)) continue;  // v = 0
+          float vf[VPL];
+#pragma unroll
+          for (int n = 0; n < D::kNG; ++n) {
+            const int gi = tl + n * LPK;
+            if (gi < D::kGR)
+              widen16<T>(sv + kl * RB + gi * kGranule, &vf[n * EPV]);
+            else
+#pragma unroll
+              for (int e = 0; e < EPV; ++e) vf[n * EPV + e] = 0.f;
+          }
+#pragma unroll
+          for (int h = 0; h < kHeadsPerWarp; ++h) {
+            if (h >= nh) continue;
+#pragma unroll
+            for (int e = 0; e < VPL; ++e)
+              acc[h][e] = fmaf(x[h][st], vf[e], acc[h][e]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with slot s
+
+    // the piece ends with its row's last chunk or its segment's
+    const bool last = cc.c + 1 == cc.vis || cc.j + 1 == cc.end;
+    if (last) {
+      // teams of a warp -> one state (all lanes hold it)
+#pragma unroll
+      for (int off = LPK; off < 32; off <<= 1) {
+#pragma unroll
+        for (int h = 0; h < kHeadsPerWarp; ++h) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[h], off);
+          const float M = fmaxf(m[h], mo);
+          const float ws = fast_exp2(m[h] - M), wo = fast_exp2(mo - M);
+          l[h] = l[h] * ws + lo * wo;
+          m[h] = M;
+#pragma unroll
+          for (int e = 0; e < VPL; ++e) {
+            const float ao = __shfl_xor_sync(0xffffffffu, acc[h][e], off);
+            acc[h][e] = acc[h][e] * ws + ao * wo;
+          }
+        }
+      }
+      // warps -> the block, through shared memory
+      if (active && lane < LPK) {
+#pragma unroll
+        for (int h = 0; h < kHeadsPerWarp; ++h) {
+          if (h >= nh) continue;
+          float* xa = xacc + (warp * kHeadsPerWarp + h) * HD;
+#pragma unroll
+          for (int n = 0; n < D::kNG; ++n) {
+            const int gi = tl + n * LPK;
+            if (gi >= D::kGR) continue;
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) xa[gi * EPV + e] = acc[h][n * EPV + e];
+          }
+          if (lane == 0) {
+            xm[warp * kHeadsPerWarp + h] = m[h];
+            xl[warp * kHeadsPerWarp + h] = l[h];
+          }
+        }
+      }
+      __syncthreads();
+      const long long row = (long long)cc.b * p.K + cc.kvh;
+      const long long first = cc.j - cc.c;  // the row's chunk 0
+      const int piece = cc.u - (int)(first / seg);
+      const size_t slot = (size_t)row * p.n_piece + piece;
+      for (int e = tid; e < p.G * HD; e += kDecThreads) {
+        const int g = e / HD, col = e - g * HD;
+        const int w0 = (g / kHeadsPerWarp) * nkg, h = g % kHeadsPerWarp;
+        float M = -INFINITY;
+        for (int w = w0; w < w0 + nkg; ++w)
+          M = fmaxf(M, xm[w * kHeadsPerWarp + h]);
+        float A = 0.f, L = 0.f;
+        for (int w = w0; w < w0 + nkg; ++w) {
+          const float wt = fast_exp2(xm[w * kHeadsPerWarp + h] - M);
+          A += xacc[(w * kHeadsPerWarp + h) * HD + col] * wt;
+          L += xl[w * kHeadsPerWarp + h] * wt;
+        }
+        p.part_acc[slot * p.G * HD + e] = A;
+        if (col == 0) {
+          p.part_m[slot * p.G + g] = M;
+          p.part_l[slot * p.G + g] = L;
+        }
+      }
+      if (piece == 0 && tid == 0)
+        p.part_n[row] =
+            (int)((first + cc.vis - 1) / seg - first / seg) + 1;
+      __syncthreads();  // the exchange may be written again
+      fresh = true;
+    }
+    if (!p.sequential && warp == 0) issue();  // PL[i + d]
+    advance<BC>(cc, p, n_segs, seg, total, n_chunks);
+  }
+}
+
+// The merge, block (kv head, b): out = sum_k acc_k 2^(m_k - M) /
+// max(sum_k l_k 2^(m_k - M), 1e-30), M = max_k m_k over the row's pieces.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) merge_kernel(Params p) {
+__global__ void __launch_bounds__(kDecThreads)
+    decode_merge_kernel(DecodeParams p) {
   const int kvh = blockIdx.x, b = blockIdx.y, G = p.G;
-  const size_t part0 = ((size_t)b * p.K + kvh) * p.n_seg;
-  T* out = static_cast<T*>(p.out) + ((size_t)b * p.K + kvh) * G * HD;
-  for (int e = threadIdx.x; e < G * HD; e += kThreads) {
+  const size_t row = (size_t)b * p.K + kvh;
+  const int n = p.part_n[row];
+  const float* pm = p.part_m + row * p.n_piece * G;
+  const float* pl = p.part_l + row * p.n_piece * G;
+  const float* pa = p.part_acc + row * p.n_piece * G * HD;
+  T* out = static_cast<T*>(p.out) + row * G * HD;
+  for (int e = threadIdx.x; e < G * HD; e += kDecThreads) {
     const int g = e / HD;
     float M = -INFINITY;
-    for (int s = 0; s < p.n_seg; ++s) M = fmaxf(M, p.part_m[(part0 + s) * G + g]);
+    for (int k = 0; k < n; ++k) M = fmaxf(M, pm[k * G + g]);
     float L = 0.f, A = 0.f;
-    for (int s = 0; s < p.n_seg; ++s) {
-      const float w = expf(p.part_m[(part0 + s) * G + g] - M);
-      L += p.part_l[(part0 + s) * G + g] * w;
-      A += p.part_acc[(part0 + s) * G * HD + e] * w;
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const float w = exp2f(pm[k * G + g] - M);
+      L += pl[k * G + g] * w;
+      A += pa[(size_t)k * G * HD + e] * w;
     }
     out[e] = from_f32<T>(A / fmaxf(L, 1e-30f));
   }
@@ -823,26 +1144,71 @@ int launch_flash(const Params& p, int B, int dtype, int smem_bytes,
                     : launch_flash_tc<HD>(p, B, smem_bytes, s);
 }
 
-template <typename T, int HD>
-int launch_decode_t(const Params& p, int B, int smem_bytes, cudaStream_t s) {
-  static const cudaError_t attr = allow_full_smem(decode_kernel<T, HD>);
+// K6's split blocks carry 2 heads a warp where G <= 2, else 4
+template <typename T, int HD, int HPW>
+int launch_decode_t(const DecodeParams& p, int grid, int smem_bytes,
+                    cudaStream_t s) {
+  static const cudaError_t attr =
+      allow_full_smem(decode_split_kernel<T, HD, HPW>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  using C = Chunk<T, HD>;
-  const int aux = (p.G * HD + p.G * C::kBC + 3 * p.G) * 4;
-  if (smem_bytes < p.slots * C::kElems * (int)sizeof(T) + aux)
+  using D = Dec<T, HD, HPW>;
+  // the host plans with its own chunk (decode_chunk_keys): it must be this
+  // kernel's, and n_piece must hold the pieces a row of every chunk of the
+  // stream can meet, else the rows' partials would overrun their slots
+  const int n_chunks = (p.s_pad + D::kBC - 1) / D::kBC;
+  const int seg = p.seg_chunks > 0 ? p.seg_chunks : p.min_seg;
+  if (p.chunk_keys != D::kBC || p.n_piece < (n_chunks + seg - 1) / seg + 1 ||
+      p.G > kDecWarps * HPW ||
+      smem_bytes < p.slots * (D::kChunkBytes + 16) + D::kXBytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  decode_kernel<T, HD><<<dim3(p.n_seg, p.K, B), kThreads, smem_bytes, s>>>(p);
+  decode_split_kernel<T, HD, HPW><<<grid, kDecThreads, smem_bytes, s>>>(p);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  merge_kernel<T, HD><<<dim3(p.K, B), kThreads, 0, s>>>(p);
+  decode_merge_kernel<T, HD><<<dim3(p.K, p.B), kDecThreads, 0, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD, int HPW>
+int decode_blocks_t(int smem_bytes) {
+  static const cudaError_t attr =
+      allow_full_smem(decode_split_kernel<T, HD, HPW>);
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, decode_split_kernel<T, HD, HPW>, kDecThreads, smem_bytes);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
+}
+
+// K6's split kernel (launch 1) or its blocks an SM (launch 0) at hd
+template <typename T, int HD>
+int decode_for_t(const DecodeParams& p, int launch, int grid, int smem_bytes,
+                 cudaStream_t s) {
+  if (p.G <= 2)
+    return launch ? launch_decode_t<T, HD, 2>(p, grid, smem_bytes, s)
+                  : decode_blocks_t<T, HD, 2>(smem_bytes);
+  return launch ? launch_decode_t<T, HD, 4>(p, grid, smem_bytes, s)
+                : decode_blocks_t<T, HD, 4>(smem_bytes);
+}
+
 template <int HD>
-int launch_decode(const Params& p, int B, int dtype, int smem_bytes,
-                  cudaStream_t s) {
-  return dtype == 0 ? launch_decode_t<float, HD>(p, B, smem_bytes, s)
-                    : launch_decode_t<bf16, HD>(p, B, smem_bytes, s);
+int decode_for(const DecodeParams& p, int launch, int grid, int dtype,
+               int smem_bytes, cudaStream_t s) {
+  return dtype == 0 ? decode_for_t<float, HD>(p, launch, grid, smem_bytes, s)
+                    : decode_for_t<bf16, HD>(p, launch, grid, smem_bytes, s);
+}
+
+int decode_for_hd(const DecodeParams& p, int launch, int grid, int hd,
+                  int dtype, int smem_bytes, cudaStream_t s) {
+  switch (hd) {
+    case 16: return decode_for<16>(p, launch, grid, dtype, smem_bytes, s);
+    case 32: return decode_for<32>(p, launch, grid, dtype, smem_bytes, s);
+    case 64: return decode_for<64>(p, launch, grid, dtype, smem_bytes, s);
+    case 112: return decode_for<112>(p, launch, grid, dtype, smem_bytes, s);
+    case 128: return decode_for<128>(p, launch, grid, dtype, smem_bytes, s);
+    case 256: return decode_for<256>(p, launch, grid, dtype, smem_bytes, s);
+  }
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
 }
 
 int flash_for_hd(const Params& p, int B, int hd, int dtype, int smem_bytes,
@@ -914,24 +1280,27 @@ int pul_flash_attention(const void* q, const void* k, const void* v, void* out,
 
 // K6: out (B, H, hd) = attention of q (B, H, hd), one token per head, over
 // the first lengths[b] rows of k, v (B, K, S, hd); H = K G with G <= 16,
-// hd in {16, 32, 64, 112, 128, 256}; f32 (dtype 0) or bf16 (1). The keys
-// are cut into n_seg segments of seg_chunks ring chunks; part_m / part_l
-// (B, K, n_seg, G) and part_acc (B, K, n_seg, G, hd) are fp32 scratch for
-// the merge.
+// hd in {16, 32, 64, 112, 128, 256}; f32 (dtype 0) or bf16 (1). A split
+// kernel of `grid` blocks walks the rows' chunks in segments (seg_chunks
+// each, or balanced over the grid and at least min_seg when seg_chunks is
+// 0; chunks of chunk_keys keys, which must be the kernel's own) and writes
+// each row's pieces to part_m / part_l (B K, n_piece, G),
+// part_acc (B K, n_piece, G, hd) and their count to part_n (B K); a merge
+// kernel of (K, B) blocks combines them.
 int pul_decode_attention(const void* q, const void* k, const void* v,
                          const int* lengths, void* out, float* part_m,
-                         float* part_l, float* part_acc, int B, int K, int G,
-                         int S, int hd, int s_pad, float scale, float softcap,
-                         int seg_chunks, int n_seg, int distance, int slots,
-                         int sequential, int dtype, int smem_bytes,
+                         float* part_l, float* part_acc, int* part_n, int B,
+                         int K, int G, int S, int hd, int s_pad, float scale,
+                         float softcap, int chunk_keys, int seg_chunks,
+                         int min_seg, int n_piece, int grid, int distance,
+                         int slots, int sequential, int dtype, int smem_bytes,
                          void* stream) {
-  const int bc = dtype == 0 ? 32 : 64;  // Chunk<T, hd>::kBC
   if (!common_ok(q, k, v, dtype, hd, S, s_pad, distance, slots, sequential,
                  smem_bytes) ||
-      B < 1 || K < 1 || G < 1 || G > kMaxG || seg_chunks < 1 ||
-      (long long)n_seg * seg_chunks * bc < s_pad || B > 65535 || K > 65535)
+      B < 1 || K < 1 || G < 1 || G > kMaxG || seg_chunks < 0 || min_seg < 1 ||
+      n_piece < 1 || grid < 1 || B > 65535 || K > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p = {};
+  DecodeParams p = {};
   p.q = q;
   p.k = k;
   p.v = v;
@@ -940,9 +1309,10 @@ int pul_decode_attention(const void* q, const void* k, const void* v,
   p.part_m = part_m;
   p.part_l = part_l;
   p.part_acc = part_acc;
+  p.part_n = part_n;
+  p.B = B;
   p.K = K;
   p.G = G;
-  p.T = 1;
   p.S = S;
   p.s_pad = s_pad;
   p.scale = scale;
@@ -950,18 +1320,23 @@ int pul_decode_attention(const void* q, const void* k, const void* v,
   p.distance = distance;
   p.slots = slots;
   p.sequential = sequential;
+  p.chunk_keys = chunk_keys;
   p.seg_chunks = seg_chunks;
-  p.n_seg = n_seg;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_decode<16>(p, B, dtype, smem_bytes, s);
-    case 32: return launch_decode<32>(p, B, dtype, smem_bytes, s);
-    case 64: return launch_decode<64>(p, B, dtype, smem_bytes, s);
-    case 112: return launch_decode<112>(p, B, dtype, smem_bytes, s);
-    case 128: return launch_decode<128>(p, B, dtype, smem_bytes, s);
-    case 256: return launch_decode<256>(p, B, dtype, smem_bytes, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  p.min_seg = min_seg;
+  p.n_piece = n_piece;
+  return decode_for_hd(p, 1, grid, hd, dtype, smem_bytes,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of K6's split kernel (for G query heads a kv head) one SM holds at
+// this dynamic shared memory; negative: minus a CUDA error.
+int pul_dense_attention_blocks_per_sm(int hd, int dtype, int G,
+                                      int smem_bytes) {
+  if ((dtype != 0 && dtype != 1) || G < 1 || G > kMaxG)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  DecodeParams p = {};
+  p.G = G;
+  return decode_for_hd(p, 0, 1, hd, dtype, smem_bytes, nullptr);
 }
 
 }  // extern "C"

@@ -217,6 +217,27 @@ inline int encode_tma_2d_bf16(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The map of a table of `rows` rows of row_bytes bytes (a multiple of 16)
+// read in (box_rows, box_bytes) tiles from the start of each row: bytes,
+// unswizzled, and with no L2 promotion, so a tile of 16-byte columns fetches
+// only the sectors it touches. Returns 0 or a CUDA error code.
+inline int encode_tma_2d_rows(CUtensorMap* map, const void* base,
+                              uint64_t rows, uint64_t row_bytes,
+                              uint32_t box_rows, uint32_t box_bytes) {
+  const EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {row_bytes, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_bytes, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 // ---------------------------------------------------------------- wgmma
 // The descriptor's layout type of a swizzle of `bytes` (128, 64 or 32)
 __host__ __device__ constexpr int swizzle_layout(int bytes) {

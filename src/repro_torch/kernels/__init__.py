@@ -26,6 +26,8 @@ from repro_torch.kernels.pul_attention import (
 from repro_torch.kernels.pul_decode import (
     DecodePlan,
     decode_attention_kernel_ref,
+    decode_attention_split_ref,
+    decode_pieces,
     decode_ring_plan,
     pul_decode_attention,
 )
@@ -65,8 +67,8 @@ __all__ = [
     "paged_split_plan", "paged_decode_split_ref", "paged_mla_decode_split_ref",
     "ref", "attention_ring_plan", "attention_tc_plan", "attention_body",
     "pul_attention", "attention_kernel_ref",
-    "DecodePlan", "decode_ring_plan", "pul_decode_attention",
-    "decode_attention_kernel_ref",
+    "DecodePlan", "decode_ring_plan", "decode_pieces", "pul_decode_attention",
+    "decode_attention_kernel_ref", "decode_attention_split_ref",
     "pul_paged_decode_attention", "pul_paged_sweep_decode_attention",
     "pul_paged_mla_decode_attention", "pul_paged_sweep_mla_decode_attention",
     "paged_decode_attention_ref", "paged_sweep_decode_attention_ref",

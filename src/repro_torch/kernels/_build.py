@@ -44,9 +44,10 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this exact source is built."""
-    src = CSRC_DIR / f"{name}.cu"
+def build(name: str, src_dir: Path = CSRC_DIR) -> Path:
+    """Compile ``<src_dir>/<name>.cu`` (by default a kernel source of
+    ``csrc/``) unless this exact source is built."""
+    src = src_dir / f"{name}.cu"
     text = src.read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]

@@ -45,13 +45,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "pul_gather": {"pul_gather": [_P] * 3 + [_I, _L] + [_I] * 6 + [_P]},
     "pul_sum": {"pul_sum": [_P] * 4 + [_I] * 11 + [_P],
                 "pul_sum_blocks_per_sm": [_I, _I]},
-    "pul_filter": {"pul_filter": [_P, _P, _F] + [_I] * 12 + [_P],
-                   "pul_filter_blocks_per_sm": [_I, _I]},
+    "pul_filter": {"pul_filter": [_P, _P, _F] + [_I] * 15 + [_P],
+                   "pul_filter_blocks_per_sm": [_I] * 3},
     "pul_matmul": {"pul_matmul": [_P] * 3 + [_I] * 12 + [_P],
                    "pul_matmul_wgmma": [_P] * 3 + [_I] * 11 + [_P]},
     "pul_dense_attention": {
         "pul_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _F] + [_I] * 5 + [_P],
-        "pul_decode_attention": [_P] * 8 + [_I] * 6 + [_F, _F] + [_I] * 7 + [_P],
+        "pul_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _F] + [_I] * 10 + [_P],
+        "pul_dense_attention_blocks_per_sm": [_I] * 4,
     },
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -86,19 +87,21 @@ class RingPlan:
     smem_bytes: int     # dynamic shared memory of one block
 
 
-def _plan(cfg: PULConfig, aux: int, slot: int, what: str) -> RingPlan:
+def _plan(cfg: PULConfig, aux: int, slot: int, what: str,
+          limit: int = SMEM_LIMIT_BYTES) -> RingPlan:
     """Clamp a PULConfig's ring of `slot`-byte slots beside `aux` bytes of
-    other shared memory to what one Hopper block can hold. Distance is
+    other shared memory to what one Hopper block can hold (or to `limit`
+    bytes, a kernel's share when several blocks are to fit an SM). Distance is
     clamped to the slots that fit and to ``MAX_RING_DISTANCE``; slots follow
     ``PULConfig.num_slots`` (2d for BATCH, d + 1 for SEQUENTIAL) within the
     same budget. Raises when not even one slot fits."""
-    max_slots = (SMEM_LIMIT_BYTES - aux) // slot
+    max_slots = (limit - aux) // slot
     seq = cfg.strategy is IssueStrategy.SEQUENTIAL
     d = min(cfg.distance, MAX_RING_DISTANCE, max_slots - (1 if seq else 0))
     if d < 1:
         raise ValueError(
-            f"{what} of {slot} B does not fit the {SMEM_LIMIT_BYTES} B of "
-            "shared memory a Hopper block may use")
+            f"{what} of {slot} B does not fit the {limit} B of "
+            "shared memory a block may use")
     want = cfg.slots if cfg.slots is not None else (d + 1 if seq else 2 * d)
     slots = min(max(want, d + 1 if seq else d), max_slots)
     return RingPlan(d, slots, slots * slot + aux)

@@ -33,7 +33,11 @@ from repro_torch.kernels.pul_attention import (
     pul_attention,
 )
 from repro_torch.kernels.pul_decode import (
+    DECODE_CHUNK_BYTES,
+    DECODE_SMEM_BYTES,
     decode_attention_kernel_ref,
+    decode_chunk_keys,
+    decode_pieces,
     decode_ring_plan,
     pul_decode_attention,
 )
@@ -281,20 +285,40 @@ def test_attention_ring_plan_fits_shared_memory(itemsize, slot, cfg, want):
                                  PULConfig(distance=4,
                                            strategy=IssueStrategy.SEQUENTIAL)])
 def test_decode_ring_plan_at_the_smoke_shape(cfg):
-    """K6 at B = 8, K = 8, G = 2, S = 32768 bf16 on 132 SMs: 32-chunk
-    segments (2,048 keys), 16 of them, the ring within shared memory."""
+    """K6 at B = 8, K = 8, G = 2, S = 32768 bf16 on 132 SMs: chunks of 64
+    keys (32 KB of K and V), the ring within a third of an SM's shared
+    memory (three blocks an SM, one wave of 396), holding d; the smoke's
+    lengths cut into balanced segments whose pieces cover each row's
+    visible chunks, at most n_piece a row."""
+    seq = cfg.strategy is IssueStrategy.SEQUENTIAL
     plan = decode_ring_plan(cfg, B=8, K=8, G=2, s_pad=32768, itemsize=2,
                             sms=132)
-    assert plan.smem_bytes <= SMEM_LIMIT_BYTES
-    assert plan.slots >= plan.distance + (cfg.strategy is
-                                          IssueStrategy.SEQUENTIAL)
-    assert (plan.seg_chunks, plan.n_seg) == (32, 16)
-    assert plan.n_seg * plan.seg_chunks * 64 >= 32768
+    assert plan.smem_bytes <= DECODE_SMEM_BYTES < SMEM_LIMIT_BYTES
+    assert (plan.blocks_per_sm, plan.grid) == (3, 396)
+    assert plan.slots >= plan.distance + seq
+    assert plan.distance == min(cfg.distance, plan.slots - seq)
+    assert (plan.chunk_keys, plan.n_chunks) == (64, 512)
+    assert plan.n_chunks * plan.chunk_keys >= 32768
+    lengths = (32768, 30000, 16384, 8193, 4096, 1000, 129, 1)
+    seg, pieces = decode_pieces(plan, lengths, 8)
+    total = 8 * sum(-(-n // 64) for n in lengths)
+    assert seg == max(plan.min_seg, -(-total // plan.grid))
+    for (b, _), cuts in pieces.items():
+        assert cuts[0][0] == 0 and cuts[-1][1] == -(-lengths[b] // 64)
+        assert all(c1 == c0 for (_, c1), (c0, _) in zip(cuts, cuts[1:]))
+        assert len(cuts) <= plan.n_piece
 
 
 def test_decode_ring_plan_small_cache_is_one_segment():
-    plan = decode_ring_plan(PULConfig(), B=2, K=2, G=4, s_pad=96, itemsize=4)
-    assert (plan.seg_chunks, plan.n_seg) == (3, 1)
+    """192 keys of f32 at hd 128 are 6 chunks of 32; a forced segment of
+    the whole stream gives every row (whatever its length) one piece."""
+    plan = decode_ring_plan(PULConfig(), B=2, K=2, G=4, s_pad=192,
+                            itemsize=4, seg_chunks=6)
+    assert (plan.chunk_keys, plan.n_chunks, plan.n_piece) == (32, 6, 2)
+    _, pieces = decode_pieces(plan, [192, 0], 2)
+    assert all(cuts == [(0, 6)] for cuts in pieces.values())
+    _, pieces = decode_pieces(plan, [33, 192], 2)
+    assert pieces[0, 0] == [(0, 2)] and pieces[1, 1] == [(0, 2), (2, 6)]
 
 
 def test_dense_wrappers_refuse_other_devices_instead_of_falling_back():
@@ -340,10 +364,13 @@ def test_decode_ring_plan_fits_at_every_head_dim(hd, itemsize):
                     PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL)):
             plan = decode_ring_plan(cfg, B=2, K=8, G=G, s_pad=4096, hd=hd,
                                     itemsize=itemsize)
-            assert plan.smem_bytes <= SMEM_LIMIT_BYTES
+            assert plan.smem_bytes <= DECODE_SMEM_BYTES
             assert plan.slots >= plan.distance >= 1
-            assert plan.n_seg * plan.seg_chunks * (64 if itemsize == 2
-                                                   else 32) >= 4096
+            assert plan.chunk_keys == decode_chunk_keys(hd, itemsize, G)
+            assert 2 * plan.chunk_keys * hd * itemsize <= DECODE_CHUNK_BYTES
+            assert plan.n_chunks * plan.chunk_keys >= 4096
+            _, pieces = decode_pieces(plan, [4096, 1], 8)
+            assert max(map(len, pieces.values())) <= plan.n_piece
 
 
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma.sync"),

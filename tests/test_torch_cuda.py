@@ -6,7 +6,9 @@ No JAX here: the machine with the card has none. Run there with
 
 The gather K5 is held against its plain version bitwise (it moves bytes),
 in f32, bf16 and int32 and at the two serving page geometries, and so is
-the filter K9 in both modes and at both unload distances. The SUM K8 is
+the filter K9 on f32, bf16 and f16 tables (ties at the threshold rounded to
+the table's type) in both modes, at unload distances 0, 1 and 3 and at row
+widths that take either copy of its bit-vector ring. The SUM K8 is
 held exactly to the fp64 sum on values that make every order exact, and to
 the reference's tolerance on normal values; the matmul K10 to the
 reference's tolerances. K1/K2 and
@@ -22,7 +24,10 @@ pages they read, and K5's bulk copies at ragged and 16-byte rows. The dense atte
 pair, K7 (flash attention) and K6 (decode over a dense cache), is held the
 same way in bf16 and to rtol = atol = 3e-4 in f32, at d = 1 and 4 in both
 issue orders, with its own planted faults (the last KV chunk lost, the
-softcap dropped).
+softcap dropped); K6 also at every head dim and G of 1, 2, 5 and 16 with
+rows of length 0, 1 and S, and at forced segment sizes, where one
+segment's piece left out of the merge must be rejected, and a plan whose
+chunk is not the kernel's is refused.
 """
 import dataclasses
 import importlib
@@ -35,6 +40,7 @@ from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pul_decode import (
     decode_attention_kernel_ref,
+    decode_attention_split_ref,
     pul_decode_attention,
 )
 from repro_torch.kernels.pul_filter import (
@@ -569,25 +575,64 @@ def _words(t):
     return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
+def _filter_table(rng, rows, row_bytes, dtype, dev):
+    """Eighths in the table's type, with column 0 planted at the threshold
+    0.3 rounded to that type and one ulp either side of it: the compare
+    must be the one in the table's type."""
+    width = row_bytes // torch.tensor([], dtype=dtype).element_size()
+    data = _eighths(rng, (rows * 40, width), dev, dtype)
+    thr = torch.tensor(0.3, dtype=dtype)
+    up = torch.nextafter(thr, torch.tensor(1.0, dtype=dtype))
+    down = torch.nextafter(thr, torch.tensor(0.0, dtype=dtype))
+    data[::7, 0] = thr.item()
+    data[3::11, 0] = up.item()
+    data[5::13, 0] = down.item()
+    return data
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,width", [(128, 64), (64, 32), (128, 16),
-                                        (96, 4)])
+@pytest.mark.parametrize("rows,row_bytes", [(128, 256), (64, 128),
+                                            (128, 64), (96, 16)])
 @pytest.mark.parametrize("unload_distance", [0, 1, 3])
 @pytest.mark.parametrize("cfg", MICRO_CFGS[1:3] + [PULConfig(distance=8)],
                          ids=["d4", "d3-seq", "d8"])
 @pytest.mark.parametrize("materialize", [False, True])
-def test_filter_kernel_matches_plain_version(dev, materialize, cfg,
-                                             unload_distance, rows, width):
-    rng = np.random.default_rng(1)
-    data = _eighths(rng, (rows * 40, width), dev)     # ties at 0.25 included
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_filter_kernel_matches_plain_version(dev, dtype, materialize, cfg,
+                                             unload_distance, rows,
+                                             row_bytes):
+    """K9 on f32, bf16 and f16 tables, in both modes, bitwise against the
+    plain versions, with ties at the rounded threshold."""
+    data = _filter_table(np.random.default_rng(1), rows, row_bytes, dtype,
+                         dev)
     cfg = dataclasses.replace(cfg, unload_distance=unload_distance)
-    got = pul_filter(data, 0.25, cfg=cfg, rows_per_block=rows,
+    before = PA.LAUNCHES["k9"]
+    got = pul_filter(data, 0.3, cfg=cfg, rows_per_block=rows,
                      materialize=materialize)
     torch.cuda.synchronize()
-    want = (filter_materialize_ref(data, 0.25) if materialize
-            else filter_ref(data, 0.25))
+    assert PA.LAUNCHES["k9"] == before + 1
+    want = (filter_materialize_ref(data, 0.3) if materialize
+            else filter_ref(data, 0.3))
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.equal(_words(got), _words(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_bytes", [16, 32, 48, 64, 80, 128, 192, 256])
+@pytest.mark.parametrize("rows", [64, 128, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_filter_bitvector_takes_every_row_width(dev, dtype, rows, row_bytes):
+    """The bit-vector's tiles are the first 64 bytes of each row, or the row
+    when shorter: one bulk copy of the block for rows up to 64 B, TMA 2D
+    boxes (up to 256 rows) from a tensor map for wider ones. The same bits
+    as the plain version every time."""
+    data = _filter_table(np.random.default_rng(2), rows, row_bytes, dtype,
+                         dev)
+    got = pul_filter(data, 0.3, rows_per_block=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(got), _words(filter_ref(data, 0.3)))
 
 
 @pytest.mark.cuda
@@ -690,7 +735,7 @@ def test_micro_launches_are_counted_and_checks_raise(dev):
     with pytest.raises(ValueError, match="granules"):
         pul_sum(data[:, :2].contiguous(), trace)
     with pytest.raises(TypeError, match="dtype"):
-        pul_filter(data.bfloat16(), 0.0, rows_per_block=32)
+        pul_filter(data.double(), 0.0, rows_per_block=32)
     with pytest.raises(ValueError, match="granules"):
         pul_filter(data[:, :6].contiguous(), 0.0, rows_per_block=32)
     with pytest.raises(ValueError, match="built"):
@@ -888,6 +933,76 @@ def test_decode_kernel_takes_other_head_dims_and_groups(dev, dtype, hd, G,
     assert _dense_close(got, want), f"max |K6 - plain| {err:.3e}"
     for what, bad in _decode_faults(q, k, v, length, {}).items():
         assert not _dense_close(bad, want), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_chunks", [None, 1])
+@pytest.mark.parametrize("G", [1, 2, 5, 16])
+@pytest.mark.parametrize("hd", PA.DENSE_HDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_every_head_dim_and_group(dev, dtype, hd, G,
+                                                   seg_chunks):
+    """K6 at every hd it is built for and G 1/2/5/16, rows of length S, 1,
+    0 and one inside a chunk, the softcap on, with the card's balanced
+    segments and with one chunk a segment (a piece a chunk)."""
+    S = 700
+    q, k, v = _dense(dev, dtype, ((4, 2 * G, hd), 3.0), ((4, 2, S, hd), 0.3),
+                     ((4, 2, S, hd), 1.0), seed=hd + 3 * G)
+    length = torch.tensor([S, 1, 0, 333], dtype=torch.int32, device=dev)
+    before = PA.LAUNCHES["k6"]
+    got = pul_decode_attention(q, k, v, length, softcap=2.0,
+                               seg_chunks=seg_chunks)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["k6"] == before + 1
+    want = decode_attention_kernel_ref(q, k, v, length, softcap=2.0)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K6 - plain| {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("seg_chunks", [None, 1, 2, 7, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_holds_at_every_segment_size(dev, dtype, seg_chunks,
+                                                   cfg):
+    """K6 with the segment size forced, from a chunk a segment to the whole
+    stream in one, at d 1 and 4 in both orders; the split-and-merge model
+    agrees, and leaving one segment's piece out of the merge is rejected."""
+    q, k, v = _dense(dev, dtype, ((3, 8, 128), 0.3), ((3, 4, 2000, 128), 0.3),
+                     ((3, 4, 2000, 128), 1.0), seed=11)
+    length = torch.tensor([2000, 1500, 0], dtype=torch.int32, device=dev)
+    got = pul_decode_attention(q, k, v, length, cfg=cfg,
+                               seg_chunks=seg_chunks)
+    torch.cuda.synchronize()
+    want = decode_attention_kernel_ref(q, k, v, length)
+    err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K6 - plain| {err:.3e}"
+    split = decode_attention_split_ref(q, k, v, length, cfg=cfg,
+                                       seg_chunks=seg_chunks)
+    assert _dense_close(split, want)
+    if seg_chunks is not None and seg_chunks < 100:
+        dropped = decode_attention_split_ref(q, k, v, length, cfg=cfg,
+                                             seg_chunks=seg_chunks,
+                                             drop_piece=1)
+        assert not _dense_close(dropped, want)
+
+
+@pytest.mark.cuda
+def test_decode_kernel_refuses_a_plan_not_its_own(dev, monkeypatch):
+    """The host plans the rows' partial slots with its own chunk size
+    (decode_chunk_keys): a plan whose chunk is not the kernel's is refused
+    before launch, not run with slots the kernel would overrun."""
+    q, k, v = _dense(dev, torch.bfloat16, ((2, 4, 128), 0.3),
+                     ((2, 2, 1000, 128), 0.3), ((2, 2, 1000, 128), 1.0))
+    length = torch.tensor([1000, 17], dtype=torch.int32, device=dev)
+    PD = importlib.import_module("repro_torch.kernels.pul_decode")
+    own = PD.decode_chunk_keys
+    monkeypatch.setattr(PD, "decode_chunk_keys",
+                        lambda hd, itemsize, G=2: 2 * own(hd, itemsize, G))
+    before = PA.LAUNCHES["k6"]
+    with pytest.raises(RuntimeError, match="pul_decode_attention"):
+        pul_decode_attention(q, k, v, length)
+    assert PA.LAUNCHES["k6"] == before
 
 
 @pytest.mark.parametrize("case", sorted(DECODE_CASES))

@@ -117,6 +117,41 @@ def test_filter_plain_matches_reference_kernel_64_row_blocks(
                  *_cfgs(4, unload_distance=unload_distance), threshold=0.0)
 
 
+@pytest.mark.parametrize("unload_distance", [0, 1])
+@pytest.mark.parametrize("materialize", [False, True])
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_filter_plain_matches_reference_kernel_in_the_table_type(
+        dtype, materialize, unload_distance):
+    """bf16 and f16 tables: the reference's kernel compares in the table's
+    type, the threshold 0.3 rounded to it; column 0 planted at that rounded
+    value and one ulp either side. Bitwise, in the table's type."""
+    jt, tt = {"bf16": (jnp.bfloat16, torch.bfloat16),
+              "f16": (jnp.float16, torch.float16)}[dtype]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((512, 64), dtype=np.float32)
+                         * 0.5).to(tt)
+    thr = torch.tensor(0.3, dtype=tt)
+    x[::7, 0] = thr
+    x[3::11, 0] = torch.nextafter(thr, torch.tensor(1.0, dtype=tt))
+    x[5::13, 0] = torch.nextafter(thr, torch.tensor(0.0, dtype=tt))
+    rcfg, pcfg = _cfgs(4, unload_distance=unload_distance)
+    want = np.asarray(ref_filter(jnp.asarray(x.float().numpy()).astype(jt),
+                                 0.3, cfg=rcfg, rows_per_block=128,
+                                 materialize=materialize))
+    got = pul_filter(x, 0.3, cfg=pcfg, rows_per_block=128,
+                     materialize=materialize)
+    assert got.dtype == (tt if materialize else torch.uint32)
+    if materialize:
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      want.view(np.int16))
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    kept = x[:, 0] > thr
+    ties = x[:, 0] == thr
+    assert 0 < int(kept.sum()) < 512 and bool(ties.any())
+    assert not bool(kept[ties].any())
+
+
 def test_filter_bit_order_is_little_endian():
     x = np.zeros((64, 4), np.float32)
     x[[0, 3, 31, 32, 63], 0] = 1.0
@@ -200,24 +235,86 @@ def test_split_runs_cover_the_stream(n, distance, pes):
 
 
 def test_filter_plan_at_the_smoke_shapes():
+    """Bit-vector slots hold the first 64 bytes of each row, the DRAM fetch
+    unit that holds column 0 (the whole 64-byte row here, 8 KB at 128 rows),
+    and their mbarrier; materialize slots the whole row block; 64-row
+    blocks' 8 bytes of words leave by lane stores."""
     for ud in (0, 1):
         bv = filter_ring_plan(PULConfig(unload_distance=ud), rows=128,
                               width=16, materialize=False)
         assert (bv.uslots, bv.unload_distance) == (ud + 1, ud)
-        assert bv.smem_bytes == bv.slots * 8192 + bv.uslots * 16
+        assert (bv.slot_bytes, bv.box_rows, bv.tile_bytes) == (
+            128 * 64 + 8, 128, 64)
+        assert bv.smem_bytes == bv.slots * 8200 + bv.uslots * 16
         mat = filter_ring_plan(PULConfig(unload_distance=ud), rows=128,
                                width=16, materialize=True)
         assert mat.smem_bytes == mat.slots * 8192 + (ud + 1) * 8192
+        assert (mat.slot_bytes, mat.box_rows, mat.tile_bytes) == (8192, 0, 0)
         # 64-row blocks: 8 bytes of words, below the 16-byte bulk copy
         small = filter_ring_plan(PULConfig(unload_distance=ud), rows=64,
                                  width=32, materialize=False)
-        assert small.uslots == 0 and small.smem_bytes == small.slots * 8192
+        assert small.uslots == 0 and small.smem_bytes == small.slots * 4104
     for d, strategy in SWEEP:
         plan = filter_ring_plan(PULConfig(distance=d, strategy=strategy),
                                 rows=128, width=16, materialize=True)
         assert plan.smem_bytes <= SMEM_LIMIT_BYTES and plan.distance >= 1
+        bv = filter_ring_plan(PULConfig(distance=d, strategy=strategy),
+                              rows=128, width=4, materialize=False)
+        assert bv.distance == d        # 2 KB slots: nothing clamps
+        assert bv.smem_bytes <= SMEM_LIMIT_BYTES
     with pytest.raises(ValueError, match="multiple of 32"):
         filter_ring_plan(PULConfig(), rows=48, width=16, materialize=False)
+
+
+@pytest.mark.parametrize("rows,box_rows", [(32, 32), (64, 64), (96, 96),
+                                           (128, 128), (256, 256),
+                                           (384, 192), (512, 256),
+                                           (1024, 256)])
+def test_filter_plan_cuts_blocks_into_tma_boxes(rows, box_rows):
+    """A TMA box spans at most 256 rows: a row block is loaded as whole
+    boxes, the largest multiple of 32 that divides it."""
+    plan = filter_ring_plan(PULConfig(), rows=rows, width=16,
+                            materialize=False)
+    assert plan.box_rows == box_rows and rows % plan.box_rows == 0
+    assert plan.slot_bytes == rows * 64 + 8
+
+
+@pytest.mark.parametrize("width,itemsize", [(6, 4), (4, 2), (12, 2), (2, 4),
+                                            (7, 2)])
+def test_filter_plan_refuses_rows_of_partial_granules(width, itemsize):
+    """A tensor map's row stride and the copies move 16-byte units: rows of
+    24, 8, 24, 8 or 14 bytes raise, naming the granule."""
+    for materialize in (False, True):
+        with pytest.raises(ValueError, match="granules"):
+            filter_ring_plan(PULConfig(), rows=128, width=width,
+                             materialize=materialize, itemsize=itemsize)
+
+
+def test_filter_plan_takes_every_card_type_and_refuses_huge_tables():
+    """The tile is the first 64 bytes of a row, or the row when shorter.
+    Only the TMA 2D path (rows wider than the tile) has a tensor map, and
+    only it refuses a table of 2^31 rows or more."""
+    for width, itemsize, tile in ((16, 4, 64), (32, 2, 64), (16, 2, 32),
+                                  (8, 2, 16), (4, 4, 16), (64, 4, 64),
+                                  (20, 4, 64), (48, 2, 64)):
+        plan = filter_ring_plan(PULConfig(), rows=128, width=width,
+                                materialize=False, itemsize=itemsize,
+                                n_rows=2 ** 26)
+        assert plan.tile_bytes == tile
+        assert plan.slot_bytes == 128 * tile + 8
+        # the whole row: one bulk copy of the block; part of it: TMA boxes
+        assert plan.body == ("cp.async.bulk" if tile == width * itemsize
+                             else "cp.async.bulk.tensor")
+    assert filter_ring_plan(PULConfig(), rows=128, width=16,
+                            materialize=True).body == "cp.async"
+    with pytest.raises(ValueError, match="tensor map"):
+        filter_ring_plan(PULConfig(), rows=128, width=32, materialize=False,
+                         n_rows=2 ** 31)
+    # a 64-byte row is one bulk copy, materialize copies granules: neither
+    # addresses rows through a tensor map
+    huge = [filter_ring_plan(PULConfig(), rows=128, width=16,
+                             materialize=m, n_rows=2 ** 31) for m in (0, 1)]
+    assert [p.body for p in huge] == ["cp.async.bulk", "cp.async"]
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])
