@@ -58,26 +58,41 @@ exit code is not 0:
                      scaled_dot_product_attention's times
   9. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
-                     same script through K2 (per layer): bitwise-equal tokens
+                     same script through K2 (per layer), each decode step
+                     replayed from its captured CUDA graph, then both paths
+                     again with the step run eagerly: all four token streams
+                     bitwise equal; decode tick medians and tokens/s,
+                     captured beside eager
  10. serving-assembly -- the same model and script on the assembly path,
                      through K5 and then through plain indexing: bitwise-equal
                      tokens; one decode step's logits against K1's
  11. serving-dense -- the same model and requests on the dense ServingEngine
- 12. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
+ 12. serving-long -- the streamed prefill attention against the dense one at
+                     T = S = 4096 (qwen3 widths, within 2e-2 x max |out|);
+                     then prompts of 2100, 3000, 4000 and 500 tokens on 4
+                     slots of 4096 (buckets up to 4096), 16 new tokens each,
+                     through K1 and K2 (captured): bitwise-equal tokens, every
+                     request finished, finite logits; monolithic prefill,
+                     then 1024-token chunked prefill
+ 13. profile      -- the captured K1 step's device span and busy share, with
+                     and without torch.profiler (``profile_decode``)
+ 14. serving-mla  -- full-width deepseek-v2-236b, depth cut to 6 layers (the
                      dense layer 0 and 5 MoE layers), the same script through
-                     K3 and then K4: bitwise-equal tokens
- 13. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
+                     K3 and then K4, captured and eager: bitwise-equal tokens
+ 15. serving-mla-assembly -- deepseek on the assembly path (K5 at F = 3,456),
                      as in phase 10, one decode step against K3's
- 14. summary      -- one JSON line listing the kernels, with the body each
+ 16. serving-mla-long, profile -- phases 12 (without the attention check)
+                     and 13 for deepseek through K3/K4
+ 17. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 15. last line: {"ok": true, "device": {...}}
+ 18. last line: {"ok": true, "device": {...}}
 
-Where a decode tick's time goes (device busy share, top kernels) is a
-one-off measurement, not a phase:
+Where a decode tick's time goes on another path (device busy share, top
+kernels) is a one-off measurement:
 
-    python3 -c "import chip_smoke; chip_smoke.profile_decode()"
-    python3 -c "import chip_smoke; chip_smoke.profile_decode('deepseek-v2-236b')"
+    python3 -c "import chip_smoke; chip_smoke.profile_decode(path='sweep-eager')"
+    python3 -c "import chip_smoke; chip_smoke.profile_decode('deepseek-v2-236b', 'sweep-eager')"
     python3 -c "import chip_smoke; chip_smoke.profile_decode(path='assembly')"
 
 and so is the microbenchmarks' sweep with extra ring slots, which cap the
@@ -1392,11 +1407,14 @@ def phase_paper(table, device="cuda"):
 class _CheckedEngine(PagedServingEngine):
     """The engine with every emitted logit row checked for finiteness, each
     token's top-2 logit gap recorded, and the logits of decode steps kept
-    (by request, the last step's)."""
+    (by request, the last step's). ``check_s`` sums the host time the
+    checks take, which the tick times below leave out: they time the
+    engine, not the smoke."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         self.gaps, self.decode_logits, self._decoding = {}, {}, False
+        self.check_s = 0.0
 
     def _decode_step(self):
         self._decoding = True
@@ -1406,15 +1424,26 @@ class _CheckedEngine(PagedServingEngine):
             self._decoding = False
 
     def _emit_token(self, slot, logits):
+        t = time.perf_counter()
         if not np.isfinite(logits).all():
             raise AssertionError(f"non-finite logits for slot {slot}")
         rid = self.slot_req[slot].rid
-        top = np.sort(logits)[-2:]
+        i = int(np.argmax(logits))
+        second = max(logits[:i].max(initial=-np.inf),
+                     logits[i + 1:].max(initial=-np.inf))
         self.gaps.setdefault(rid, []).append(
-            (float(top[1] - top[0]), float(np.abs(logits).max())))
+            (float(logits[i] - second), float(np.abs(logits).max())))
         if self._decoding:
-            self.decode_logits[rid] = logits
+            self.decode_logits[rid] = logits.copy()
+        self.check_s += time.perf_counter() - t
         super()._emit_token(slot, logits)
+
+
+def _tick_ms(eng):
+    """One engine tick's host time in ms, the smoke's checks left out."""
+    t, c = time.perf_counter(), eng.check_s
+    eng.step()                  # ends in a device-to-host copy of the logits
+    return (time.perf_counter() - t - (eng.check_s - c)) * 1e3
 
 
 def _requests(vocab):
@@ -1434,10 +1463,15 @@ def _sync(device):
 
 
 #: the paged engine's decode paths: the kernel-true sweep (K1; K3 for MLA)
-#: and per-layer (K2; K4) paths, and assembly through K5 or plain indexing
+#: and per-layer (K2; K4) paths, each replayed from its captured CUDA graph
+#: or run eagerly, and assembly through K5 or plain indexing
 PATHS = {
     "sweep": dict(use_paged_kernel=True, sweep_decode=True),
     "per-layer": dict(use_paged_kernel=True, sweep_decode=False),
+    "sweep-eager": dict(use_paged_kernel=True, sweep_decode=True,
+                        capture_decode=False),
+    "per-layer-eager": dict(use_paged_kernel=True, sweep_decode=False,
+                            capture_decode=False),
     "assembly": dict(use_paged_kernel=False, use_pallas_gather=True),
     "assembly-plain": dict(use_paged_kernel=False, use_pallas_gather=False),
 }
@@ -1454,7 +1488,8 @@ def _path_kernel(cfg, path):
     mla = cfg.attn_type == "mla"
     return {"sweep": ("k3" if mla else "k1", cfg.num_layers),
             "per-layer": ("k4" if mla else "k2", cfg.num_layers),
-            "assembly": ("k5", 1), "assembly-plain": (None, 0)}[path]
+            "assembly": ("k5", 1),
+            "assembly-plain": (None, 0)}[path.removesuffix("-eager")]
 
 
 def warm_up(cfg, params, device="cuda", paths=("sweep", "per-layer")):
@@ -1488,10 +1523,9 @@ def phase_serving(cfg, params, *, path, device="cuda"):
 
     def step():
         n = eng.metrics.prefills
-        t = time.perf_counter()
-        eng.step()              # ends in a device-to-host copy of the logits
+        ms = _tick_ms(eng)
         if eng.metrics.prefills == n:
-            decode_ms.append((time.perf_counter() - t) * 1e3)
+            decode_ms.append(ms)
 
     for k in PA.LAUNCHES:
         PA.LAUNCHES[k] = 0
@@ -1508,7 +1542,7 @@ def phase_serving(cfg, params, *, path, device="cuda"):
         step()
     out = {rid: r.out_tokens for rid, r in eng.requests.items()}
     _sync(device)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - eng.check_s
     launches = dict(PA.LAUNCHES)
     m, pm = eng.metrics, eng.pool.metrics
     pm.validate()
@@ -1546,6 +1580,103 @@ def phase_serving(cfg, params, *, path, device="cuda"):
     return out, stats, gaps
 
 
+#: the long-prompt phases: 4 slots of 4096 tokens on 16-token pages, buckets
+#: past 2 * KV_BLOCK = 2048, three prompts that cross 2048 tokens beside a
+#: short one, 16 new tokens each; monolithic, then 1024-token chunked prefill
+LONG_SLOTS, LONG_SEQ, LONG_BUCKETS = 4, 4096, (512, 1024, 2048, 4096)
+LONG_PROMPTS, LONG_NEW, LONG_CHUNK = (2100, 3000, 4000, 500), 16, 1024
+
+
+def _streamed_vs_dense(device="cuda"):
+    """The streamed prefill attention (online softmax over 1024-key blocks)
+    against the dense one at qwen3 widths, T = S = 4096, bf16, within 2e-2
+    x max |out| (the CPU model tests' bound); both are plain torch."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v = (torch.randn((1, LONG_SEQ, n, HD), generator=gen,
+                           device=device).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    kw = dict(softcap=None, scale=HD ** -0.5)
+    mask = layers._causal_mask(LONG_SEQ, LONG_SEQ, window=None, device=device)
+    dense = layers._attend(q, k, v, mask=mask, **kw).float()
+    streamed = layers._attend_chunked(q, k, v, window=None, **kw).float()
+    err = float((streamed - dense).abs().max())
+    limit = 2e-2 * float(dense.abs().max())
+    if not err <= limit:
+        raise AssertionError(f"streamed prefill attention differs from the "
+                             f"dense one by {err} > {limit}")
+    stats = {"T": LONG_SEQ, "H": H, "K": KV, "hd": HD, "max_abs_err": err,
+             "limit": limit,
+             "streamed_ms": _time_ms(lambda: layers._attend_chunked(
+                 q, k, v, window=None, **kw), reps=5, warmup=1),
+             "dense_ms": _time_ms(lambda: layers._attend(
+                 q, k, v, mask=mask, **kw), reps=5, warmup=1)}
+    print("[serving-long] streamed vs dense prefill attention "
+          + json.dumps(stats))
+
+
+def _serve_long(cfg, params, path, chunk, device):
+    """The long-prompt script on one kernel-true path; returns (tokens by
+    request, stats)."""
+    key, per_step = _path_kernel(cfg, path)
+    eng = _CheckedEngine(cfg, params, PagedEngineConfig(
+        batch_slots=LONG_SLOTS, max_seq=LONG_SEQ, page_tokens=P,
+        prefill_buckets=LONG_BUCKETS, prefill_chunk_tokens=chunk,
+        device=device, **PATHS[path]))
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(LONG_PROMPTS):
+        eng.submit(Request(rid=i, max_new_tokens=LONG_NEW,
+                           prompt=rng.integers(1, cfg.vocab_size, n).tolist()))
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    _sync(device)
+    t0 = time.perf_counter()
+    out = eng.run()
+    _sync(device)
+    wall = time.perf_counter() - t0 - eng.check_s
+    launches, m = dict(PA.LAUNCHES), eng.metrics
+    if sorted(out) != list(range(len(LONG_PROMPTS))) or any(
+            len(v) != LONG_NEW for v in out.values()):
+        raise AssertionError(f"long prompts on {path}: not every request "
+                             f"finished: { {k: len(v) for k, v in out.items()} }")
+    if launches[key] != per_step * m.decode_steps or any(
+            n for k, n in launches.items() if k != key):
+        raise AssertionError(f"long prompts on {path}: launches {launches}, "
+                             f"expected {per_step} x {m.decode_steps} {key}")
+    if bool(chunk) != (m.chunk_passes > 0):
+        raise AssertionError(f"{m.chunk_passes} chunk passes at "
+                             f"prefill_chunk_tokens {chunk}")
+    return out, {"path": f"{path} ({key.upper()})", "ticks": m.ticks,
+                 "prefills": m.prefills, "chunk_passes": m.chunk_passes,
+                 "decode_steps": m.decode_steps, "launches": launches[key],
+                 "wall_s": wall, "tokens_per_s": m.tokens_emitted / wall}
+
+
+def phase_serving_long(cfg, params, device="cuda"):
+    """Prompts past 2 * KV_BLOCK (2100, 3000 and 4000 tokens beside 500) on
+    a max_seq 4096 engine through the sweep kernel and the per-layer one
+    (captured): bitwise-equal tokens, every request finished, finite
+    logits; monolithic prefill at the 4096 bucket, then 1024-token chunked
+    prefill. For qwen3 first the streamed prefill attention against the
+    dense one at T = S = 4096."""
+    tag = "[serving-mla-long]" if cfg.attn_type == "mla" else "[serving-long]"
+    if cfg.attn_type != "mla":
+        _streamed_vs_dense(device)
+    for chunk in (0, LONG_CHUNK):
+        out1, s1 = _serve_long(cfg, params, "sweep", chunk, device)
+        out2, s2 = _serve_long(cfg, params, "per-layer", chunk, device)
+        if out1 != out2:
+            raise AssertionError(f"{cfg.name}: long prompts at prefill_chunk_"
+                                 f"tokens {chunk}: {s2['path']} tokens differ "
+                                 f"from the {s1['path']} tokens")
+        print(f"{tag} " + json.dumps({
+            "model": cfg.name, "prompts": LONG_PROMPTS, "new": LONG_NEW,
+            "prefill_chunk_tokens": chunk, "tokens_equal": True,
+            "runs": [s1, s2]}))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def smoke_config(arch):
     """The smoke's configuration of `arch`: full width; deepseek-v2's depth
     cut to MLA_LAYERS (the dense layer 0 and 5 MoE layers)."""
@@ -1555,15 +1686,22 @@ def smoke_config(arch):
     return cfg
 
 
-def profile_decode(arch="qwen3-1.7b", path="sweep"):
-    """One-off, not a phase of the smoke: where a decode tick's time goes.
-    torch.profiler over 4 pure decode ticks of one decode path (PATHS) at
-    the smoke configuration of `arch` (8 requests, all admitted at tick 0).
-    Prints one [profile] line: the top kernels, and the port's own kernels
+def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
+    """Where a decode tick's time goes: torch.profiler over 4 pure decode
+    ticks of one decode path (PATHS; "sweep" and "per-layer" replay the
+    captured step, "-eager" runs it eagerly) at the smoke configuration of
+    `arch` (8 requests, all admitted at tick 0), with `params` (random from
+    seed 0 unless given). The smoke runs it on the captured sweep of both
+    models. Prints one [profile] line: over 4 ticks without the profiler,
+    the wall time and the device span of the step (CUDA events around the
+    replay or the eager step) and its share of the wall time; over 4 more
+    under the profiler, the same, the device busy share (the kernels' time
+    over the ticks' wall time), the top kernels, and the port's own kernels
     (K1-K5 on this path) by name."""
     from torch.profiler import ProfilerActivity, profile
     cfg = smoke_config(arch)
-    params = init_params(cfg, seed=0, device="cuda")
+    if params is None:
+        params = init_params(cfg, seed=0, device="cuda")
     warm_up(cfg, params, paths=(path,))
     eng = _engine(cfg, params, path, "cuda")
     for r in _requests(cfg.vocab_size)[:8]:
@@ -1571,17 +1709,48 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
     for _ in range(3):
         eng.step()
     n_prefills = eng.metrics.prefills
-    ticks = 4
+    ticks = 4                   # 3 + 2 x 4 ticks: inside 24 new tokens
+    spans = []
+    run = eng._run_device_step
+
+    def timed():
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = run()
+        b.record()
+        spans.append((a, b))
+        return out
+
+    eng._run_device_step = timed
+    # first without the profiler (its tracing costs each kernel time), then
+    # the same number of ticks under it
     torch.cuda.synchronize()
+    t0, c = time.perf_counter(), eng.check_s
+    for _ in range(ticks):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0 - (eng.check_s - c)
+    kernel_true = PATHS[path]["use_paged_kernel"]
+    if len(spans) != ticks * kernel_true or (eng._captured is not None) != (
+            kernel_true and PATHS[path].get("capture_decode", True)):
+        raise AssertionError(f"{path}: {len(spans)} kernel-true steps in "
+                             f"{ticks} ticks, captured: {eng._captured}")
+    # the step's device span, on the kernel-true paths (whose device half
+    # is one call; the assembly path's is not)
+    span = (sum(a.elapsed_time(b) for a, b in spans) / ticks
+            if kernel_true else None)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0, c = time.perf_counter(), eng.check_s
         for _ in range(ticks):
             eng.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - (eng.check_s - c)
     if eng.metrics.prefills != n_prefills:
         raise AssertionError("a prefill ran inside the decode window")
+    traced_span = (sum(a.elapsed_time(b) for a, b in spans[ticks:]) / ticks
+                   if kernel_true else None)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -1605,7 +1774,13 @@ def profile_decode(arch="qwen3-1.7b", path="sweep"):
               and e.name.startswith("aten::") and e.cpu_parent is None)
     stats = {"smi": _smi("name,power.limit"), "model": cfg.name,
              "layers": cfg.num_layers, "path": path, "ticks": ticks,
+             "captured": eng._captured is not None,
+             "untraced_wall_ms_per_tick": plain_wall * 1e3 / ticks,
+             "untraced_step_device_span_ms_per_tick": span,
+             "untraced_step_span_share": (span * ticks / (plain_wall * 1e3)
+                                          if kernel_true else None),
              "wall_ms_per_tick": wall * 1e3 / ticks,
+             "step_device_span_ms_per_tick": traced_span,
              "device_busy_ms_per_tick": busy / ticks,
              "device_idle_share": 1.0 - busy / (wall * 1e3),
              "kernels_per_tick": len(kernels) / ticks,
@@ -1994,6 +2169,34 @@ def _serve_two_paths(cfg, params, first, second, device="cuda"):
     return s1, s2, out1, gaps
 
 
+def _serve_captured_and_eager(cfg, params, device="cuda"):
+    """The request script on the sweep and per-layer paths, first replayed
+    from their captured CUDA graphs (the engine's default) and then run
+    eagerly (capture_decode=False): all four token streams and
+    bytes_hot_written bitwise equal. Prints each path's decode tick median
+    and tokens/s, captured beside eager. Returns (stats of the captured
+    sweep and per-layer runs, the sweep's tokens and top-2 gaps)."""
+    s1, s2, out, gaps = _serve_two_paths(cfg, params, "sweep", "per-layer",
+                                         device)
+    e1, e2, eager_out, _ = _serve_two_paths(cfg, params, "sweep-eager",
+                                            "per-layer-eager", device)
+    tag = _tag(cfg, "sweep")
+    if eager_out != out or e1["bytes_hot_written"] != s1["bytes_hot_written"]:
+        raise AssertionError(f"{cfg.name}: the eager step's tokens differ "
+                             "from the captured step's")
+    print(f"{tag} captured tokens == eager tokens bitwise over "
+          f"{sum(len(v) for v in out.values())} tokens")
+    ticks = {}
+    for cap, eager in ((s1, e1), (s2, e2)):
+        ticks[cap["path"]] = {
+            "captured_decode_tick_ms_median": cap["decode_tick_ms_median"],
+            "eager_decode_tick_ms_median": eager["decode_tick_ms_median"],
+            "captured_tokens_per_s": cap["tokens_per_s"],
+            "eager_tokens_per_s": eager["tokens_per_s"]}
+    print(f"{tag} captured vs eager " + json.dumps(ticks))
+    return s1, s2, out, gaps
+
+
 def _one_step_logits(cfg, params, path, device):
     """A fresh engine admits the script's first 8 requests; the logits of
     its first decode step, by request."""
@@ -2114,13 +2317,14 @@ def main():
 
     cfg = smoke_config("qwen3-1.7b")
     params = init_params(cfg, seed=0, device="cuda")
-    s1, s2, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
-                                                     "per-layer")
+    s1, s2, sweep_out, sweep_gaps = _serve_captured_and_eager(cfg, params)
     stats = {"k1": s1, "k2": s2, "k10": {"launches": k10_launches},
              **{k: {"launches": n} for k, n in attn_launches.items()},
              **{k: {"launches": n} for k, n in paper_launches.items()}}
     stats["k5"], _ = phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
     phase_serving_dense(cfg, params)
+    phase_serving_long(cfg, params)
+    profile_decode(cfg.name, "sweep", params=params)
     del params                     # free qwen3 before deepseek's ~43 GB
     gc.collect()
     torch.cuda.empty_cache()
@@ -2136,10 +2340,11 @@ def main():
           f"layer 0 + {cfg.num_groups} MoE), {weights / 1e9:.2f} GB of "
           f"weights, init {time.perf_counter() - t1:.1f} s; peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    s3, s4, sweep_out, sweep_gaps = _serve_two_paths(cfg, params, "sweep",
-                                                     "per-layer")
+    s3, s4, sweep_out, sweep_gaps = _serve_captured_and_eager(cfg, params)
     stats.update(k3=s3, k4=s4)
     phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
+    phase_serving_long(cfg, params)
+    profile_decode(cfg.name, "sweep", params=params)
     print(f"[serving-mla] peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params

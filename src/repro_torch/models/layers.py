@@ -5,7 +5,9 @@ Plain functions on tensors over a param dict. The reference's bf16 rounding
 points are kept: projections and the head are bf16 products, norms and RoPE
 run in fp32 and round back, and prefill attention rounds q·kᵀ to bf16
 before the fp32 cast, scale and softmax, then casts the probabilities to
-bf16 (`_attend`). Prefill and dense-cache decode attention are plain torch
+bf16 (`_attend`). A prompt of more than 2 * KV_BLOCK tokens streams its
+attention over KV blocks with an online softmax (`_attend_chunked`), as the
+reference does. Prefill and dense-cache decode attention are plain torch
 ops: in the reference they are jnp, not Pallas kernels. Paged decode
 attention goes through the port's CUDA kernels (``kernels.pul_attention``).
 """
@@ -21,8 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import Param
 
 NEG_INF = -2.0e38  # large finite; avoids nan from (-inf) - (-inf)
-# the reference streams prefill attention over KV blocks past 2 * KV_BLOCK
-# tokens (`_attend_chunked`); the port's buckets stay below it
+# KV-block length of the streamed prefill attention (`_attend_chunked`),
+# which prompts of more than 2 * KV_BLOCK tokens take, as in the reference
 KV_BLOCK = 1024
 
 
@@ -122,6 +124,52 @@ def _attend(q, k, v, *, mask, softcap: Optional[float], scale: float):
     return out.reshape(B, T, H, hd)
 
 
+def _attend_chunked(q, k, v, *, softcap: Optional[float], scale: float,
+                    window: Optional[int], kv_block: int = KV_BLOCK):
+    """Causal GQA attention streamed over KV blocks with an online softmax
+    (the reference's ``lax.scan``, here a Python loop over the blocks).
+
+    q: (B, T, H, hd), k: (B, S, K, hd), v: (B, S, K, vd) with T == S; vd
+    may differ from hd (MLA). The reference's rounding points: q·kᵀ is a
+    bf16 product cast to fp32 and scaled, the softcap comes before the
+    mask, the softmax runs in fp32 and p stays fp32 in the p·v product (JAX
+    promotes v there), and the result is cast back to v's type. Peak memory
+    is O(T * kv_block) per head, never (T, S); the block's logits are
+    updated in place, which rounds as the out-of-place ops do."""
+    B, T, H, hd = q.shape
+    S, K, vd = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // K
+    nb = -(-S // kv_block)
+    pad = nb * kv_block - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, T, K, G, hd)
+    iq = torch.arange(T, device=q.device)[:, None]        # absolute = iq (T == S)
+    m = torch.full((B, K, G, T), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, K, G, T), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, T, vd), dtype=torch.float32, device=q.device)
+    for off in range(0, nb * kv_block, kv_block):
+        kc, vc = k[:, off:off + kv_block], v[:, off:off + kv_block]
+        logits = torch.einsum("btkgh,bskh->bkgts", qg, kc).float().mul_(scale)
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        jk = off + torch.arange(kv_block, device=q.device)[None, :]
+        msk = (jk <= iq) & (jk < S)
+        if window is not None:
+            msk &= jk > iq - window
+        logits.masked_fill_(~msk, NEG_INF)
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        corr = torch.exp(m - new_m)
+        p = logits.sub_(new_m[..., None]).exp_()
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgts,bskh->bkgth", p,
+                                                   vc.float())
+        m = new_m
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, vd).to(v.dtype)
+
+
 def _causal_mask(tq: int, tk: int, *, window: Optional[int], device):
     iq = torch.arange(tq, device=device)[:, None]
     jk = torch.arange(tk, device=device)[None, :]
@@ -207,12 +255,12 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         new_cache = {"k": kc, "v": vc, "idx": idx + 1}
     elif kind == "prefill":
         if T > 2 * KV_BLOCK:
-            raise NotImplementedError(
-                f"prefill of {T} tokens needs the streamed (chunked) "
-                "attention, not ported yet")
-        mask = _causal_mask(T, T, window=None, device=x.device)
-        out = _attend(q, k, v, mask=mask, softcap=cfg.attn_softcap,
-                      scale=scale)
+            out = _attend_chunked(q, k, v, softcap=cfg.attn_softcap,
+                                  scale=scale, window=None)
+        else:
+            mask = _causal_mask(T, T, window=None, device=x.device)
+            out = _attend(q, k, v, mask=mask, softcap=cfg.attn_softcap,
+                          scale=scale)
         target = max_seq or T
         kc, vc = k, v
         if T > target:
@@ -267,7 +315,9 @@ def embedding_params(cfg: ModelConfig) -> Dict[str, Any]:
 def embed_apply(p, tokens, *, cfg: ModelConfig):
     x = p["table"][tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        # a device scalar: no host tensor enters a captured decode step
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x
 
 

@@ -11,9 +11,10 @@ layer). The cache holds kv_lora + rope = 576 features per token.
 
 The dense ``kind="decode"`` branch (the assembly path and the dense
 ``ServingEngine``) runs the same absorbed attention in plain torch over a
-dense ``(B, S, kvr)`` / ``(B, S, dr)`` cache, as the reference's jnp. Not
-ported here: prefill past 2 * KV_BLOCK tokens (the reference's streamed
-``_attend_chunked``); it raises.
+dense ``(B, S, kvr)`` / ``(B, S, dr)`` cache, as the reference's jnp. A
+prompt of more than 2 * KV_BLOCK tokens streams its prefill attention over KV
+blocks (``layers._attend_chunked``, v's head dim dv beside q's dn + dr), as
+the reference does.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models.layers import (
-    KV_BLOCK,
     NEG_INF,
     PagedSweep,
     rms_norm,
@@ -115,22 +116,23 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
             new_cache = {"c_kv": c_new, "k_rope": r_new, "idx": cache["idx"] + 1}
         out = torch.einsum("bhr,rhv->bhv", o_c, wkv_b_v)[:, None]
     elif kind == "prefill":
-        if T > 2 * KV_BLOCK:
-            raise NotImplementedError(
-                f"prefill of {T} tokens needs the streamed (chunked) "
-                "attention, not ported yet")
         c_kv, k_rope = _compress_kv(p, x, cfg, positions)
         kv = torch.einsum("btr,rhk->bthk", c_kv, p["wkv_b"])
         k_nope, v = kv[..., :dn], kv[..., dn:]
         H = k_nope.shape[2]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        logits = torch.einsum("bthk,bshk->bhts", q, k).float() * scale
-        iq = torch.arange(T, device=x.device)
-        mask = (iq[:, None] >= iq[None, :])[None, None]
-        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("bhts,bshv->bthv", probs, v)
+        if T > 2 * layers.KV_BLOCK:
+            out = layers._attend_chunked(q, k, v, softcap=None, scale=scale,
+                                         window=None)
+        else:
+            logits = torch.einsum("bthk,bshk->bhts", q, k).float() * scale
+            iq = torch.arange(T, device=x.device)
+            mask = (iq[:, None] >= iq[None, :])[None, None]
+            logits = torch.where(mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+            probs = torch.softmax(logits, dim=-1).to(v.dtype)
+            out = torch.einsum("bhts,bshv->bthv", probs, v)
         target = max_seq or T
         if T > target:
             raise ValueError(f"prompt of {T} tokens exceeds max_seq {target}")

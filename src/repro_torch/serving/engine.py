@@ -43,7 +43,20 @@ Scheduling is policy-driven (``fcfs`` | ``priority`` | ``slo-edf``); the
 latter two preempt running requests, whose private pages spill to the cold
 tier (host memory) and come back through planned restores on readmission.
 Chunked prefill (``prefill_chunk_tokens > 0``) fills long prompts one
-page-aligned chunk per tick, interleaved with decode.
+page-aligned chunk per tick, interleaved with decode. Prompts of more than
+2 * KV_BLOCK = 2048 tokens (a bucket past 2048, monolithic or a chunk pass
+over the prefix so far) stream their prefill attention over KV blocks
+(``models.layers._attend_chunked``), as the reference does.
+
+On the card the kernel-true decode step (sweep or per layer) is one CUDA
+graph (``serving.capture``), the counterpart of the reference's ``jax.jit``
+of the step: each tick the host half (admission, page residency, the page
+table, lengths, commit frames and offsets) fills one int32 buffer, which
+one copy moves into a fixed device buffer; the device half reads only that
+buffer, the weights and the planes. It is captured at the engine's first
+decode step and replayed every tick; ``capture_decode=False`` runs the same
+device half eagerly (the counterpart of ``jax.disable_jit``), as the CPU
+always does. The assembly path stays eager.
 
 Not ported yet (asking for it raises ``NotImplementedError``):
 ``shadow_check``.
@@ -71,6 +84,7 @@ from repro_torch.core.pul import (
 )
 from repro_torch.kernels.pul_gather import pul_page_gather
 from repro_torch.models import transformer as T
+from repro_torch.models.module import flatten
 from repro_torch.models.zoo import Model
 from repro_torch.obs.metrics import (
     MetricsRegistry,
@@ -78,6 +92,7 @@ from repro_torch.obs.metrics import (
     economics_into_registry,
 )
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
+from repro_torch.serving.capture import CapturedStep
 from repro_torch.serving.kv_pages import (
     KVPagePool,
     PackedKVLayout,
@@ -243,6 +258,9 @@ class PagedEngineConfig:
     sample_seed: int = 0            # rng seed for greedy=False sampling
     shadow_check: bool = False      # not ported (raises)
     device: str = "cuda"            # planes, weights and kernels
+    # kernel-true decode on the card: replay the step as one captured CUDA
+    # graph (False: run it eagerly, the reference under jax.disable_jit)
+    capture_decode: bool = True
     # memory tiers and PE of the restore planner (H100 by default)
     fast_tier: MemoryTier = H100_HBM
     slow_tier: MemoryTier = H100_PINNED_HOST
@@ -342,6 +360,15 @@ class PagedServingEngine:
         # first-token logits per fully page-aligned shared prompt, keyed
         # (bucket, prompt tuple); bounded LRU
         self._prompt_logits: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+        # the decode step's inputs: filled on the host, one copy a tick into
+        # a fixed device buffer whose views the device half reads
+        n = self.n_pages_per_slot
+        self._step_host = np.zeros(B * (n + 5), np.int32)
+        self._step_dev = torch.zeros(B * (n + 5), dtype=torch.int32,
+                                     device=self.device)
+        self._host_batch = self._step_views(self._step_host)
+        self._batch = self._step_views(self._step_dev)
+        self._captured: Optional[CapturedStep] = None
 
     # ------------------------------------------------------------------ #
     def submit(self, req: Request):
@@ -691,63 +718,122 @@ class PagedServingEngine:
                 self.slot_pages[i].append(pid)
                 working.add(pid)
 
+    def _step_views(self, buf):
+        """The step buffer's fields, views of `buf`: page_table (B, n_pages)
+        first (16-byte aligned for the kernels), then lengths, frames,
+        offsets, pos0 (B,) and tokens (B, 1)."""
+        B, n = self.cfg.batch_slots, self.n_pages_per_slot
+        views = {"page_table": buf[:B * n].reshape(B, n)}
+        for i, key in enumerate(("lengths", "frames", "offsets", "pos0",
+                                 "tokens")):
+            views[key] = buf[B * (n + i):B * (n + i + 1)]
+        views["tokens"] = views["tokens"].reshape(B, 1)
+        return views
+
+    def step_inputs(self) -> List[torch.Tensor]:
+        """What the decode step's device half reads: the weights, the
+        planes and the step buffer (whose addresses a captured step keeps)."""
+        return [t for _, t in flatten(self.params)] + [
+            *self.pool.planes.values(), self._step_dev]
+
+    def _device_step(self):
+        """The kernel-true decode step's device half: (logits (B, V), the
+        token's packed (B, F) rows for the per-layer path to commit, or None
+        on the sweep, whose kernels commit in place)."""
+        if self.cfg.sweep_decode:
+            logits, _ = self.model.paged_decode_step(
+                self._batch, planes=self.pool.planes,
+                pul_distance=self.pul_distance)
+            return logits, None
+        logits, new = self.model.paged_decode_step(
+            self._batch, caches=self.layout.page_view_tree(self.pool.planes),
+            pul_distance=self.pul_distance)
+        return logits, self.layout.token_rows(new)
+
+    def _fill_step(self, live: List[int]):
+        """The host half: the step buffer filled for the `live` slots (the
+        TRASH sink and ZERO_FRAME pages at length 0 for every other slot)
+        and copied to the device. Returns the commit (frames, offsets)."""
+        P = self.cfg.page_tokens
+        h = self._host_batch
+        h["page_table"].fill(ZERO_FRAME)
+        h["frames"].fill(TRASH_FRAME)
+        for key in ("lengths", "offsets", "tokens", "pos0"):
+            h[key].fill(0)
+        for i in live:
+            pos = int(self.slot_len[i])
+            pids = self.slot_pages[i]
+            h["tokens"][i] = self.slot_req[i].out_tokens[-1]
+            h["pos0"][i] = h["lengths"][i] = pos
+            h["frames"][i] = self.pool.pages[pids[pos // P]].frame
+            h["offsets"][i] = pos % P
+            h["page_table"][i, :len(pids)] = self.pool.frames_of(pids)
+        self._step_dev.copy_(torch.from_numpy(self._step_host))
+        return h["frames"].copy(), h["offsets"].copy()
+
+    def _ensure_captured(self):
+        """On the card, capture the device half at the engine's first decode
+        step, over dummy inputs that commit nothing (every slot writes to
+        TRASH_FRAME)."""
+        if (self._captured is not None or self.device.type != "cuda"
+                or not self.cfg.capture_decode):
+            return
+        self._fill_step([])
+        self._captured = CapturedStep(
+            self._device_step, inputs=self.step_inputs(),
+            planes=self.pool.planes,
+            what="sweep" if self.cfg.sweep_decode else "per-layer")
+
+    def _run_device_step(self):
+        """The device half: replayed from its CUDA graph when captured, else
+        run eagerly."""
+        if self._captured is None:
+            return self._device_step()
+        return self._captured.replay(self.pool.planes)
+
     def _decode_step(self):
         live = self._live_slots()
         if not live:
             return
-        B, P = self.cfg.batch_slots, self.cfg.page_tokens
         self._ensure_tail_pages()
         needed = sorted({pid for i in live for pid in self.slot_pages[i]})
         faults = self.pool.ensure_hot(needed)
-
-        toks = np.zeros((B, 1), np.int64)
-        pos0 = np.zeros((B,), np.int64)
-        lengths = np.zeros((B,), np.int32)
-        # tail-page commit coordinates (TRASH sink for slots not decoding)
-        frames = np.full((B,), TRASH_FRAME, np.int32)
-        offs = np.zeros((B,), np.int32)
-        for i in live:
-            pos = int(self.slot_len[i])
-            toks[i, 0] = self.slot_req[i].out_tokens[-1]
-            pos0[i] = lengths[i] = pos
-            frames[i] = self.pool.pages[self.slot_pages[i][pos // P]].frame
-            offs[i] = pos % P
-        page_table = np.full((B, self.n_pages_per_slot), ZERO_FRAME, np.int32)
-        for i in live:
-            pids = self.slot_pages[i]
-            page_table[i, :len(pids)] = self.pool.frames_of(pids)
-        dev = self.device
-        batch = {"tokens": torch.as_tensor(toks, device=dev),
-                 "pos0": torch.as_tensor(pos0, device=dev),
-                 "lengths": torch.as_tensor(lengths, device=dev),
-                 "page_table": torch.as_tensor(page_table, device=dev)}
+        if self.cfg.use_paged_kernel:
+            self._ensure_captured()
+        frames, offs = self._fill_step(live)
         if not self.cfg.use_paged_kernel:
             # assembly: dense decode over pages gathered into a fresh tree,
             # then the step's new rows written back into the tail pages
-            tree = self._assemble(batch["page_table"])
-            logits, new = self.model.decode_step(batch, tree)
+            tree = self._assemble(self._batch["page_table"])
+            logits, new = self.model.decode_step(self._batch, tree)
             rows = self.layout.pack_rows(
-                new, torch.tensor(self.slot_len, device=dev))
+                new, torch.tensor(self.slot_len, device=self.device))
             self.pool.write_rows(frames, offs, rows)
         elif self.cfg.sweep_decode:
             # account + trace the fused commit BEFORE the launch
             self.pool.note_fused_commit(frames, offs)
-            batch["frames"] = torch.as_tensor(frames, device=dev)
-            batch["offsets"] = torch.as_tensor(offs, device=dev)
-            logits, _ = self.model.paged_decode_step(
-                batch, planes=self.pool.planes, pul_distance=self.pul_distance)
+            logits, _ = self._run_device_step()
         else:
-            logits, new = self.model.paged_decode_step(
-                batch, caches=self.layout.page_view_tree(self.pool.planes),
-                pul_distance=self.pul_distance)
-            self.pool.write_rows(frames, offs, self.layout.token_rows(new))
+            logits, rows = self._run_device_step()
+            self.pool.write_rows(frames, offs, rows)
         self.metrics.decode_steps += 1
 
-        logits = logits.cpu().numpy()
+        logits = self._logits_to_host(logits)
         for i in live:
             self.slot_len[i] += 1
             self._emit_token(i, logits[i])
         return faults
+
+    def _logits_to_host(self, logits: torch.Tensor) -> np.ndarray:
+        """A decode step's (B, V) fp32 logits on the host: on the card
+        through pinned memory (PyTorch's caching host allocator), which the
+        copy fills at the link's rate where a pageable copy does not."""
+        if self.device.type != "cuda":
+            return logits.numpy()
+        host = torch.empty(logits.shape, dtype=logits.dtype, pin_memory=True)
+        host.copy_(logits, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return host.numpy()
 
     def _set_idx(self, tree: Dict[str, Any], idx: np.ndarray):
         """Every block's cache idx leaf set to the per-slot fill levels

@@ -27,7 +27,11 @@ issue orders, with its own planted faults (the last KV chunk lost, the
 softcap dropped); K6 also at every head dim and G of 1, 2, 5 and 16 with
 rows of length 0, 1 and S, and at forced segment sizes, where one
 segment's piece left out of the merge must be rejected, and a plan whose
-chunk is not the kernel's is refused.
+chunk is not the kernel's is refused. The paged engine's decode step
+captured as one CUDA graph (reduced qwen3 and deepseek-v2, sweep and per
+layer) gives the eager step's logits, tokens, planes, PoolMetrics and launch
+counts bitwise, and refuses planes reallocated behind its back and a step
+that reads the device back.
 """
 import dataclasses
 import importlib
@@ -36,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import IssueStrategy, PULConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.pul_decode import (
@@ -60,6 +65,9 @@ from repro_torch.kernels.pul_matmul import (
     pul_matmul,
 )
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref
+from repro_torch.models import init_params
+from repro_torch.serving import PagedEngineConfig, PagedServingEngine, Request
+from repro_torch.serving.capture import StepNotCapturable
 
 # the module (the package exports the function pul_attention under its name)
 PA = importlib.import_module("repro_torch.kernels.pul_attention")
@@ -1050,3 +1058,105 @@ def test_dense_launches_are_counted_and_checks_raise(dev):
             torch.zeros((1, 34, 128), dtype=torch.bfloat16, device=dev),
             k[:, :2], v[:, :2], length)
     assert {n: PA.LAUNCHES[n] - before[n] for n in before} == launched
+
+
+# ------------------------------------------------- the captured decode step
+@pytest.fixture(scope="module")
+def reduced_models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    out = {}
+    for arch in ("qwen3-1.7b", "deepseek-v2-236b"):
+        cfg = get_config(arch).reduced()
+        out[arch] = (cfg, init_params(cfg, seed=0, device="cuda"))
+    return out
+
+
+def _capture_script(models, arch, sweep, capture):
+    """Four requests over three slots with a preempt/resume through the
+    cold tier. Returns (every emitted logit row by request, the engine, the
+    launches of the run)."""
+    cfg, params = models[arch]
+    eng = PagedServingEngine(cfg, params, PagedEngineConfig(
+        batch_slots=3, max_seq=64, page_tokens=8, prefill_buckets=(8, 16, 32),
+        sweep_decode=sweep, capture_decode=capture, device="cuda"))
+    rows = {}
+    emit = eng._emit_token
+
+    def record(slot, logits):
+        rows.setdefault(eng.slot_req[slot].rid, []).append(logits.copy())
+        emit(slot, logits)
+
+    eng._emit_token = record
+    rng = np.random.default_rng(3)
+    for rid, (n, new) in enumerate(((5, 9), (13, 3), (20, 7), (9, 5))):
+        eng.submit(Request(rid=rid, prompt=rng.integers(1, 256, n).tolist(),
+                           max_new_tokens=new))
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    for _ in range(2):
+        eng.step()
+    eng.preempt(0)
+    for _ in range(2):
+        eng.step()
+    eng.resume(0)
+    eng.run()
+    torch.cuda.synchronize()
+    return rows, eng, dict(PA.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b"])
+def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
+    """The graph replays K1/K2 (K3/K4) and the model's ops as the eager
+    step runs them: every logit row, the tokens, the planes, PoolMetrics
+    and the launch counts are equal, the counts one per layer and step."""
+    got, cap, launched = _capture_script(reduced_models, arch, sweep, True)
+    want, eager, eager_launched = _capture_script(reduced_models, arch, sweep,
+                                                  False)
+    assert cap._captured is not None and eager._captured is None
+    assert sorted(got) == sorted(want) == [0, 1, 2, 3]
+    for rid in want:
+        assert len(got[rid]) == len(want[rid])
+        for g, w in zip(got[rid], want[rid]):
+            np.testing.assert_array_equal(g, w)
+    assert {r.rid: r.out_tokens for r in cap.requests.values()} == \
+        {r.rid: r.out_tokens for r in eager.requests.values()}
+    for k, plane in eager.pool.planes.items():
+        assert torch.equal(cap.pool.planes[k], plane), k
+    assert dataclasses.asdict(cap.pool.metrics) == \
+        dataclasses.asdict(eager.pool.metrics)
+    assert cap.pool.metrics.page_faults >= 1
+    assert launched == eager_launched
+    mla = reduced_models[arch][0].attn_type == "mla"
+    key = {(False, True): "k1", (False, False): "k2", (True, True): "k3",
+           (True, False): "k4"}[mla, sweep]
+    layers = reduced_models[arch][0].num_layers
+    assert launched[key] == layers * cap.metrics.decode_steps > 0
+    assert sum(launched.values()) == launched[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
+def test_captured_decode_refuses_moved_planes_and_host_reads(reduced_models,
+                                                            sweep):
+    cfg, params = reduced_models["qwen3-1.7b"]
+    engine_cfg = PagedEngineConfig(batch_slots=2, max_seq=64, page_tokens=8,
+                                   prefill_buckets=(8, 16), sweep_decode=sweep,
+                                   device="cuda")
+    eng = PagedServingEngine(cfg, params, engine_cfg)
+    eng.submit(Request(rid=0, prompt=[5] * 11, max_new_tokens=6))
+    eng.step()
+    assert eng._captured is not None
+    key = next(iter(eng.pool.planes))
+    eng.pool.planes[key] = eng.pool.planes[key].clone()
+    with pytest.raises(RuntimeError, match="reallocated"):
+        eng.step()
+    # a step that reads the device back is refused at capture, by its op
+    eng = PagedServingEngine(cfg, params, engine_cfg)
+    step = eng._device_step
+    eng._device_step = lambda: (step(), step()[0].sum().item())[0]
+    eng.submit(Request(rid=0, prompt=[5] * 11, max_new_tokens=6))
+    with pytest.raises(StepNotCapturable, match="_local_scalar_dense"):
+        eng.step()
