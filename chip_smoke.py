@@ -83,10 +83,37 @@ exit code is not 0:
                      as in phase 10, one decode step against K3's
  16. serving-mla-long, profile -- phases 12 (without the attention check)
                      and 13 for deepseek through K3/K4
- 17. summary      -- one JSON line listing the kernels, with the body each
+ 17. serving-qwen2.5, serving-gemma2, serving-gemma3 -- full-width
+                     qwen2.5-32b, gemma2-27b and gemma3-12b at full depth,
+                     random weights from seed 0, one at a time, each freed
+                     before the next: phase 9's script captured on K1 and
+                     K2, then eager on K1 (three streams bitwise equal,
+                     K1/K2 launches one per layer and decode step under
+                     replay), once on the assembly path through K5, and one
+                     decode step of the assembly path and of the dense
+                     ServingEngine within 2e-2 x max |logits| of K1's on one
+                     state (8 prompts of 512 tokens); then the profile of
+                     the captured K1 step (phase 13)
+ 18. serving-gemma3-long -- phase 12's long script on gemma3-12b (every
+                     decode position past its window of 1024), sweep ==
+                     per-layer bitwise, and the same-state step at 2048
+                     tokens (the dense engine on rings of 1024 rows)
+ 19. serving-gemma2-window -- first (before gemma2's weights load) the
+                     streamed prefill attention with window 4096 and
+                     softcap 50 at gemma2 widths, T = S = 6144, within 2e-2
+                     x max |out| of the dense one; then 2 slots of 6144,
+                     prompts of 5000, 4500 and 300 tokens (decode positions
+                     to 5015, past the window), monolithic and chunked,
+                     sweep == per-layer bitwise, the same-state step at
+                     5000 tokens
+     (kernels-served, after phase 3: K1/K2 at the three models' widths and
+     windows against the plain version, at the plan's split count and at
+     128 splits, with times and byte bounds; every phase of 17-19 prints
+     its seconds and peak allocated memory)
+ 20. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 18. last line: {"ok": true, "device": {...}}
+ 21. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes on another path (device busy share, top
 kernels) is a one-off measurement:
@@ -133,6 +160,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -159,15 +187,15 @@ from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa:
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
-    EngineConfig, PagedEngineConfig, PagedServingEngine, Request,
-    ServingEngine)
+    EngineConfig, PackedKVLayout, PagedEngineConfig, PagedServingEngine,
+    Request, ServingEngine)
 
 # the module: the package exports the function pul_attention under its name
 PA = importlib.import_module("repro_torch.kernels.pul_attention")
 
 # qwen3-1.7b widths and the serving geometry of the serving phases
 H, KV, HD, P, L = 16, 8, 128, 16, 28
-SLOTS, MAX_SEQ = 8, 1024
+SLOTS, MAX_SEQ, SERVE_BUCKETS = 8, 1024, (128, 256, 512)
 # deepseek-v2-236b widths (MLA: 128 heads, kv_lora 512, rope 64, qk 128 + 64)
 # and the smoke's one cut, depth: the dense layer 0 and 5 MoE layers
 DEEPSEEK = "deepseek-v2-236b"
@@ -323,20 +351,25 @@ def engine_distance(kv_features=2 * L * KV * HD, gqa_group=H // KV):
     return max(1, min(plan.cfg.distance, plan.cfg.fifo_depth))
 
 
-def _kernel_case(gen, dev, lengths, *, softcap=None, window=None):
+def _kernel_case(gen, dev, lengths, *, softcap=None, window=None, heads=H,
+                 kv=KV, hd=HD, layers=L, max_seq=MAX_SEQ):
+    """K1/K2 inputs: B = len(lengths) slots of max_seq tokens on P-token
+    pages in random frames of `layers`-deep planes; qwen3-1.7b's widths
+    unless given."""
     B = len(lengths)
-    n_pages = MAX_SEQ // P
+    n_pages = max_seq // P
     NF = B * n_pages + 4
-    planes_k = torch.randn((L, NF, KV, P, HD), generator=gen, device=dev,
+    planes_k = torch.randn((layers, NF, kv, P, hd), generator=gen, device=dev,
                            dtype=torch.bfloat16)
-    planes_v = torch.randn((L, NF, KV, P, HD), generator=gen, device=dev,
+    planes_v = torch.randn((layers, NF, kv, P, hd), generator=gen, device=dev,
                            dtype=torch.bfloat16)
     perm = torch.randperm(NF - 2, generator=gen, device=dev)[:B * n_pages] + 2
     pt = perm.reshape(B, n_pages).to(torch.int32)
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    q = torch.randn((B, H, HD), generator=gen, device=dev, dtype=torch.bfloat16)
-    kn = torch.randn((B, KV, HD), generator=gen, device=dev, dtype=torch.bfloat16)
-    vn = torch.randn((B, KV, HD), generator=gen, device=dev, dtype=torch.bfloat16)
+    q = torch.randn((B, heads, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kn = torch.randn((B, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    vn = torch.randn((B, kv, hd), generator=gen, device=dev, dtype=torch.bfloat16)
     frames = pt.gather(1, (lens // P).long()[:, None])[:, 0].contiguous()
     frames[lens == 0] = 1                    # an idle slot writes the TRASH frame
     offs = (lens % P).to(torch.int32)
@@ -347,22 +380,25 @@ def _kernel_case(gen, dev, lengths, *, softcap=None, window=None):
 def _bound(c):
     """Least time for the kernel's work on this card: bytes each input read
     once and each output written once over the HBM peak, against the flops
-    of the visible positions over the bf16 peak (the operands' type)."""
+    of the visible positions over the bf16 peak (the operands' type). A
+    windowed row counts only its pages inside the window."""
     lens = c["lens"].tolist()
     w = c["window"]
+    _, heads, hd = c["q"].shape
+    kv = c["kp"].shape[2]
     toks = 0
     slab_bytes = 0
     for n in lens:
         lo = max(0, n - w + 1) // P if w else 0
         pages = max(0, -(-n // P) - lo)
-        slab_bytes += pages * P * HD * 2 * 2 * KV          # K and V, per kv head
+        slab_bytes += pages * P * hd * 2 * 2 * kv          # K and V, per kv head
         toks += (n - (max(0, n - w + 1) if w else 0)) + 1
     small = sum(t.numel() * t.element_size() for t in
                 (c["q"], c["kn"], c["vn"], c["pt"], c["lens"]))
     small += c["q"].numel() * 2                             # out
     nbytes = slab_bytes + small
     t_bytes = nbytes / HBM_PEAK * 1e3
-    t_ops = 4.0 * H * HD * toks / BF16_TC_PEAK * 1e3
+    t_ops = 4.0 * heads * hd * toks / BF16_TC_PEAK * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
 
@@ -499,6 +535,98 @@ def phase_kernels():
         "k2": dict(max_abs_err=max(results["k2"]), ms=k2_ms, plain_ms=plain2_ms,
                    bound_ms=bound_ms, bound_by=bound_by, body=PA.PAGED_BODY),
     }
+
+
+#: K1/K2 at the served local/global models' widths (LOCAL_MODELS), full
+#: width: slot lengths before, at and past the window (and where its first
+#: position starts a page), on slots of the model's longest phase
+SERVED_K12 = {
+    "qwen2.5-32b": [0, 7, 16, 1000, 513, 250, 64, 999],
+    "gemma2-27b": [300, 4095, 4096, 4111, 5015, 6143],
+    "gemma3-12b": [500, 1023, 1024, 1039, 2100, 4095],
+}
+
+
+def _attention_widths(cfg):
+    """K1/K2's widths at `cfg`'s full width (heads, kv heads, head dim) and
+    its options (softcap and window, where the model has them)."""
+    opts = {k: v for k, v in (("softcap", cfg.attn_softcap),
+                              ("window", cfg.sliding_window)) if v}
+    return dict(heads=cfg.num_heads, kv=cfg.num_kv_heads,
+                hd=cfg.head_dim), opts
+
+
+def phase_kernels_served():
+    """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap 50 and
+    window 4096 and gemma3-12b's hd 256 and window 1024 (SERVED_K12):
+    within two bf16 ulps of the plain version at the plan's split count and
+    at 128 splits (where a windowed row's visible pages leave splits that
+    see none), K1 == K2 bitwise, the commit bitwise; times at the engine's
+    distance beside the plain version's and the byte bound, which counts
+    only the pages inside the window. Returns the rows by model."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    out = {}
+    for model, lengths in SERVED_K12.items():
+        widths, opts = _attention_widths(get_config(model))
+        past = LOCAL_MODELS[model]
+        widths["max_seq"] = past.geometry[1] if past else MAX_SEQ
+        c = _kernel_case(gen, dev, lengths, layers=4, **widths, **opts)
+        hd = widths["hd"]
+        cfg = PULConfig(distance=engine_distance(
+            2 * get_config(model).num_layers * widths["kv"] * hd,
+            widths["heads"] // widths["kv"]))
+        kw = dict(scale=1.0 / math.sqrt(hd), softcap=c["softcap"],
+                  window=c["window"])
+        layer = 3
+        kp0, vp0 = c["kp"].clone(), c["vp"].clone()   # the plain commit's
+        want = PA.paged_sweep_decode_attention_ref(
+            c["q"], kp0, vp0, layer, c["pt"], c["lens"], c["kn"], c["vn"],
+            c["frames"], c["offs"], **kw)
+        errs = []
+        for n_split in (None, 128):
+            kp, vp = c["kp"].clone(), c["vp"].clone()
+            out2 = PA.pul_paged_decode_attention(
+                c["q"], kp[layer], vp[layer], c["pt"], c["lens"], cfg=cfg,
+                k_new=c["kn"], v_new=c["vn"], n_split=n_split, **kw)
+            out1 = PA.pul_paged_sweep_decode_attention(
+                c["q"], kp, vp, layer, c["pt"], c["lens"], c["kn"], c["vn"],
+                c["frames"], c["offs"], cfg=cfg, n_split=n_split, **kw)
+            torch.cuda.synchronize()
+            what = f"{model} n_split={n_split or 'plan'}"
+            _check(out1, want, f"{what}: K1")
+            _check(out2, want, f"{what}: K2")
+            if not torch.equal(out1, out2):
+                raise AssertionError(f"{what}: K1 out != K2 out bitwise")
+            if not (torch.equal(kp, kp0) and torch.equal(vp, vp0)):
+                raise AssertionError(f"{what}: K1 commit differs from the "
+                                     "plain version's")
+            errs.append((out1.float() - want.float()).abs().max().item())
+            del kp, vp
+        args = (c["q"], c["kp"], c["vp"], layer, c["pt"], c["lens"], c["kn"],
+                c["vn"], c["frames"], c["offs"])
+        k1_ms = _time_ms(lambda: PA.pul_paged_sweep_decode_attention(
+            *args, cfg=cfg, **kw))
+        k2_ms = _time_ms(lambda: PA.pul_paged_decode_attention(
+            c["q"], c["kp"][layer], c["vp"][layer], c["pt"], c["lens"],
+            cfg=cfg, k_new=c["kn"], v_new=c["vn"], **kw))
+        plain_ms = _time_ms(lambda: PA.paged_sweep_decode_attention_ref(
+            *args, **kw), reps=5, warmup=1)
+        bound_ms, bound_by, nbytes = _bound(c)
+        plan = _split_plan(c, cfg)
+        row = {"model": model, "B": len(lengths), "lengths": lengths,
+               "heads": widths["heads"], "kv": widths["kv"], "hd": hd,
+               **opts, "max_abs_err": max(errs), "k1_ms": k1_ms,
+               "k2_ms": k2_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": nbytes,
+               "k1_over_bound": k1_ms / bound_ms, "n_split": plan.n_split,
+               "distance": plan.distance}
+        print("[kernels-served] " + json.dumps(row))
+        out[model] = row
+        del c, kp0, vp0, want
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -705,8 +833,10 @@ def phase_kernels_mla():
 def phase_kernels_gather():
     """K5 against its plain version, bitwise: the general gather in three
     types at three distances and both issue orders, then the page form at
-    the qwen3 and deepseek serving geometries (8 slots x 64 pages of the
-    engine's 516 frames), with planted faults, times and bounds."""
+    the serving geometry (8 slots x 64 pages of the engine's 516 frames) at
+    the page width of every served model (qwen3, deepseek and
+    LOCAL_MODELS', whose rows of 256-384 KB change the bulk plan's chunks
+    a page), with planted faults, times and bounds."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -728,8 +858,13 @@ def phase_kernels_gather():
     n_pages = MAX_SEQ // P
     NF = SLOTS * n_pages + 4            # the engine's hot frames (516)
     out = {}
-    for label, F, gqa in (("qwen3", 2 * L * KV * HD, H // KV),
-                          ("deepseek", MLA_LAYERS * (KVR + DR), 1)):
+    widths = [("qwen3", 2 * L * KV * HD, H // KV),
+              ("deepseek", MLA_LAYERS * (KVR + DR), 1)]
+    for arch in LOCAL_MODELS:
+        cfg = dataclasses.replace(smoke_config(arch), paged_kv=True)
+        widths.append((arch, PackedKVLayout(cfg, 1, P).features,
+                       cfg.num_heads // cfg.num_kv_heads))
+    for label, F, gqa in widths:
         cfg = PULConfig(distance=engine_distance(F, gqa))
         plan = gather_bulk_plan(cfg, rows_per_req=P, row_bytes=F * 2)
         store = torch.randn((NF, P, F), generator=gen, device=dev,
@@ -1478,9 +1613,9 @@ PATHS = {
 
 
 def _engine(cfg, params, path, device):
-    return _CheckedEngine(cfg, params, PagedEngineConfig(
-        batch_slots=SLOTS, max_seq=MAX_SEQ, page_tokens=P,
-        prefill_buckets=(128, 256, 512), device=device, **PATHS[path]))
+    """A checked engine at the serving geometry (SLOTS x MAX_SEQ)."""
+    return _geometry_engine(cfg, params, path, device,
+                            (SLOTS, MAX_SEQ, SERVE_BUCKETS))
 
 
 def _path_kernel(cfg, path):
@@ -1504,8 +1639,14 @@ def warm_up(cfg, params, device="cuda", paths=("sweep", "per-layer")):
     _sync(device)
 
 
+#: the serving phases' tag of each model
+TAGS = {"qwen3-1.7b": "serving", DEEPSEEK: "serving-mla",
+        "qwen2.5-32b": "serving-qwen2.5", "gemma2-27b": "serving-gemma2",
+        "gemma3-12b": "serving-gemma3"}
+
+
 def _tag(cfg, path):
-    base = "serving-mla" if cfg.attn_type == "mla" else "serving"
+    base = TAGS[cfg.name]
     return f"[{base}-assembly]" if path.startswith("assembly") else f"[{base}]"
 
 
@@ -1587,44 +1728,62 @@ LONG_SLOTS, LONG_SEQ, LONG_BUCKETS = 4, 4096, (512, 1024, 2048, 4096)
 LONG_PROMPTS, LONG_NEW, LONG_CHUNK = (2100, 3000, 4000, 500), 16, 1024
 
 
-def _streamed_vs_dense(device="cuda"):
+def _streamed_vs_dense(device="cuda", *, T=LONG_SEQ, heads=H, kv=KV, hd=HD,
+                       softcap=None, window=None, tag="[serving-long]"):
     """The streamed prefill attention (online softmax over 1024-key blocks)
-    against the dense one at qwen3 widths, T = S = 4096, bf16, within 2e-2
-    x max |out| (the CPU model tests' bound); both are plain torch."""
+    against the dense one, T = S, bf16, within 2e-2 x max |out| (the CPU
+    model tests' bound); both are plain torch. By default at qwen3 widths,
+    T = 4096, without softcap or window."""
     from repro_torch.models import layers
     gen = torch.Generator(device=device).manual_seed(0)
-    q, k, v = (torch.randn((1, LONG_SEQ, n, HD), generator=gen,
+    q, k, v = (torch.randn((1, T, n, hd), generator=gen,
                            device=device).to(torch.bfloat16)
-               for n in (H, KV, KV))
-    kw = dict(softcap=None, scale=HD ** -0.5)
-    mask = layers._causal_mask(LONG_SEQ, LONG_SEQ, window=None, device=device)
+               for n in (heads, kv, kv))
+    kw = dict(softcap=softcap, scale=hd ** -0.5)
+    mask = layers._causal_mask(T, T, window=window, device=device)
     dense = layers._attend(q, k, v, mask=mask, **kw).float()
-    streamed = layers._attend_chunked(q, k, v, window=None, **kw).float()
+    streamed = layers._attend_chunked(q, k, v, window=window, **kw).float()
     err = float((streamed - dense).abs().max())
     limit = 2e-2 * float(dense.abs().max())
+    del dense, streamed
     if not err <= limit:
         raise AssertionError(f"streamed prefill attention differs from the "
                              f"dense one by {err} > {limit}")
-    stats = {"T": LONG_SEQ, "H": H, "K": KV, "hd": HD, "max_abs_err": err,
-             "limit": limit,
+    stats = {"T": T, "H": heads, "K": kv, "hd": hd, "softcap": softcap,
+             "window": window, "max_abs_err": err, "limit": limit,
              "streamed_ms": _time_ms(lambda: layers._attend_chunked(
-                 q, k, v, window=None, **kw), reps=5, warmup=1),
+                 q, k, v, window=window, **kw), reps=5, warmup=1),
              "dense_ms": _time_ms(lambda: layers._attend(
                  q, k, v, mask=mask, **kw), reps=5, warmup=1)}
-    print("[serving-long] streamed vs dense prefill attention "
-          + json.dumps(stats))
+    print(f"{tag} streamed vs dense prefill attention " + json.dumps(stats))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
 
 
-def _serve_long(cfg, params, path, chunk, device):
-    """The long-prompt script on one kernel-true path; returns (tokens by
-    request, stats)."""
+#: (slots, max_seq, prefill buckets) of the long-prompt phases: 4 slots of
+#: 4096, and gemma2-27b's window phase, 2 slots of 6144 tokens, past its
+#: window of 4096, with prompts of 5000, 4500 and 300 tokens
+LONG = (LONG_SLOTS, LONG_SEQ, LONG_BUCKETS)
+WINDOW_GEOMETRY = (2, 6144, (512, 1024, 2048, 4096, 6144))
+WINDOW_PROMPTS = (5000, 4500, 300)
+
+
+def _geometry_engine(cfg, params, path, device, geometry, chunk=0):
+    slots, max_seq, buckets = geometry
+    return _CheckedEngine(cfg, params, PagedEngineConfig(
+        batch_slots=slots, max_seq=max_seq, page_tokens=P,
+        prefill_buckets=buckets, prefill_chunk_tokens=chunk, device=device,
+        **PATHS[path]))
+
+
+def _serve_long(cfg, params, path, chunk, device, geometry=LONG,
+                prompts=LONG_PROMPTS):
+    """The long-prompt script (`prompts`, LONG_NEW new tokens each) on one
+    kernel-true path at `geometry`; returns (tokens by request, stats)."""
     key, per_step = _path_kernel(cfg, path)
-    eng = _CheckedEngine(cfg, params, PagedEngineConfig(
-        batch_slots=LONG_SLOTS, max_seq=LONG_SEQ, page_tokens=P,
-        prefill_buckets=LONG_BUCKETS, prefill_chunk_tokens=chunk,
-        device=device, **PATHS[path]))
+    eng = _geometry_engine(cfg, params, path, device, geometry, chunk)
     rng = np.random.default_rng(1)
-    for i, n in enumerate(LONG_PROMPTS):
+    for i, n in enumerate(prompts):
         eng.submit(Request(rid=i, max_new_tokens=LONG_NEW,
                            prompt=rng.integers(1, cfg.vocab_size, n).tolist()))
     for k in PA.LAUNCHES:
@@ -1635,7 +1794,7 @@ def _serve_long(cfg, params, path, chunk, device):
     _sync(device)
     wall = time.perf_counter() - t0 - eng.check_s
     launches, m = dict(PA.LAUNCHES), eng.metrics
-    if sorted(out) != list(range(len(LONG_PROMPTS))) or any(
+    if sorted(out) != list(range(len(prompts))) or any(
             len(v) != LONG_NEW for v in out.values()):
         raise AssertionError(f"long prompts on {path}: not every request "
                              f"finished: { {k: len(v) for k, v in out.items()} }")
@@ -1652,6 +1811,29 @@ def _serve_long(cfg, params, path, chunk, device):
                  "wall_s": wall, "tokens_per_s": m.tokens_emitted / wall}
 
 
+def _long_runs(cfg, params, tag, device, geometry=LONG, prompts=LONG_PROMPTS):
+    """The long-prompt script at `geometry` through the sweep kernel and
+    the per-layer one (captured), monolithic and then 1024-token chunked
+    prefill: bitwise-equal tokens, every request finished, finite logits,
+    launches one per layer and decode step."""
+    for chunk in (0, LONG_CHUNK):
+        out1, s1 = _serve_long(cfg, params, "sweep", chunk, device, geometry,
+                               prompts)
+        out2, s2 = _serve_long(cfg, params, "per-layer", chunk, device,
+                               geometry, prompts)
+        if out1 != out2:
+            raise AssertionError(f"{cfg.name}: long prompts at prefill_chunk_"
+                                 f"tokens {chunk}: {s2['path']} tokens differ "
+                                 f"from the {s1['path']} tokens")
+        print(f"{tag} " + json.dumps({
+            "model": cfg.name, "slots": geometry[0], "max_seq": geometry[1],
+            "prompts": prompts, "new": LONG_NEW,
+            "prefill_chunk_tokens": chunk, "tokens_equal": True,
+            "runs": [s1, s2]}))
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def phase_serving_long(cfg, params, device="cuda"):
     """Prompts past 2 * KV_BLOCK (2100, 3000 and 4000 tokens beside 500) on
     a max_seq 4096 engine through the sweep kernel and the per-layer one
@@ -1662,28 +1844,39 @@ def phase_serving_long(cfg, params, device="cuda"):
     tag = "[serving-mla-long]" if cfg.attn_type == "mla" else "[serving-long]"
     if cfg.attn_type != "mla":
         _streamed_vs_dense(device)
-    for chunk in (0, LONG_CHUNK):
-        out1, s1 = _serve_long(cfg, params, "sweep", chunk, device)
-        out2, s2 = _serve_long(cfg, params, "per-layer", chunk, device)
-        if out1 != out2:
-            raise AssertionError(f"{cfg.name}: long prompts at prefill_chunk_"
-                                 f"tokens {chunk}: {s2['path']} tokens differ "
-                                 f"from the {s1['path']} tokens")
-        print(f"{tag} " + json.dumps({
-            "model": cfg.name, "prompts": LONG_PROMPTS, "new": LONG_NEW,
-            "prefill_chunk_tokens": chunk, "tokens_equal": True,
-            "runs": [s1, s2]}))
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
+    _long_runs(cfg, params, tag, device)
 
 
 def smoke_config(arch):
-    """The smoke's configuration of `arch`: full width; deepseek-v2's depth
-    cut to MLA_LAYERS (the dense layer 0 and 5 MoE layers)."""
+    """The smoke's configuration of `arch`: full width and depth;
+    deepseek-v2's depth cut to MLA_LAYERS (the dense layer 0 and 5 MoE
+    layers)."""
     cfg = get_config(arch)
     if arch == DEEPSEEK:
         cfg = dataclasses.replace(cfg, num_layers=MLA_LAYERS)
     return cfg
+
+
+def _tick_bytes(cfg, params, eng):
+    """Bytes a decode tick of `eng` must move at least, at its slots'
+    present lengths: every weight once (the embedding table only for the
+    rows the tick looks up, unless the head reads it whole as a tied
+    table), and every cached K/V row a live slot's attention sees once (a
+    local layer's within its window)."""
+    nbytes = 0
+    for path, t in flatten(params):
+        if path == "embedding/table" and not cfg.tie_embeddings:
+            nbytes += len(eng.slot_req) * t[0].numel() * t.element_size()
+        else:
+            nbytes += t.numel() * t.element_size()
+    lengths = [int(n) for n, r in zip(eng.slot_len, eng.slot_req)
+               if r is not None]
+    for e in eng.layout.entries:
+        row = e.layers * math.prod(e.feat) * eng.pool.dtype.itemsize
+        local = e.keys[1].endswith(":local") and cfg.sliding_window
+        nbytes += row * sum(min(n, cfg.sliding_window) if local else n
+                            for n in lengths)
+    return nbytes
 
 
 def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
@@ -1709,6 +1902,7 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
     for _ in range(3):
         eng.step()
     n_prefills = eng.metrics.prefills
+    bound_ms = _tick_bytes(cfg, params, eng) / HBM_PEAK * 1e3
     ticks = 4                   # 3 + 2 x 4 ticks: inside 24 new tokens
     spans = []
     run = eng._run_device_step
@@ -1775,6 +1969,7 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
     stats = {"smi": _smi("name,power.limit"), "model": cfg.name,
              "layers": cfg.num_layers, "path": path, "ticks": ticks,
              "captured": eng._captured is not None,
+             "tick_byte_bound_ms": bound_ms,
              "untraced_wall_ms_per_tick": plain_wall * 1e3 / ticks,
              "untraced_step_device_span_ms_per_tick": span,
              "untraced_step_span_share": (span * ticks / (plain_wall * 1e3)
@@ -2169,30 +2364,36 @@ def _serve_two_paths(cfg, params, first, second, device="cuda"):
     return s1, s2, out1, gaps
 
 
-def _serve_captured_and_eager(cfg, params, device="cuda"):
+def _serve_captured_and_eager(cfg, params, device="cuda",
+                              eager=("sweep", "per-layer")):
     """The request script on the sweep and per-layer paths, first replayed
-    from their captured CUDA graphs (the engine's default) and then run
-    eagerly (capture_decode=False): all four token streams and
-    bytes_hot_written bitwise equal. Prints each path's decode tick median
-    and tokens/s, captured beside eager. Returns (stats of the captured
-    sweep and per-layer runs, the sweep's tokens and top-2 gaps)."""
+    from their captured CUDA graphs (the engine's default) and then, for
+    the paths in `eager`, run eagerly (capture_decode=False): every token
+    stream and bytes_hot_written bitwise equal. Prints each path's decode
+    tick median and tokens/s, captured beside eager. Returns (stats of the
+    captured sweep and per-layer runs, the sweep's tokens and top-2
+    gaps)."""
     s1, s2, out, gaps = _serve_two_paths(cfg, params, "sweep", "per-layer",
                                          device)
-    e1, e2, eager_out, _ = _serve_two_paths(cfg, params, "sweep-eager",
-                                            "per-layer-eager", device)
     tag = _tag(cfg, "sweep")
-    if eager_out != out or e1["bytes_hot_written"] != s1["bytes_hot_written"]:
-        raise AssertionError(f"{cfg.name}: the eager step's tokens differ "
-                             "from the captured step's")
-    print(f"{tag} captured tokens == eager tokens bitwise over "
-          f"{sum(len(v) for v in out.values())} tokens")
+    warm_up(cfg, params, device, paths=tuple(f"{p}-eager" for p in eager))
     ticks = {}
-    for cap, eager in ((s1, e1), (s2, e2)):
+    for path, cap in (("sweep", s1), ("per-layer", s2)):
+        if path not in eager:
+            continue
+        eager_out, e, _ = phase_serving(cfg, params, path=f"{path}-eager",
+                                        device=device)
+        if (eager_out != out
+                or e["bytes_hot_written"] != cap["bytes_hot_written"]):
+            raise AssertionError(f"{cfg.name}: the eager {path} step's "
+                                 "tokens differ from the captured step's")
         ticks[cap["path"]] = {
             "captured_decode_tick_ms_median": cap["decode_tick_ms_median"],
-            "eager_decode_tick_ms_median": eager["decode_tick_ms_median"],
+            "eager_decode_tick_ms_median": e["decode_tick_ms_median"],
             "captured_tokens_per_s": cap["tokens_per_s"],
-            "eager_tokens_per_s": eager["tokens_per_s"]}
+            "eager_tokens_per_s": e["tokens_per_s"]}
+    print(f"{tag} captured tokens == eager tokens ({', '.join(eager)}) "
+          f"bitwise over {sum(len(v) for v in out.values())} tokens")
     print(f"{tag} captured vs eager " + json.dumps(ticks))
     return s1, s2, out, gaps
 
@@ -2229,6 +2430,14 @@ def phase_serving_assembly(cfg, params, sweep_out, sweep_gaps, device="cuda"):
     print(f"{tag} one decode step, 8 requests: max |assembly - "
           f"{_path_kernel(cfg, 'sweep')[0].upper()}| logits {err:.4e} "
           f"(limit {limit:.4e} = 2e-2 x max |logits|)")
+    _divergence(tag, sweep_out, sweep_gaps, out)
+    return s_k5, s_plain
+
+
+def _divergence(tag, sweep_out, sweep_gaps, out):
+    """Where the assembly stream first leaves the sweep's, per request, with
+    the sweep's top-2 gap there (bf16 near-ties flip under another
+    summation order)."""
     firsts = {}
     for rid, toks in sorted(sweep_out.items()):
         i = next((j for j, (a, b) in enumerate(zip(toks, out[rid]))
@@ -2239,7 +2448,6 @@ def phase_serving_assembly(cfg, params, sweep_out, sweep_gaps, device="cuda"):
     print(f"{tag} assembly vs sweep tokens: {same} of {len(firsts)} requests "
           f"identical; first divergence per request (index, the sweep's "
           f"top-2 gap there, its max |logits|): {json.dumps(firsts)}")
-    return s_k5, s_plain
 
 
 class _CheckedDense(ServingEngine):
@@ -2250,6 +2458,65 @@ class _CheckedDense(ServingEngine):
         if not np.isfinite(logits).all():
             raise AssertionError("non-finite logits")
         super()._emit(logits)
+
+
+class _LastDense(_CheckedDense):
+    """The checked dense engine keeping each slot's last emitted logits, by
+    request."""
+
+    def _emit(self, logits):
+        self.last = {r.rid: logits[i].copy()
+                     for i, r in enumerate(self.slot_req) if r is not None}
+        super()._emit(logits)
+
+
+def _same_state(cfg, params, tag, device, geometry, n_tokens):
+    """One decode step on one state three ways: every slot of `geometry`
+    admitted at once with a prompt of n_tokens (random, seed 2), prefilled
+    at one bucket and decoded once at position n_tokens, by the sweep
+    kernel (K1), by the assembly path (K5, then the dense decode, whose
+    local layers mask the window) and by the dense ServingEngine (a
+    bucket of n_tokens, so no padding; its local layers keep rings of
+    min(window, max_seq) rows). The assembly and dense logits must lie
+    within 2e-2 x max |logits| of K1's."""
+    slots, max_seq, _ = geometry
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, n_tokens).tolist()
+               for _ in range(slots)]
+    logits = {}
+    for path in ("sweep", "assembly"):
+        eng = _geometry_engine(cfg, params, path, device, geometry)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=2))
+        eng.step()               # one prefill of every slot, one decode step
+        if sorted(eng.decode_logits) != list(range(slots)):
+            raise AssertionError(f"{path}: the first tick decoded "
+                                 f"{sorted(eng.decode_logits)}")
+        logits[path] = eng.decode_logits
+        del eng
+        torch.cuda.empty_cache()
+    dense = _LastDense(cfg, params, EngineConfig(
+        batch_slots=slots, max_seq=max_seq, prefill_bucket=n_tokens,
+        device=device))
+    for i, p in enumerate(prompts):
+        dense.submit(Request(rid=i, prompt=p, max_new_tokens=2))
+    dense.step()
+    logits["dense"] = dense.last
+    del dense
+    torch.cuda.empty_cache()
+    k1 = logits["sweep"]
+    limit = 2e-2 * max(float(np.abs(v).max()) for v in k1.values())
+    errs = {path: max(float(np.abs(logits[path][r] - k1[r]).max())
+                      for r in k1) for path in ("assembly", "dense")}
+    bad = {k: v for k, v in errs.items() if not v <= limit}
+    if bad:
+        raise AssertionError(f"{cfg.name} at {n_tokens} tokens: {bad} past "
+                             f"{limit} (2e-2 x max |K1 logits|)")
+    print(f"{tag} one decode step at position {n_tokens}, {slots} slots of "
+          f"{max_seq}: max |logits - K1's|: assembly {errs['assembly']:.4e}, "
+          f"dense engine {errs['dense']:.4e} (limit {limit:.4e} = 2e-2 x max "
+          "|logits|)")
+    return errs
 
 
 def phase_serving_dense(cfg, params, device="cuda"):
@@ -2287,6 +2554,94 @@ def phase_serving_dense(cfg, params, device="cuda"):
     return stats
 
 
+def _timed(label, fn, *args, **kw):
+    """fn(*args, **kw), then one line: its seconds and the peak allocated
+    device memory while it ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    print(f"[phase] {label}: {time.perf_counter() - t0:.1f} s, peak "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+class PastWindow(NamedTuple):
+    """A model's phase past its window: its name, geometry (slots,
+    max_seq, buckets), prompt lengths, and the prompt length of its
+    same-state check."""
+    name: str
+    geometry: Tuple[int, int, Tuple[int, ...]]
+    prompts: Tuple[int, ...]
+    same_state: int
+
+
+#: the local/global and wide-GQA models served at full width, with the
+#: phase that serves past the window where the model has one: qwen2.5-32b
+#: (a group of 5, qkv bias), gemma2-27b (local/global, window 4096, softcap
+#: 50, sandwich norms: 2 slots of 6144, decode positions to 5015) and
+#: gemma3-12b (5 local : 1 global, window 1024, hd 256, local rope theta:
+#: the long script, every decode position past the window)
+LOCAL_MODELS = {
+    "qwen2.5-32b": None,
+    "gemma2-27b": PastWindow("serving-gemma2-window", WINDOW_GEOMETRY,
+                             WINDOW_PROMPTS, 5000),
+    "gemma3-12b": PastWindow("serving-gemma3-long", LONG, LONG_PROMPTS,
+                             2048),
+}
+
+
+def phase_local_model(arch, device="cuda"):
+    """One model of LOCAL_MODELS at full width, random weights from seed 0,
+    loaded alone and freed at the end: the request script on the sweep and
+    per-layer paths captured, then the sweep eagerly (three token streams
+    bitwise equal, K1/K2 launches one per layer and decode step), once on
+    the assembly path through K5, and one decode step of the assembly path
+    and of the dense ServingEngine held to K1's on one state. A model with
+    a window then serves its PastWindow phase: the streamed prefill
+    attention with the model's window and softcap held to the dense one at
+    T = S = the phase's max_seq (before the weights load), the script
+    monolithic and chunked, and the same-state check there. Then the
+    captured K1 step's profile. Every phase prints its seconds and peak
+    memory."""
+    cfg = smoke_config(arch)
+    tag = f"[{TAGS[arch]}]"
+    past = LOCAL_MODELS[arch]
+    if past:
+        _timed(f"{past.name} streamed attention", _streamed_vs_dense,
+               device, T=past.geometry[1], heads=cfg.num_heads,
+               kv=cfg.num_kv_heads, hd=cfg.head_dim, softcap=cfg.attn_softcap,
+               window=cfg.sliding_window, tag=f"[{past.name}]")
+    t1 = time.perf_counter()
+    params = _timed(f"{TAGS[arch]} init", init_params, cfg, seed=0,
+                    device=device)
+    weights = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, pattern "
+          f"{cfg.pattern}, window {cfg.sliding_window}, "
+          f"{weights / 1e9:.2f} GB of weights, init "
+          f"{time.perf_counter() - t1:.1f} s")
+    s1, s2, out, gaps = _timed(f"{TAGS[arch]} captured and eager",
+                               _serve_captured_and_eager, cfg, params, device,
+                               eager=("sweep",))
+    asm, _, _ = _timed(f"{TAGS[arch]}-assembly", phase_serving, cfg, params,
+                       path="assembly", device=device)
+    _divergence(_tag(cfg, "assembly"), out, gaps, asm)
+    _timed(f"{TAGS[arch]} same state", _same_state, cfg, params, tag, device,
+           (SLOTS, MAX_SEQ, SERVE_BUCKETS), 512)
+    if past:
+        _timed(past.name, _long_runs, cfg, params, f"[{past.name}]", device,
+               past.geometry, past.prompts)
+        _timed(f"{past.name} same state", _same_state, cfg, params,
+               f"[{past.name}]", device, past.geometry, past.same_state)
+    _timed(f"{TAGS[arch]} profile", profile_decode, arch, "sweep",
+           params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return s1, s2
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2302,6 +2657,7 @@ def main():
     phase_device()
     phase_build()
     kern = phase_kernels()
+    phase_kernels_served()
     kern.update(phase_kernels_mla())
     gather = phase_kernels_gather()
     kern["k5"] = gather["qwen3"]
@@ -2348,7 +2704,13 @@ def main():
     print(f"[serving-mla] peak allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     del params
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[done] serving-mla {time.perf_counter() - t0:.1f} s")
+
+    for arch in LOCAL_MODELS:
+        phase_local_model(arch)
+        print(f"[done] {TAGS[arch]} {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for key, name, source, replaces in (

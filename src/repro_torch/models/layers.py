@@ -7,9 +7,12 @@ run in fp32 and round back, and prefill attention rounds q·kᵀ to bf16
 before the fp32 cast, scale and softmax, then casts the probabilities to
 bf16 (`_attend`). A prompt of more than 2 * KV_BLOCK tokens streams its
 attention over KV blocks with an online softmax (`_attend_chunked`), as the
-reference does. Prefill and dense-cache decode attention are plain torch
-ops: in the reference they are jnp, not Pallas kernels. Paged decode
-attention goes through the port's CUDA kernels (``kernels.pul_attention``).
+reference does. A local layer attends within cfg.sliding_window in every
+step: the prefill's mask, the paged kernels' window, the dense decode's
+ring (or its mask on a token-indexed cache). Prefill and dense-cache
+decode attention are plain torch ops: in the reference they are jnp, not
+Pallas kernels. Paged decode attention goes through the port's CUDA
+kernels (``kernels.pul_attention``).
 """
 from __future__ import annotations
 
@@ -180,17 +183,25 @@ def _causal_mask(tq: int, tk: int, *, window: Optional[int], device):
 
 
 def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
+                    local: bool = False,
                     cache: Optional[Dict[str, Any]] = None,
                     max_seq: Optional[int] = None, paged=None):
     """Returns (y, new_cache).
 
+    A local layer (`local`) attends over the last cfg.sliding_window
+    positions (key j visible to query i when i - window < j <= i) and
+    rotates by cfg.local_rope_theta where the config sets one.
     kind="prefill": causal attention over the prompt; the cache holds k/v
-    (B, max_seq, K, hd) bf16 and idx (B,) = T.
+    (B, max_seq, K, hd) bf16 and idx (B,) = T. A local layer's cache is a
+    ring of min(window, max_seq) rows unless cfg.paged_kv: the last rows
+    of the prompt, token t at row t % rows.
     kind="decode": one token per slot over a dense cache {"k", "v":
     (B, S, K, hd), "idx": (B,) per-slot fill}; the token's K/V rows are
     written IN PLACE at row idx % S of `cache` (the port's counterpart of
     the reference's functional update), and new_cache holds the same
-    tensors with idx + 1.
+    tensors with idx + 1. On a ring the overwrite is the window; a local
+    layer's token-indexed cache (cfg.paged_kv, S > window) masks the rows
+    at or before idx - window.
     kind="paged_decode": one token per slot over KV pages. `paged` is a
     :class:`PagedSweep` (single sweep: K1 reads plane row `paged.layer` and
     commits the token in place; new_cache is None) or a (page_table,
@@ -207,10 +218,14 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    theta = cfg.rope_theta
+    if local and cfg.local_rope_theta is not None:
+        theta = cfg.local_rope_theta
     if cfg.pos_embedding == "rope":
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
     scale = 1.0 / math.sqrt(hd)
+    window = cfg.sliding_window if local else None
 
     if kind == "paged_decode":
         from repro_torch.kernels.pul_attention import (
@@ -225,20 +240,20 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                 q1, paged.plane("k"), paged.plane("v"), paged.layer,
                 paged.page_table, paged.lengths, k_new, v_new, paged.frames,
                 paged.offsets, scale=scale, softcap=cfg.attn_softcap,
-                cfg=paged.pul_cfg)
+                window=window, cfg=paged.pul_cfg)
             new_cache = None
         else:
             page_table, pul_cfg = paged
             out = pul_paged_decode_attention(
                 q1, cache["k"], cache["v"], page_table, cache["idx"],
-                scale=scale, softcap=cfg.attn_softcap, k_new=k_new,
-                v_new=v_new, cfg=pul_cfg)
+                scale=scale, softcap=cfg.attn_softcap, window=window,
+                k_new=k_new, v_new=v_new, cfg=pul_cfg)
             new_cache = {"k": k_new, "v": v_new, "idx": cache["idx"] + 1}
         out = out[:, None]
     elif kind == "decode":
         # per-slot fill levels: slot b's token goes to row idx[b] % S, and
-        # rows <= idx[b] are visible (the port's archs have only global
-        # layers, so there is no sliding-window term)
+        # rows <= idx[b] are visible; a ring (S rows of a local layer) is
+        # the window itself, a token-indexed local cache masks it
         if T != 1:
             raise ValueError("decode processes one token per step")
         idx = cache["idx"]
@@ -249,23 +264,34 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         kc[rows, write] = k[:, 0].to(kc.dtype)
         vc[rows, write] = v[:, 0].to(vc.dtype)
         jk = torch.arange(S, device=x.device)[None, :]
-        mask = (jk <= idx.long()[:, None])[:, None, None, None, :]
-        out = _attend(q, kc, vc, mask=mask, softcap=cfg.attn_softcap,
-                      scale=scale)
+        mask = jk <= idx.long()[:, None]
+        if cfg.paged_kv and window is not None and S > window:
+            mask = mask & (jk > idx.long()[:, None] - window)
+        out = _attend(q, kc, vc, mask=mask[:, None, None, None, :],
+                      softcap=cfg.attn_softcap, scale=scale)
         new_cache = {"k": kc, "v": vc, "idx": idx + 1}
     elif kind == "prefill":
         if T > 2 * KV_BLOCK:
             out = _attend_chunked(q, k, v, softcap=cfg.attn_softcap,
-                                  scale=scale, window=None)
+                                  scale=scale, window=window)
         else:
-            mask = _causal_mask(T, T, window=None, device=x.device)
+            mask = _causal_mask(T, T, window=window, device=x.device)
             out = _attend(q, k, v, mask=mask, softcap=cfg.attn_softcap,
                           scale=scale)
         target = max_seq or T
+        ring = window is not None and not cfg.paged_kv
+        if ring:
+            target = min(window, target)
         kc, vc = k, v
         if T > target:
-            raise ValueError(f"prompt of {T} tokens exceeds max_seq {target}")
-        if T < target:
+            if not ring:
+                raise ValueError(
+                    f"prompt of {T} tokens exceeds max_seq {target}")
+            # the last `target` tokens, ring-aligned (token t at row t % W)
+            o = T % target
+            kc = torch.roll(k[:, T - target:], o, dims=1)
+            vc = torch.roll(v[:, T - target:], o, dims=1)
+        elif T < target:
             kc = F.pad(k, (0, 0, 0, 0, 0, target - T))
             vc = F.pad(v, (0, 0, 0, 0, 0, target - T))
         new_cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16),

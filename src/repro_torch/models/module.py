@@ -44,9 +44,11 @@ def _std(p: Param) -> float:
     return p.scale if p.scale is not None else 1.0 / math.sqrt(max(fan, 1))
 
 
-#: leaves above this many elements draw their fp32 normals one leading-axis
-#: row at a time, so the fp32 temporary of a stacked expert tensor (5 GB per
-#: deepseek-v2 MoE layer) never exists for all layers at once
+#: leaves above this many elements draw their fp32 normals a block of
+#: leading-axis rows at a time (as many as fit this many elements, at least
+#: one), so the fp32 temporary of a stacked expert tensor (5 GB per
+#: deepseek-v2 MoE layer) never exists for all layers at once, and a wide
+#: vocabulary's table takes a few draws, not one per row
 CHUNKED_INIT_ELEMENTS = 2**30
 
 
@@ -63,9 +65,10 @@ def _init_leaf(gen: torch.Generator, p: Param, device) -> torch.Tensor:
                         device=device)
         return (x * std).to(p.dtype)
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
-    for row in out:
-        row.copy_(torch.randn(row.shape, generator=gen, dtype=torch.float32,
-                              device=device) * std)
+    rows = max(1, CHUNKED_INIT_ELEMENTS // out[0].numel())
+    for block in out.split(rows):
+        block.copy_(torch.randn(block.shape, generator=gen,
+                                dtype=torch.float32, device=device) * std)
     return out
 
 

@@ -1,17 +1,21 @@
 """Backbone of the port (``repro/models/transformer.py``): parameter and
 cache trees, prefill, the dense decode step and the paged decode step, for
-one-block layer patterns (("global",) dense GQA, or ("moe",) with MLA
-attention) and unscanned dense leading layers (deepseek-v2's layer 0).
+dense patterns of global and sliding-window local GQA layers (("global",),
+gemma2's ("local", "global"), gemma3's five local and one global), with or
+without sandwich norms, for ("moe",) with MLA attention, and for unscanned
+dense leading layers (deepseek-v2's layer 0).
 
-The reference ``lax.scan``s over stacked layer weights; here the scan is a
-Python loop over the same stacked tensors (layer g reads row g of each
-stacked weight, a view). The unscanned dense layers run first, from their
-own ``"dense"`` subtree, as in the reference. In the single-sweep decode the
-loop hands each block's plane path and layer index to the sweep kernel,
-which reads and updates that layer's row of the full planes in place — a
-dense layer's planes have layer extent 1 and are read at layer 0. In-place
-update replaces the reference's XLA input/output aliasing and buffer
-donation of the planes.
+A config's ``pattern`` forms one group; the parameter tree keeps one
+subtree per pattern entry, ``"groups"/"{i}:{kind}"``, each stacked over
+``num_groups``. The reference ``lax.scan``s over the groups; here the scan
+is a Python loop over the same stacked tensors (group g, then entry i,
+reads row g of entry i's stacked weights, a view). The unscanned dense
+layers run first, from their own ``"dense"`` subtree, as in the reference.
+In the single-sweep decode the loop hands each block's plane path and
+layer index to the sweep kernel, which reads and updates that layer's row
+of the full planes in place — a dense layer's planes have layer extent 1
+and are read at layer 0. In-place update replaces the reference's XLA
+input/output aliasing and buffer donation of the planes.
 """
 from __future__ import annotations
 
@@ -28,17 +32,17 @@ from repro_torch.models.module import stack_params
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves one-block patterns of dense GQA (("global",)) or MoE
-    (("moe",), gather dispatch) layers, with GQA or MLA attention and
-    unscanned dense leading layers; any other feature of the reference zoo
-    raises (ROADMAP, port queue)."""
+    """The port serves any pattern of dense global and local (sliding
+    window) layers, or ("moe",) (gather dispatch), with GQA or MLA
+    attention, sandwich norms and unscanned dense leading layers; any other
+    feature of the reference zoo raises (ROADMAP, port queue)."""
+    dense = set(cfg.pattern) <= {"global", "local"}
     missing = [name for name, on in (
-        ("pattern other than ('global',) or ('moe',)",
-         cfg.pattern not in (("global",), ("moe",))),
+        ("pattern other than global/local layers or ('moe',)",
+         not dense and cfg.pattern != ("moe",)),
         ("MoE einsum backend", cfg.num_experts > 0
          and cfg.moe_backend != "gather"),
         ("attention other than GQA or MLA", cfg.attn_type not in ("gqa", "mla")),
-        ("sandwich norms", cfg.sandwich_norm),
         ("sinusoidal positions", cfg.pos_embedding != "rope"),
         ("modality frontend", cfg.frontend is not None),
     ) if on]
@@ -47,30 +51,34 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported yet ({', '.join(missing)})")
 
 
-def group_key(cfg: ModelConfig) -> str:
-    """Tree key of the one scanned block ("0:global", "0:moe")."""
-    return f"0:{cfg.pattern[0]}"
+def group_keys(cfg: ModelConfig):
+    """Tree keys of the pattern's entries, in order ("0:local", "1:global")."""
+    return [f"{i}:{kind}" for i, kind in enumerate(cfg.pattern)]
 
 
 # --------------------------------------------------------------------------
 # parameter and cache trees
 # --------------------------------------------------------------------------
 def block_params(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
-    return {"norm1": L.rms_norm_params(cfg.d_model),
-            "norm2": L.rms_norm_params(cfg.d_model),
-            "attn": (MLA.mla_params(cfg) if cfg.attn_type == "mla"
-                     else L.attention_params(cfg)),
-            "mlp": MOE.moe_params(cfg) if kind == "moe" else L.mlp_params(cfg)}
+    p = {"norm1": L.rms_norm_params(cfg.d_model),
+         "norm2": L.rms_norm_params(cfg.d_model)}
+    if cfg.sandwich_norm:
+        p["post_norm1"] = L.rms_norm_params(cfg.d_model)
+        p["post_norm2"] = L.rms_norm_params(cfg.d_model)
+    p["attn"] = (MLA.mla_params(cfg) if cfg.attn_type == "mla"
+                 else L.attention_params(cfg))
+    p["mlp"] = MOE.moe_params(cfg) if kind == "moe" else L.mlp_params(cfg)
+    return p
 
 
 def model_params(cfg: ModelConfig) -> Dict[str, Any]:
     check_supported(cfg)
-    kind = cfg.pattern[0]
+    group = {key: block_params(cfg, kind)
+             for key, kind in zip(group_keys(cfg), cfg.pattern)}
     p = {
         "embedding": L.embedding_params(cfg),
         "final_norm": L.rms_norm_params(cfg.d_model),
-        "groups": stack_params({group_key(cfg): block_params(cfg, kind)},
-                               cfg.num_groups, "layers"),
+        "groups": stack_params(group, cfg.num_groups, "layers"),
     }
     if cfg.first_dense_layers:
         p["dense"] = {str(i): block_params(cfg, "dense")
@@ -78,22 +86,35 @@ def model_params(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
-def _block_cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
+def local_rows(cfg: ModelConfig, max_seq: int) -> int:
+    """Rows of a local layer's dense cache: a ring of min(window, max_seq)
+    rows (token t at row t % rows), or max_seq under ``paged_kv``, whose
+    pages map 1:1 onto token ranges (the window is then a mask term)."""
+    if cfg.paged_kv:
+        return max_seq
+    return min(cfg.sliding_window or max_seq, max_seq)
+
+
+def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int):
     if cfg.attn_type == "mla":
         return MLA.mla_cache_spec(cfg, batch, max_seq)
-    kv = ((batch, max_seq, cfg.num_kv_heads, cfg.head_dim), torch.bfloat16)
+    rows = local_rows(cfg, max_seq) if kind == "local" else max_seq
+    kv = ((batch, rows, cfg.num_kv_heads, cfg.head_dim), torch.bfloat16)
     return {"k": kv, "v": kv, "idx": ((batch,), torch.int32)}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """Decode-cache tree of (shape, dtype) leaves: the scanned block's leaves
-    stacked over layers, the dense layers' unstacked."""
+    """Decode-cache tree of (shape, dtype) leaves: each pattern entry's
+    leaves stacked over the groups, the dense layers' unstacked."""
     n = cfg.num_groups
-    block = _block_cache_spec(cfg, batch, max_seq)
-    spec = {"groups": {group_key(cfg): {
-        k: ((n, *shape), dt) for k, (shape, dt) in block.items()}}}
+    spec = {"groups": {key: {
+        k: ((n, *shape), dt)
+        for k, (shape, dt) in _block_cache_spec(cfg, kind, batch,
+                                                max_seq).items()}
+        for key, kind in zip(group_keys(cfg), cfg.pattern)}}
     if cfg.first_dense_layers:
-        spec["dense"] = {str(i): _block_cache_spec(cfg, batch, max_seq)
+        spec["dense"] = {str(i): _block_cache_spec(cfg, "dense", batch,
+                                                   max_seq)
                          for i in range(cfg.first_dense_layers)}
     return spec
 
@@ -108,16 +129,25 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
                 step_kind: str, cache=None, max_seq=None, paged=None):
     """Returns (x, new_cache)."""
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    attend = MLA.mla_apply if cfg.attn_type == "mla" else L.attention_apply
-    h, new_cache = attend(p["attn"], h, cfg=cfg, positions=positions,
-                          kind=step_kind, cache=cache, max_seq=max_seq,
-                          paged=paged)
+    if cfg.attn_type == "mla":
+        h, new_cache = MLA.mla_apply(p["attn"], h, cfg=cfg,
+                                     positions=positions, kind=step_kind,
+                                     cache=cache, max_seq=max_seq, paged=paged)
+    else:
+        h, new_cache = L.attention_apply(
+            p["attn"], h, cfg=cfg, positions=positions, kind=step_kind,
+            local=(kind == "local"), cache=cache, max_seq=max_seq,
+            paged=paged)
+    if cfg.sandwich_norm:
+        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
     x = x + h
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "moe":
         h, _ = MOE.moe_apply(p["mlp"], h, cfg=cfg)
     else:
         h = L.mlp_apply(p["mlp"], h, cfg=cfg)
+    if cfg.sandwich_norm:
+        h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
     return x + h, new_cache
 
 
@@ -127,19 +157,24 @@ def _stack(caches) -> Dict[str, torch.Tensor]:
 
 def _blocks(params, cfg: ModelConfig):
     """(prefix, layer index, kind, block params) of every layer in order:
-    the dense layers, then the scanned groups."""
+    the dense layers, then group g's pattern entries for each g, the
+    reference's scan order."""
     for i in range(cfg.first_dense_layers):
         yield ("dense", str(i)), 0, "dense", params["dense"][str(i)]
-    key = group_key(cfg)
+    entries = list(zip(group_keys(cfg), cfg.pattern))
     for g in range(cfg.num_groups):
-        yield ("groups", key), g, cfg.pattern[0], _layer(params["groups"][key], g)
+        for key, kind in entries:
+            yield ("groups", key), g, kind, _layer(params["groups"][key], g)
 
 
 def _tree(cfg: ModelConfig, per_block) -> Dict[str, Any]:
-    """A cache tree from one cache per block, in `_blocks` order: the
-    scanned blocks' caches stacked over layers."""
+    """A cache tree from one cache per block, in `_blocks` order: each
+    pattern entry's caches stacked over the groups."""
     n_dense = cfg.first_dense_layers
-    tree = {"groups": {group_key(cfg): _stack(per_block[n_dense:])}}
+    keys = group_keys(cfg)
+    scanned = per_block[n_dense:]
+    tree = {"groups": {key: _stack(scanned[i::len(keys)])
+                       for i, key in enumerate(keys)}}
     if n_dense:
         tree["dense"] = {str(i): per_block[i] for i in range(n_dense)}
     return tree
@@ -178,7 +213,7 @@ def decode_fn(params, batch, caches, *, cfg: ModelConfig):
 
     batch: tokens (B, 1), pos0 (B,) absolute position of the new token;
     caches: the tree of :func:`cache_specs` with each block's idx the slots'
-    fill levels ((L, B) stacked for the scanned block). Every layer writes
+    fill levels ((L, B) stacked for each pattern entry). Every layer writes
     the token's rows IN PLACE into `caches` at row idx % S (through views of
     the stacked leaves, so no copy of the cache is made) and attends over
     rows <= idx. Returns (logits (B, V), new caches): the same leaves, every
@@ -215,7 +250,7 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
     **Per layer** (`caches` = the layout's page-view tree, planes None):
     every layer runs K2 (K4 for MLA) over its own frames; returns (logits,
     new_caches) whose pageable leaves hold ONLY the current token's rows —
-    (L, B, ...) for the scanned block, (B, ...) for a dense layer — for the
+    (L, B, ...) for each pattern entry, (B, ...) for a dense layer — for the
     engine to commit (`KVPagePool.write_rows`).
 
     `pul_distance` is the preload distance of the in-kernel page ring (the

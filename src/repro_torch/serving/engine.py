@@ -837,7 +837,7 @@ class PagedServingEngine:
 
     def _set_idx(self, tree: Dict[str, Any], idx: np.ndarray):
         """Every block's cache idx leaf set to the per-slot fill levels
-        `idx` ((L, B) for the scanned block, (B,) for a dense layer)."""
+        `idx` ((L, B) for each pattern entry, (B,) for a dense layer)."""
         vec = torch.tensor(idx, dtype=torch.int32, device=self.device)
         for e in self.layout.entries:
             node = PackedKVLayout._get(tree, e.keys[:-1])

@@ -90,7 +90,7 @@ class _LeafEntry:
 class PackedKVLayout:
     """Mapping between a model's cache tree and its paged KV store (v2).
 
-    The scanned block's pageable leaves are stacked over layers,
+    Each pattern entry's pageable leaves are stacked over layers,
     ``(L, B, S, feat...)`` ("grouped"); an unscanned dense layer's are
     ``(B, S, feat...)``. Token t of slot b packs into row (b, t): the
     concatenation over pageable leaves (sorted by path) of that token's

@@ -66,7 +66,8 @@ from repro_torch.kernels.pul_matmul import (
 )
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref
 from repro_torch.models import init_params
-from repro_torch.serving import PagedEngineConfig, PagedServingEngine, Request
+from repro_torch.serving import (
+    PackedKVLayout, PagedEngineConfig, PagedServingEngine, Request)
 from repro_torch.serving.capture import StepNotCapturable
 
 # the module (the package exports the function pul_attention under its name)
@@ -257,6 +258,67 @@ def test_kernels_take_other_head_dims_and_groups(dev, hd, G):
     _assert_close(out1, want)
     assert torch.equal(out1, out2)
     assert torch.equal(c["kp"], kp0) and torch.equal(c["vp"], vp0)
+
+
+def _served(arch, B, n_pages, lengths):
+    """K1/K2's geometry at `arch`'s full width on 16-token pages of
+    two-layer planes: (B, H, K, hd, P, n_pages, L, lengths), and its
+    options (softcap and window, where the model has them)."""
+    cfg = get_config(arch)
+    opts = {k: v for k, v in (("softcap", cfg.attn_softcap),
+                              ("window", cfg.sliding_window)) if v}
+    return (B, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, n_pages, 2,
+            lengths), opts
+
+
+#: the served models' K1/K2 geometries. The lengths fall before, at and
+#: past the window, and where the window's first position is a page's
+#: first (length - window + 1 a multiple of P)
+SERVED = {
+    "qwen2.5-32b": _served("qwen2.5-32b", 4, 64, [0, 1, 700, 1023]),
+    "gemma2-27b": _served("gemma2-27b", 6, 384,
+                          [4000, 4095, 4096, 4111, 5015, 6143]),
+    "gemma3-12b": _served("gemma3-12b", 6, 256,
+                          [1000, 1023, 1024, 1039, 2100, 4095]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_split", [None, 1, 7, 128])
+@pytest.mark.parametrize("model", sorted(SERVED))
+def test_kernels_hold_at_the_served_geometries(dev, model, n_split):
+    """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap and
+    window of 4096 and gemma3-12b's hd 256 and window of 1024, at the
+    plan's split count and at forced ones; at 128 splits gemma3's rows (at
+    most 65 visible pages) and qwen2.5's short rows leave splits that see
+    no page, which must weigh 0 in the merge. Within the limit of the plain version, K1 == K2 bitwise,
+    the commit bitwise, and a merge that drops one split outside it."""
+    shape, kw = SERVED[model]
+    c = _case(dev, *shape, seed=len(model))
+    kp0, vp0 = c["kp"].clone(), c["vp"].clone()
+    out2 = PA.pul_paged_decode_attention(
+        c["q"], c["kp"][1], c["vp"][1], c["pt"], c["lens"], k_new=c["kn"],
+        v_new=c["vn"], n_split=n_split, **kw)
+    out1 = PA.pul_paged_sweep_decode_attention(
+        c["q"], c["kp"], c["vp"], 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], n_split=n_split, **kw)
+    torch.cuda.synchronize()
+    want = PA.paged_sweep_decode_attention_ref(
+        c["q"], kp0, vp0, 1, c["pt"], c["lens"], c["kn"], c["vn"],
+        c["frames"], c["offs"], **kw)
+    _assert_close(out1, want)
+    assert torch.equal(out1, out2)
+    assert torch.equal(c["kp"], kp0) and torch.equal(c["vp"], vp0)
+    n = n_split or PA.split_plan_for(
+        PULConfig(), tuple(c["q"].shape), tuple(c["kp"].shape),
+        c["pt"].shape[1],
+        torch.cuda.get_device_properties(dev).multi_processor_count).n_split
+    if n > 1:
+        dropped = PA.paged_decode_split_ref(
+            c["q"], kp0[1], vp0[1], c["pt"], c["lens"], n_split=n,
+            k_new=c["kn"], v_new=c["vn"], drop_split=0, **kw)
+        assert not _close(dropped, want)
+    _assert_faults_rejected(c, kp0[1], vp0[1], want, kw)
 
 
 # ---------------------------------------------------------------- MLA: K3/K4
@@ -467,10 +529,19 @@ def test_gather_kernel_matches_plain_version(dev, dtype, distance, strategy):
     assert torch.equal(got, gather_ref(table, trace))
 
 
+def _packed_width(arch):
+    """The packed KV row's width of `arch` at full depth (PackedKVLayout)."""
+    cfg = dataclasses.replace(get_config(arch), paged_kv=True)
+    return PackedKVLayout(cfg, 1, 16).features
+
+
 # (n_pages, P, F) at the serving geometries, cut to a few frames: full-width
-# qwen3-1.7b (28 layers x 2 x 8 x 128) and deepseek-v2 at six layers
-# (6 x 576, the ragged last tile)
-GATHER_CASES = {"qwen3": (6, 16, 57344), "deepseek": (9, 16, 3456)}
+# qwen3-1.7b (28 layers x 2 x 8 x 128), deepseek-v2 at six layers (6 x 576,
+# the ragged last tile) and the local/global models at full depth (rows of
+# 262,144, 376,832 and 393,216 B: 8-12 chunks of 32 KB a row)
+GATHER_CASES = {"qwen3": (6, 16, 57344), "deepseek": (9, 16, 3456),
+                **{arch: (6, 16, _packed_width(arch))
+                   for arch in ("qwen2.5-32b", "gemma2-27b", "gemma3-12b")}}
 
 
 @pytest.mark.cuda
@@ -1066,7 +1137,8 @@ def reduced_models():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     out = {}
-    for arch in ("qwen3-1.7b", "deepseek-v2-236b"):
+    for arch in ("qwen3-1.7b", "deepseek-v2-236b", "gemma2-27b",
+                 "gemma3-12b"):
         cfg = get_config(arch).reduced()
         out[arch] = (cfg, init_params(cfg, seed=0, device="cuda"))
     return out
@@ -1107,11 +1179,14 @@ def _capture_script(models, arch, sweep, capture):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
+                                  "gemma2-27b", "gemma3-12b"])
 def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
     """The graph replays K1/K2 (K3/K4) and the model's ops as the eager
     step runs them: every logit row, the tokens, the planes, PoolMetrics
-    and the launch counts are equal, the counts one per layer and step."""
+    and the launch counts are equal, the counts one per layer and step.
+    The reduced gemmas' window is 16 tokens, which request 2 (20 prompt
+    tokens, 7 new) passes, so their local layers' K1/K2 skip pages."""
     got, cap, launched = _capture_script(reduced_models, arch, sweep, True)
     want, eager, eager_launched = _capture_script(reduced_models, arch, sweep,
                                                   False)

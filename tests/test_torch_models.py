@@ -228,7 +228,7 @@ def _dense_decode_parity(pair):
              "pos0": torch.as_tensor(lens + s, dtype=torch.long)}, tcaches)
         _close(got.numpy(), want, f"dense decode step {s} logits")
     first = (["dense", "0"] if pair["cfg"].first_dense_layers
-             else ["groups", T.group_key(pair["cfg"])])
+             else ["groups", T.group_keys(pair["cfg"])[0]])
     written = np.zeros((B, S), bool)
     for b, n in enumerate(lens):
         written[b, n:n + steps] = True
@@ -258,12 +258,20 @@ def test_dense_decode_matches_reference(pair):
 
 def test_unported_archs_and_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("gemma2-27b")
+        get_config("grok-1-314b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    cfg = dataclasses.replace(get_config(ARCH).reduced(), sandwich_norm=True)
-    with pytest.raises(NotImplementedError, match="sandwich"):
-        T.model_params(cfg)
+    cfg = get_config(ARCH).reduced()
+    for change, what in ((dict(frontend="vit_stub", frontend_tokens=4),
+                          "frontend"),
+                         (dict(pos_embedding="sinusoidal"), "sinusoidal")):
+        with pytest.raises(NotImplementedError, match=what):
+            T.check_supported(dataclasses.replace(cfg, **change))
+    # local/global patterns with sandwich norms are served now
+    local = dataclasses.replace(cfg, pattern=("local", "global"),
+                                sliding_window=16, sandwich_norm=True)
+    T.check_supported(local)
+    assert "post_norm1" in T.model_params(local)["groups"]["0:local"]
 
 
 def test_cuda_default_raises_without_a_card():
