@@ -65,8 +65,24 @@ exit code is not 0:
                      captured beside eager
  10. serving-assembly -- the same model and script on the assembly path,
                      through K5 and then through plain indexing: bitwise-equal
-                     tokens; one decode step's logits against K1's
+                     tokens; one decode step's logits against K1's; the
+                     stream agrees with K1's up to the first bf16 near-tie
  11. serving-dense -- the same model and requests on the dense ServingEngine
+     serving-bench -- the port's serving benchmarks on the same params
+                     (``repro_torch.benchmarks``): serving_slo's three
+                     policies on the captured sweep K1 (contract and gate
+                     against the port's full-width baseline; ticks, TTFT
+                     p50/p99 in ticks, tokens/s and tick medians per
+                     policy), roofline --serving (gated; each tier's
+                     fraction), paged_decode (assembly through K5 and K1
+                     eager, K1 captured: tokens agree up to the first bf16
+                     near-tie, captured == eager bitwise), the slo-edf run
+                     with shadow_check six times in turns with six
+                     unchecked runs (no violation; decode tick medians side
+                     by side, with their spread and whether the two sides
+                     separate) and one planted corruption of a checked
+                     engine's trace, which must raise
+                     LifecycleViolationError
  12. serving-long -- the streamed prefill attention against the dense one at
                      T = S = 4096 (qwen3 widths, within 2e-2 x max |out|);
                      then prompts of 2100, 3000, 4000 and 500 tokens on 4
@@ -167,6 +183,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.benchmarks import common, paged_decode  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import IssueStrategy, PULConfig  # noqa: E402
 from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
@@ -196,6 +213,9 @@ PA = importlib.import_module("repro_torch.kernels.pul_attention")
 # qwen3-1.7b widths and the serving geometry of the serving phases
 H, KV, HD, P, L = 16, 8, 128, 16, 28
 SLOTS, MAX_SEQ, SERVE_BUCKETS = 8, 1024, (128, 256, 512)
+#: serving-bench: the shadow-checked slo-edf run and the unchecked one, in
+#: turns, this many of each
+SHADOW_TURNS = 6
 # deepseek-v2-236b widths (MLA: 128 heads, kv_lora 512, rope 64, qk 128 + 64)
 # and the smoke's one cut, depth: the dense layer 0 and 5 MoE layers
 DEEPSEEK = "deepseek-v2-236b"
@@ -1539,7 +1559,7 @@ def phase_paper(table, device="cuda"):
     return launches
 
 
-class _CheckedEngine(PagedServingEngine):
+class _CheckedEngine(paged_decode.GapEngine):
     """The engine with every emitted logit row checked for finiteness, each
     token's top-2 logit gap recorded, and the logits of decode steps kept
     (by request, the last step's). ``check_s`` sums the host time the
@@ -1548,8 +1568,7 @@ class _CheckedEngine(PagedServingEngine):
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        self.gaps, self.decode_logits, self._decoding = {}, {}, False
-        self.check_s = 0.0
+        self.decode_logits, self._decoding = {}, False
 
     def _decode_step(self):
         self._decoding = True
@@ -1558,27 +1577,17 @@ class _CheckedEngine(PagedServingEngine):
         finally:
             self._decoding = False
 
-    def _emit_token(self, slot, logits):
-        t = time.perf_counter()
+    def _record(self, slot, logits):
         if not np.isfinite(logits).all():
             raise AssertionError(f"non-finite logits for slot {slot}")
-        rid = self.slot_req[slot].rid
-        i = int(np.argmax(logits))
-        second = max(logits[:i].max(initial=-np.inf),
-                     logits[i + 1:].max(initial=-np.inf))
-        self.gaps.setdefault(rid, []).append(
-            (float(logits[i] - second), float(np.abs(logits).max())))
+        super()._record(slot, logits)
         if self._decoding:
-            self.decode_logits[rid] = logits.copy()
-        self.check_s += time.perf_counter() - t
-        super()._emit_token(slot, logits)
+            self.decode_logits[self.slot_req[slot].rid] = logits.copy()
 
 
 def _tick_ms(eng):
     """One engine tick's host time in ms, the smoke's checks left out."""
-    t, c = time.perf_counter(), eng.check_s
-    eng.step()                  # ends in a device-to-host copy of the logits
-    return (time.perf_counter() - t - (eng.check_s - c)) * 1e3
+    return common.tick_s(eng) * 1e3
 
 
 def _requests(vocab):
@@ -2437,17 +2446,19 @@ def phase_serving_assembly(cfg, params, sweep_out, sweep_gaps, device="cuda"):
 def _divergence(tag, sweep_out, sweep_gaps, out):
     """Where the assembly stream first leaves the sweep's, per request, with
     the sweep's top-2 gap there (bf16 near-ties flip under another
-    summation order)."""
-    firsts = {}
-    for rid, toks in sorted(sweep_out.items()):
-        i = next((j for j, (a, b) in enumerate(zip(toks, out[rid]))
-                  if a != b), None)
-        firsts[rid] = None if i is None else (
-            i, round(sweep_gaps[rid][i][0], 5), round(sweep_gaps[rid][i][1], 3))
+    summation order); fails on a divergence that is not a near-tie."""
+    firsts = paged_decode.first_divergences(sweep_out, sweep_gaps, out)
+    shown = {rid: v and (v[0], round(v[1], 5), round(v[2], 3))
+             for rid, v in firsts.items()}
     same = sum(1 for v in firsts.values() if v is None)
     print(f"{tag} assembly vs sweep tokens: {same} of {len(firsts)} requests "
           f"identical; first divergence per request (index, the sweep's "
-          f"top-2 gap there, its max |logits|): {json.dumps(firsts)}")
+          f"top-2 gap there, its max |logits|): {json.dumps(shown)}")
+    bad = paged_decode.past_near_ties(firsts)
+    if bad:
+        raise AssertionError(f"{tag} assembly left the sweep past a bf16 "
+                             f"near-tie ({paged_decode.NEAR_TIE} x max "
+                             f"|logits|): {bad}")
 
 
 class _CheckedDense(ServingEngine):
@@ -2552,6 +2563,147 @@ def phase_serving_dense(cfg, params, device="cuda"):
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     return stats
+
+
+def _launched(key, want, what):
+    """PA.LAUNCHES since it was last zeroed: `key` exactly `want` times and
+    no other paged kernel at all."""
+    got = dict(PA.LAUNCHES)
+    others = [k for k, n in got.items() if n and k != key]
+    if got.get(key, 0) != want or others:
+        raise AssertionError(f"{what}: launches {got}, expected {key} x "
+                             f"{want} and nothing else")
+    return got[key]
+
+
+def phase_serving_bench(cfg, params, device="cuda"):
+    """The port's serving benchmarks at the model's width (full-width
+    qwen3-1.7b in the smoke), through their functions on the params
+    already on the card:
+
+      * serving_slo's three policies on the captured sweep (K1): the
+        contract and the gate against the port's own baseline
+        (``benchmarks/baselines/serving.json``); ticks, TTFT p50/p99 in
+        ticks, tokens/s and the tick medians per policy;
+      * roofline --serving on the captured sweep, gated against
+        ``baselines/roofline_serving.json``, each tier's fraction;
+      * paged_decode: the assembly path (K5) and the kernel-true sweep (K1)
+        eagerly and the sweep captured; tokens agree up to the first bf16
+        near-tie, captured == eager bitwise;
+      * the serving_slo workload (slo-edf) with shadow_check on the
+        captured sweep, SHADOW_TURNS runs in turns with as many unchecked: no
+        violation, the decode tick medians side by side;
+      * one planted corruption of a shadow-checked engine's trace, which the
+        next tick must reject with LifecycleViolationError."""
+    from repro_torch.analysis import EventKind, LifecycleViolationError
+    from repro_torch.benchmarks import roofline, serving_slo
+
+    L = cfg.num_layers
+    n_params = common.n_params_of(params)
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    policies = serving_slo.run_all(cfg, params, 64, path="sweep",
+                                   device=device, n_params=n_params)
+    k1 = _launched("k1", L * sum(p["decode_steps"]
+                                 for p in policies.values()), "serving_slo")
+    gate = serving_slo.evaluate_gate(
+        policies, common.default_baseline("serving", reduced=False))
+    summary = {pol: {k: p[k] for k in (
+        "ticks", "ttft_p50_ticks", "ttft_p99_ticks", "tokens_per_sec",
+        "tick_ms_median", "decode_tick_ms_median", "decode_ticks",
+        "prefill_tick_ms_median", "prefill_ticks", "preemptions",
+        "page_faults", "evictions")} | {
+            "hp_ttft_ticks": p["high_priority"]["ttft_ticks"],
+            "hp_violations": p["high_priority"]["violations"],
+            "hot_bw_fraction": p["roofline"]["tiers"]["hot"]["bw_fraction"],
+            "cold_bw_fraction": p["roofline"]["tiers"]["cold"]["bw_fraction"]}
+        for pol, p in policies.items()}
+    print(f"[serving-bench] serving_slo (K1 launches {k1}, {L} a decode "
+          "step, under replay) " + json.dumps(summary))
+    for c in gate["checks"]:
+        print(f"[serving-bench] serving_slo gate {c['metric']}: "
+              f"{c['measured']:.6g} vs baseline {c['baseline']} (threshold "
+              f"{c['threshold']}x) [{'PASS' if c['pass'] else 'FAIL'}]")
+    failures = serving_slo.contract_failures(policies)
+    if failures or not gate["pass"]:
+        raise AssertionError(f"serving_slo: contract {failures}, gate "
+                             f"{'PASS' if gate['pass'] else 'FAIL'}")
+
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    roof = roofline.run_serving(cfg, params, path="sweep", device=device)
+    rgate = roofline.evaluate_serving_gate(
+        roof, common.default_baseline("roofline_serving", reduced=False))
+    roofline.print_serving(roof, rgate)
+    _launched("k1", L * roof["decode_steps"], "roofline --serving")
+    if not rgate["pass"]:
+        raise AssertionError("roofline --serving: gate FAIL")
+
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    decode = paged_decode.compare(cfg, params, device=device)
+    print("[serving-bench] paged_decode " + json.dumps(decode["paths"]))
+    steps = {name: p["decode_steps"] for name, p in decode["paths"].items()}
+    want = {"k5": steps["assemble-then-attend"],
+            "k1": L * (steps["kernel-true"] + steps["kernel-true (captured)"])}
+    got = {k: n for k, n in PA.LAUNCHES.items() if n}
+    if got != want:
+        raise AssertionError(f"paged_decode: launches {got}, expected {want}")
+
+    # the slo-edf run with shadow_check, in turns with the unchecked run
+    # (checked first, then unchecked first), SHADOW_TURNS of each
+    runs = {True: [], False: []}
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    for turn in range(SHADOW_TURNS):
+        for check in ((True, False) if turn % 2 == 0 else (False, True)):
+            runs[check].append(serving_slo.run_policy(
+                cfg, params, "slo-edf", 64, path="sweep", device=device,
+                n_params=n_params, shadow_check=check))
+    _launched("k1", L * sum(r["decode_steps"] for rs in runs.values()
+                            for r in rs), "shadow-checked serving_slo")
+    plain = policies["slo-edf"]
+    keys = ("ticks", "tokens_emitted", "page_faults", "evictions",
+            "high_priority")
+    if any(r[k] != plain[k] for rs in runs.values() for r in rs for k in keys):
+        raise AssertionError("a shadow-checked or repeated run's counters "
+                             "differ from the first unchecked run's")
+    ticks = {("checked" if check else "unchecked"):
+             [round(r["decode_tick_ms_median"], 4) for r in rs]
+             for check, rs in runs.items()}
+    med = {k: statistics.median(v) for k, v in ticks.items()}
+    # the gap is resolved only where the two sides do not overlap
+    if min(ticks["checked"]) > max(ticks["unchecked"]):
+        verdict = "resolved: every checked run slower than every unchecked"
+    elif max(ticks["checked"]) < min(ticks["unchecked"]):
+        verdict = "resolved: every checked run faster than every unchecked"
+    else:
+        verdict = "NOT resolved: the two sides' runs overlap"
+    spread = {k: round(max(v) - min(v), 4) for k, v in ticks.items()}
+    print(f"[serving-bench] shadow_check (slo-edf, captured sweep): 0 "
+          f"violations over {SHADOW_TURNS} x {plain['ticks']} ticks; decode "
+          f"tick medians {json.dumps(ticks)} ms (in turns); median of "
+          f"medians {med['checked']:.4f} checked vs {med['unchecked']:.4f} "
+          f"ms unchecked, {med['checked'] - med['unchecked']:+.4f} ms a "
+          f"tick; spread {json.dumps(spread)} ms; {verdict}")
+
+    eng = PagedServingEngine(cfg, params, serving_slo.engine_config(
+        "fcfs", path="sweep", device=device, shadow_check=True))
+    eng.submit(Request(rid=0, prompt=list(range(1, 7)), max_new_tokens=8))
+    eng.step()
+    eng.step()
+    eng.pool.trace.emit(0, EventKind.UNREF, pid=999, refcount=-1)
+    try:
+        eng.step()
+    except LifecycleViolationError as e:
+        if "refcount-underflow" not in str(e):
+            raise
+        print("[serving-bench] planted corruption (an unref of an unknown "
+              "page) rejected at the next tick: "
+              f"{str(e).splitlines()[1].strip()}")
+    else:
+        raise AssertionError("shadow_check let a planted corruption pass")
+    return summary, roof, decode
 
 
 def _timed(label, fn, *args, **kw):
@@ -2679,6 +2831,7 @@ def main():
              **{k: {"launches": n} for k, n in paper_launches.items()}}
     stats["k5"], _ = phase_serving_assembly(cfg, params, sweep_out, sweep_gaps)
     phase_serving_dense(cfg, params)
+    _timed("serving-bench", phase_serving_bench, cfg, params)
     phase_serving_long(cfg, params)
     profile_decode(cfg.name, "sweep", params=params)
     del params                     # free qwen3 before deepseek's ~43 GB

@@ -1,15 +1,27 @@
-"""Page-lifecycle events and the DMA-plan verifier (copies of the reference
-package's `analysis/events.py` and `analysis/plan_verifier.py`). The
-lifecycle sanitizer and the jit lint are not ported yet (ROADMAP)."""
+"""Page-lifecycle events, the lifecycle sanitizer and the DMA-plan verifier
+(copies of the reference package's `analysis/events.py`,
+`analysis/sanitizer.py` and `analysis/plan_verifier.py`; pure Python, no
+torch). The jit lint is not ported yet (ROADMAP)."""
 from repro_torch.analysis.events import EventKind, PageEvent, TraceLog
 from repro_torch.analysis.plan_verifier import (
     PlanError,
     PlanReport,
+    diff_fifo_occupancy,
     verify_kv_page_plan,
     verify_stream_plan,
+)
+from repro_torch.analysis.sanitizer import (
+    LifecycleChecker,
+    LifecycleViolationError,
+    Violation,
+    check_page_trace,
+    format_violations,
 )
 
 __all__ = [
     "EventKind", "PageEvent", "TraceLog",
+    "LifecycleChecker", "LifecycleViolationError", "Violation",
+    "check_page_trace", "format_violations",
     "PlanError", "PlanReport", "verify_stream_plan", "verify_kv_page_plan",
+    "diff_fifo_occupancy",
 ]

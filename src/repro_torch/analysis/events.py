@@ -3,9 +3,8 @@
 ``KVPagePool`` emits one :class:`PageEvent` per state transition when
 ``PageConfig.trace=True`` (and emits nothing — not even a branch into a
 logging call — when tracing is off, so the production hot path pays zero
-overhead). The trace is an append-only log; the reference package's sanitizer
-replays it against the formal lifecycle state machine (the port's copy of
-the sanitizer is still to come).
+overhead). The trace is an append-only log; :mod:`repro_torch.analysis.sanitizer`
+replays it against the formal lifecycle state machine.
 
 Events deliberately carry *plain* data (ints, floats, tuples) — no device
 arrays, no references into the pool — so a trace can be pickled, diffed,

@@ -1,7 +1,6 @@
 """Static verification of PUL preload plans before execution.
 
-A copy of the reference package's ``analysis/plan_verifier.py`` without
-``diff_fifo_occupancy`` (which only the trace tools use).
+A copy of the reference package's ``analysis/plan_verifier.py``.
 
 ``core.planner.plan_stream`` / ``plan_kv_page_stream`` emit a
 :class:`~repro_torch.core.pul.PULConfig` that ``DMAEngine.run_stream`` then
@@ -25,7 +24,8 @@ simulation clock involved) and checks
     queue depth) is reported as a stall warning.
 
 ``DMAEngine.run_stream`` calls :func:`verify_stream_plan` as a
-precondition. Errors raise :class:`PlanError`; warnings ride along in
+precondition; ``repro_torch.benchmarks.kv_page_dma`` verifies the planner's
+output before sweeping it. Errors raise :class:`PlanError`; warnings ride along in
 the returned :class:`PlanReport`.
 """
 from __future__ import annotations
@@ -171,6 +171,78 @@ def verify_stream_plan(
     return PlanReport(distance=d, n_blocks=n_blocks,
                       max_in_flight=max_in_flight,
                       warnings=tuple(warnings))
+
+
+def diff_fifo_occupancy(cfg: PULConfig, *, n_blocks: int, channel,
+                        engine_fifo_depth: Optional[int] = None) -> List[str]:
+    """Diff a PRELOAD channel's *executed* FIFO occupancy against the
+    symbolic schedule (the ROADMAP "trace the DMA twin itself" item).
+
+    `channel` is a ``core.dma._Channel`` after an interleaved
+    ``run_stream`` (its ``occupancy_log`` samples (model_time, outstanding)
+    at every enqueue; ``max_outstanding``/``high_water_time`` carry the
+    occupancy high-water tick; ``stalls`` the back-pressure intervals).
+    The symbolic side is the same :func:`_schedule` the static verifier
+    replays. Returns divergence strings (empty list = the executed
+    schedule matches the model):
+
+      * enqueue counts must match the schedule's issue ops 1:1;
+      * at the k-th enqueue, executed occupancy (enqueued-not-completed)
+        can never exceed the symbolic in-flight window (issued-not-
+        consumed) clamped to the FIFO depth — consume waits on the
+        completion register, so a deeper executed queue means the engine
+        consumed a block whose preload never retired;
+      * the occupancy high-water must stay within the symbolic peak;
+      * back-pressure must appear in the execution exactly when the static
+        verifier modeled it (window > FIFO depth <=> a stalled enqueue).
+
+    Early completions legally make the executed occupancy *shallower* than
+    the window (the wire can finish a transfer before its block's turn);
+    only exceeding the model is a divergence.
+    """
+    sched = _schedule(cfg, n_blocks)
+    bounds: List[int] = []              # symbolic window after each issue
+    in_flight = 0
+    peak = 0
+    for op, _ in sched:
+        if op == "issue":
+            in_flight += 1
+            peak = max(peak, in_flight)
+            bounds.append(in_flight)
+        else:
+            in_flight -= 1
+    fifo = min(cfg.fifo_depth, engine_fifo_depth
+               if engine_fifo_depth is not None else cfg.fifo_depth)
+    divs: List[str] = []
+    log = list(channel.occupancy_log)
+    if len(log) != len(bounds):
+        divs.append(
+            f"executed {len(log)} enqueues but the symbolic schedule "
+            f"issues {len(bounds)} preloads")
+    for k, ((t, occ), bound) in enumerate(zip(log, bounds)):
+        cap = min(bound, fifo)
+        if occ > cap:
+            divs.append(
+                f"enqueue #{k} (model t={t:.3e}): executed occupancy {occ} "
+                f"exceeds the symbolic in-flight window {cap}")
+    symbolic_peak = min(peak, fifo)
+    if channel.max_outstanding > symbolic_peak:
+        divs.append(
+            f"occupancy high-water {channel.max_outstanding} at model "
+            f"t={channel.high_water_time:.3e} exceeds the symbolic peak "
+            f"{symbolic_peak}")
+    modeled_bp = peak > fifo
+    executed_bp = bool(channel.stalls)
+    if modeled_bp and not executed_bp:
+        divs.append(
+            f"verifier modeled back-pressure (window {peak} > FIFO {fifo}) "
+            "but no enqueue ever stalled in the execution")
+    if executed_bp and not modeled_bp:
+        divs.append(
+            f"{len(channel.stalls)} enqueue(s) hit FIFO back-pressure but "
+            f"the symbolic window ({peak}) never exceeds the FIFO depth "
+            f"({fifo})")
+    return divs
 
 
 def verify_kv_page_plan(plan, *, n_pages: int, page_bytes: int,

@@ -7,6 +7,7 @@ from repro_torch.serving.engine import (
     PagedServingEngine,
     ServingEngine,
     mean,
+    percentile,
 )
 from repro_torch.serving.kv_pages import (
     KV_LAYOUT_VERSION,
@@ -27,5 +28,5 @@ __all__ = [
     "PagedEngineConfig", "PagedServingEngine", "EngineMetrics",
     "KVPagePool", "KV_LAYOUT_VERSION", "PackedKVLayout", "PageConfig",
     "PoolMetrics", "AdmissionScheduler", "SchedulerConfig", "POLICIES",
-    "mean",
+    "mean", "percentile",
 ]

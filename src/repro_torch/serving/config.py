@@ -2,8 +2,7 @@
 ``repro/serving/config.py``).
 
 The port adds ``device`` (default ``"cuda"``, projected onto both engines'
-configs) and defaults ``use_paged_kernel`` to True; ``shadow_check`` is not
-ported (the paged engine raises for it).
+configs) and defaults ``use_paged_kernel`` to True.
 
 :class:`ServingConfig` is ONE documented facade holding the union of the
 serving knobs, with projections onto each layer's config (:meth:`dense`,
@@ -66,7 +65,8 @@ class ServingConfig:
 
     Debug:
       shadow_check: trace the page lifecycle and replay it through the
-        sanitizer every tick (not ported yet: raises).
+        sanitizer (``repro_torch.analysis``) every tick, raising
+        LifecycleViolationError at the tick that broke the contract.
 
     Device:
       device: where the planes, weights and kernels live ("cuda" default;

@@ -58,8 +58,10 @@ decode step and replayed every tick; ``capture_decode=False`` runs the same
 device half eagerly (the counterpart of ``jax.disable_jit``), as the CPU
 always does. The assembly path stays eager.
 
-Not ported yet (asking for it raises ``NotImplementedError``):
-``shadow_check``.
+``shadow_check=True`` records the pool's page-lifecycle trace and replays
+each tick's new events through ``analysis.sanitizer.LifecycleChecker`` at
+the end of the tick, after the decode step (and its replay) has run,
+raising ``LifecycleViolationError`` at the tick that broke the contract.
 """
 from __future__ import annotations
 
@@ -73,6 +75,10 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis.sanitizer import (
+    LifecycleChecker,
+    LifecycleViolationError,
+)
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pul import (
     H100_HBM,
@@ -106,6 +112,16 @@ from repro_torch.serving.scheduler import (
     Request,
     SchedulerConfig,
 )
+
+
+def percentile(xs, q: float) -> float:
+    """q-th percentile (linear interpolation) as a plain float; 0.0 for an
+    empty sample, so a metrics snapshot of a run that emitted nothing
+    cannot take the engine down."""
+    xs = list(xs)
+    if not xs:
+        return 0.0
+    return float(np.percentile(np.asarray(xs, np.float64), q))
 
 
 def mean(xs) -> float:
@@ -256,7 +272,8 @@ class PagedEngineConfig:
     prefill_chunk_tokens: int = 0   # >0: chunked prefill, one pass per tick
     greedy: bool = True
     sample_seed: int = 0            # rng seed for greedy=False sampling
-    shadow_check: bool = False      # not ported (raises)
+    shadow_check: bool = False      # trace the page lifecycle and check it
+                                    # every tick (analysis.sanitizer)
     device: str = "cuda"            # planes, weights and kernels
     # kernel-true decode on the card: replay the step as one captured CUDA
     # graph (False: run it eagerly, the reference under jax.disable_jit)
@@ -297,10 +314,6 @@ class PagedServingEngine:
         from repro_torch.serving.config import ServingConfig
         if isinstance(engine_cfg, ServingConfig):
             engine_cfg = engine_cfg.paged()
-        if engine_cfg.shadow_check:
-            raise NotImplementedError(
-                "shadow_check needs the lifecycle sanitizer, not ported yet "
-                "(ROADMAP)")
         self.device = resolve_device(engine_cfg.device)
         self.base_cfg = cfg
         self.model_cfg = dataclasses.replace(cfg, paged_kv=True)
@@ -332,9 +345,15 @@ class PagedServingEngine:
                           fast_tier=engine_cfg.fast_tier,
                           slow_tier=engine_cfg.slow_tier, pe=engine_cfg.pe,
                           preload_distance=engine_cfg.preload_distance,
-                          share_prefix_pages=engine_cfg.share_prefix_pages)
+                          share_prefix_pages=engine_cfg.share_prefix_pages,
+                          trace=engine_cfg.shadow_check)
         self.pool = KVPagePool(pcfg, layout=self.layout, gqa_group=gqa,
                                device=self.device, tracer=self.tracer)
+        # shadow mode: an incremental checker consumes the pool's trace
+        # every tick (O(new events)), naming the offending event at the
+        # tick it happened
+        self._shadow_checker = (LifecycleChecker() if engine_cfg.shadow_check
+                                else None)
         self.scheduler = AdmissionScheduler(SchedulerConfig(
             prefill_buckets=engine_cfg.prefill_buckets,
             max_active_tokens=engine_cfg.max_active_tokens or B * S,
@@ -941,6 +960,8 @@ class PagedServingEngine:
             tr.counter("gauges", "queued", len(self.scheduler))
             tr.counter("gauges", "hot_pages_in_use", self.pool.hot_in_use())
             tr.counter("gauges", "page_faults_step", faults)
+        if self._shadow_checker is not None:
+            self._run_shadow_check()
         if self.metrics_hook:
             # snapshot() runs outside the guard: an invariant violation must
             # crash; only the user-supplied observer is sandboxed
@@ -953,6 +974,13 @@ class PagedServingEngine:
                     "rest of this engine's life", RuntimeWarning,
                     stacklevel=2)
                 self.metrics_hook = None
+
+    def _run_shadow_check(self):
+        """Feed the tick's new trace events through the lifecycle checker;
+        raise at the first violation (with event provenance)."""
+        fresh = self._shadow_checker.feed_log(self.pool.trace)
+        if fresh:
+            raise LifecycleViolationError(fresh)
 
     def snapshot(self, **extra) -> Dict[str, Any]:
         pm = self.pool.metrics
@@ -1002,13 +1030,16 @@ class PagedServingEngine:
         economics_into_registry(reg, self.economics(), policy=policy)
         return reg
 
+    def pending(self) -> bool:
+        """Whether a request is still queued or in a slot."""
+        return bool(len(self.scheduler)
+                    or any(r is not None for r in self.slot_req))
+
     def run(self, max_ticks: int = 1000) -> Dict[int, List[int]]:
         """Drive steps until every submitted request completes (or the tick
         cap); returns {rid: generated tokens} for ALL submitted requests."""
-        pending = lambda: (len(self.scheduler)
-                           or any(r is not None for r in self.slot_req))
         ticks = 0
-        while pending() and ticks < max_ticks:
+        while self.pending() and ticks < max_ticks:
             self.step()
             ticks += 1
         return _drain_results(self.requests)

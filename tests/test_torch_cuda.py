@@ -1235,3 +1235,71 @@ def test_captured_decode_refuses_moved_planes_and_host_reads(reduced_models,
     eng.submit(Request(rid=0, prompt=[5] * 11, max_new_tokens=6))
     with pytest.raises(StepNotCapturable, match="_local_scalar_dense"):
         eng.step()
+
+
+# ------------------------------------- shadow_check and the serving benchmarks
+@pytest.mark.cuda
+@pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
+def test_shadow_check_on_the_captured_step(reduced_models, sweep):
+    """shadow_check on the captured K1 (K2) step: the checker consumes the
+    pool's trace after every replay and finds nothing under preemption
+    pressure (evictions, swap-out, resume restores); a planted corruption
+    of the trace fails the next tick."""
+    from repro_torch.analysis import EventKind, LifecycleViolationError
+
+    cfg, params = reduced_models["qwen3-1.7b"]
+    eng = PagedServingEngine(cfg, params, PagedEngineConfig(
+        batch_slots=2, max_seq=64, page_tokens=8, prefill_buckets=(8, 16, 32),
+        policy="priority", sweep_decode=sweep, shadow_check=True,
+        device="cuda"))
+    rng = np.random.default_rng(0)
+    for rid, n in enumerate((9, 7)):
+        eng.submit(Request(rid=rid, prompt=rng.integers(1, 256, n).tolist(),
+                           max_new_tokens=12, priority=0))
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    for _ in range(3):
+        eng.step()
+    eng.submit(Request(rid=2, prompt=rng.integers(1, 256, 5).tolist(),
+                       max_new_tokens=4, priority=5))
+    eng.run()
+    assert eng._captured is not None
+    assert eng.metrics.preemptions >= 1 and eng.pool.metrics.page_faults >= 1
+    assert len(eng.pool.trace) > 0 and eng._shadow_checker.violations == []
+    key = "k1" if sweep else "k2"
+    assert PA.LAUNCHES[key] == cfg.num_layers * eng.metrics.decode_steps > 0
+    eng.submit(Request(rid=3, prompt=[5] * 6, max_new_tokens=4))
+    eng.step()
+    eng.pool.trace.emit(0, EventKind.UNREF, pid=999, refcount=-1)
+    with pytest.raises(LifecycleViolationError, match="refcount-underflow"):
+        eng.step()
+
+
+@pytest.fixture(scope="module")
+def full_qwen3():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    cfg = get_config("qwen3-1.7b")
+    return cfg, init_params(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.cuda
+def test_serving_slo_contract_at_full_width(full_qwen3):
+    """serving_slo's three policies on full-width qwen3-1.7b, captured K1:
+    the contract holds, the gate passes against the port's full-width
+    baseline, and every decode step ran K1 once a layer."""
+    from repro_torch.benchmarks import common, serving_slo
+
+    cfg, params = full_qwen3
+    for k in PA.LAUNCHES:
+        PA.LAUNCHES[k] = 0
+    policies = serving_slo.run_all(
+        cfg, params, 64, path="sweep", device="cuda",
+        n_params=common.n_params_of(params))
+    assert serving_slo.contract_failures(policies) == []
+    gate = serving_slo.evaluate_gate(
+        policies, common.default_baseline("serving", reduced=False))
+    assert gate["pass"], gate
+    steps = sum(p["decode_steps"] for p in policies.values())
+    assert PA.LAUNCHES["k1"] == cfg.num_layers * steps > 0
+    assert sum(PA.LAUNCHES.values()) == PA.LAUNCHES["k1"]

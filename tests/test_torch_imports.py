@@ -43,7 +43,7 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 29     # every module, not a stub
+    assert int(proc.stdout.split()[-1]) >= 59     # every module, not a stub
 
 
 @pytest.mark.parametrize("module", [
@@ -91,6 +91,21 @@ def test_dense_attention_slice_module_imports_with_jax_blocked(module):
     """The dense attention slice's modules (the shared wrapper runtime, K6,
     K7, the oracles and ops.attention_op) on their own, jax and repro
     blocked."""
+    test_mla_slice_module_imports_with_jax_blocked(module)
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.analysis", "repro_torch.analysis.sanitizer",
+    "repro_torch.analysis.plan_verifier", "repro_torch.serving",
+    "repro_torch.benchmarks.common",
+    "repro_torch.benchmarks.flops", "repro_torch.benchmarks.roofline",
+    "repro_torch.benchmarks.serving_slo", "repro_torch.benchmarks.paged_decode",
+    "repro_torch.benchmarks.kv_page_dma", "repro_torch.examples.serve_lm"])
+def test_serving_bench_slice_module_imports_with_jax_blocked(module):
+    """The serving benchmarks' slice (the lifecycle sanitizer and
+    diff_fifo_occupancy, the engine's shadow_check and percentile, the
+    serving scripts and the serve example) on its own, jax and repro
+    blocked; importing a script runs nothing."""
     test_mla_slice_module_imports_with_jax_blocked(module)
 
 

@@ -450,13 +450,18 @@ def test_pool_evict_restore_roundtrip_is_exact():
 
 # ---------------------------------------------------------------- surface
 def test_unported_paths_raise(models):
-    """shadow_check is still unported (the assembly path, the PUL gather
-    and the dense engine are held against the reference in
-    test_torch_assembly.py)."""
+    """shadow_check is ported (held against the reference in
+    test_torch_sanitizer.py): the engine traces its pool and builds its
+    checker. A model feature the port lacks still raises at construction
+    (the assembly path, the PUL gather and the dense engine are held
+    against the reference in test_torch_assembly.py)."""
     _, _, cfg, params = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PagedServingEngine(cfg, params, PagedEngineConfig(
-            **{**BASE, "shadow_check": True}, device="cpu"))
+    eng = PagedServingEngine(cfg, params, PagedEngineConfig(
+        **{**BASE, "shadow_check": True}, device="cpu"))
+    assert eng.pool.trace is not None and eng._shadow_checker is not None
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        PagedServingEngine(dataclasses.replace(cfg, pos_embedding="sinusoidal"),
+                           params, PagedEngineConfig(**BASE, device="cpu"))
 
 
 def test_serving_config_projects_device_and_kernel_default():
