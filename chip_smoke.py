@@ -122,14 +122,24 @@ exit code is not 0:
                      to 5015, past the window), monolithic and chunked,
                      sweep == per-layer bitwise, the same-state step at
                      5000 tokens
-     (kernels-served, after phase 3: K1/K2 at the three models' widths and
-     windows against the plain version, at the plan's split count and at
-     128 splits, with times and byte bounds; every phase of 17-19 prints
-     its seconds and peak allocated memory)
- 20. summary      -- one JSON line listing the kernels, with the body each
+ 20. serving-grok, serving-internvl2, serving-musicgen -- phase 17 for the
+                     rest of the attention zoo, random weights from seed
+                     0, one at a time: grok-1-314b (MoE through the einsum
+                     dispatch, a group of 6, softcap 30) with its depth cut
+                     64 -> 6 layers (60.7 GB of weights), internvl2-2b
+                     (vocab 92,553) and musicgen-large (MHA at hd 64,
+                     sinusoidal positions, the plain GELU MLP) at full
+                     width and depth
+     (kernels-served, after phase 3: K1/K2 at the widths and windows of
+     qwen2.5-32b, gemma2-27b, gemma3-12b, grok-1 and musicgen against the
+     plain version, at the plan's split count and at 128 splits, with
+     times and byte bounds; kernels-gather holds K5 at every served model's
+     page width; every phase of 17-20 prints its seconds and peak allocated
+     memory)
+ 21. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 21. last line: {"ok": true, "device": {...}}
+ 22. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes on another path (device busy share, top
 kernels) is a one-off measurement:
@@ -221,6 +231,11 @@ SHADOW_TURNS = 6
 DEEPSEEK = "deepseek-v2-236b"
 MLA_H, KVR, DR, MLA_QK = 128, 512, 64, 128 + 64
 MLA_LAYERS = 6
+# grok-1-314b's one cut, depth 64 -> 6 layers: 59.0 GB of layers and the
+# 1.61 GB tied embedding, so its weights and the init's fp32 draw of one
+# layer's experts (6.4 GB) fit one card
+GROK = "grok-1-314b"
+GROK_LAYERS = 6
 # published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
 # dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
 # every bound uses, and float32 flop/s outside the tensor cores, where the
@@ -557,13 +572,16 @@ def phase_kernels():
     }
 
 
-#: K1/K2 at the served local/global models' widths (LOCAL_MODELS), full
-#: width: slot lengths before, at and past the window (and where its first
-#: position starts a page), on slots of the model's longest phase
+#: K1/K2 at the served models' widths (SERVED_MODELS) where they differ
+#: from qwen3-1.7b's, full width: slot lengths before, at and past the
+#: window (and where its first position starts a page), on slots of the
+#: model's longest phase
 SERVED_K12 = {
     "qwen2.5-32b": [0, 7, 16, 1000, 513, 250, 64, 999],
     "gemma2-27b": [300, 4095, 4096, 4111, 5015, 6143],
     "gemma3-12b": [500, 1023, 1024, 1039, 2100, 4095],
+    GROK: [0, 7, 16, 1000, 513, 250, 64, 999],
+    "musicgen-large": [1, 15, 16, 17, 1000, 500, 128, 1023],
 }
 
 
@@ -578,7 +596,8 @@ def _attention_widths(cfg):
 
 def phase_kernels_served():
     """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap 50 and
-    window 4096 and gemma3-12b's hd 256 and window 1024 (SERVED_K12):
+    window 4096, gemma3-12b's hd 256 and window 1024, grok-1's group of 6
+    with softcap 30 and musicgen's group of 1 at hd 64 (SERVED_K12):
     within two bf16 ulps of the plain version at the plan's split count and
     at 128 splits (where a windowed row's visible pages leave splits that
     see none), K1 == K2 bitwise, the commit bitwise; times at the engine's
@@ -590,12 +609,12 @@ def phase_kernels_served():
     out = {}
     for model, lengths in SERVED_K12.items():
         widths, opts = _attention_widths(get_config(model))
-        past = LOCAL_MODELS[model]
+        past = SERVED_MODELS[model]
         widths["max_seq"] = past.geometry[1] if past else MAX_SEQ
         c = _kernel_case(gen, dev, lengths, layers=4, **widths, **opts)
         hd = widths["hd"]
         cfg = PULConfig(distance=engine_distance(
-            2 * get_config(model).num_layers * widths["kv"] * hd,
+            2 * smoke_config(model).num_layers * widths["kv"] * hd,
             widths["heads"] // widths["kv"]))
         kw = dict(scale=1.0 / math.sqrt(hd), softcap=c["softcap"],
                   window=c["window"])
@@ -855,8 +874,8 @@ def phase_kernels_gather():
     types at three distances and both issue orders, then the page form at
     the serving geometry (8 slots x 64 pages of the engine's 516 frames) at
     the page width of every served model (qwen3, deepseek and
-    LOCAL_MODELS', whose rows of 256-384 KB change the bulk plan's chunks
-    a page), with planted faults, times and bounds."""
+    SERVED_MODELS', whose rows of up to 384 KB change the bulk plan's
+    chunks a page), with planted faults, times and bounds."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -880,7 +899,7 @@ def phase_kernels_gather():
     out = {}
     widths = [("qwen3", 2 * L * KV * HD, H // KV),
               ("deepseek", MLA_LAYERS * (KVR + DR), 1)]
-    for arch in LOCAL_MODELS:
+    for arch in SERVED_MODELS:
         cfg = dataclasses.replace(smoke_config(arch), paged_kv=True)
         widths.append((arch, PackedKVLayout(cfg, 1, P).features,
                        cfg.num_heads // cfg.num_kv_heads))
@@ -1651,7 +1670,9 @@ def warm_up(cfg, params, device="cuda", paths=("sweep", "per-layer")):
 #: the serving phases' tag of each model
 TAGS = {"qwen3-1.7b": "serving", DEEPSEEK: "serving-mla",
         "qwen2.5-32b": "serving-qwen2.5", "gemma2-27b": "serving-gemma2",
-        "gemma3-12b": "serving-gemma3"}
+        "gemma3-12b": "serving-gemma3", GROK: "serving-grok",
+        "internvl2-2b": "serving-internvl2",
+        "musicgen-large": "serving-musicgen"}
 
 
 def _tag(cfg, path):
@@ -1859,10 +1880,12 @@ def phase_serving_long(cfg, params, device="cuda"):
 def smoke_config(arch):
     """The smoke's configuration of `arch`: full width and depth;
     deepseek-v2's depth cut to MLA_LAYERS (the dense layer 0 and 5 MoE
-    layers)."""
+    layers), grok-1's to GROK_LAYERS."""
     cfg = get_config(arch)
     if arch == DEEPSEEK:
         cfg = dataclasses.replace(cfg, num_layers=MLA_LAYERS)
+    if arch == GROK:
+        cfg = dataclasses.replace(cfg, num_layers=GROK_LAYERS)
     return cfg
 
 
@@ -2742,12 +2765,21 @@ LOCAL_MODELS = {
     "gemma3-12b": PastWindow("serving-gemma3-long", LONG, LONG_PROMPTS,
                              2048),
 }
+#: the rest of the attention zoo, served through K1/K2 without a window:
+#: grok-1 (MoE through the einsum dispatch, a group of 6, softcap 30; depth
+#: cut to GROK_LAYERS), internvl2-2b (qwen3's attention widths, a vocab of
+#: 92,553) and musicgen-large (MHA at hd 64, sinusoidal positions, the
+#: plain GELU MLP), full width
+ZOO_MODELS = {GROK: None, "internvl2-2b": None, "musicgen-large": None}
+#: every model served by phase_model, in the smoke's order
+SERVED_MODELS = {**LOCAL_MODELS, **ZOO_MODELS}
 
 
-def phase_local_model(arch, device="cuda"):
-    """One model of LOCAL_MODELS at full width, random weights from seed 0,
-    loaded alone and freed at the end: the request script on the sweep and
-    per-layer paths captured, then the sweep eagerly (three token streams
+def phase_model(arch, device="cuda"):
+    """One model of SERVED_MODELS at the smoke's configuration (full width;
+    grok-1's depth cut), random weights from seed 0, loaded alone and freed
+    at the end: the request script on the sweep and per-layer paths
+    captured, then the sweep eagerly (three token streams
     bitwise equal, K1/K2 launches one per layer and decode step), once on
     the assembly path through K5, and one decode step of the assembly path
     and of the dense ServingEngine held to K1's on one state. A model with
@@ -2759,7 +2791,7 @@ def phase_local_model(arch, device="cuda"):
     memory."""
     cfg = smoke_config(arch)
     tag = f"[{TAGS[arch]}]"
-    past = LOCAL_MODELS[arch]
+    past = SERVED_MODELS[arch]
     if past:
         _timed(f"{past.name} streamed attention", _streamed_vs_dense,
                device, T=past.geometry[1], heads=cfg.num_heads,
@@ -2769,8 +2801,10 @@ def phase_local_model(arch, device="cuda"):
     params = _timed(f"{TAGS[arch]} init", init_params, cfg, seed=0,
                     device=device)
     weights = sum(t.numel() * t.element_size() for _, t in flatten(params))
-    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, pattern "
-          f"{cfg.pattern}, window {cfg.sliding_window}, "
+    print(f"{tag} {cfg.name}: {cfg.num_layers} of "
+          f"{get_config(arch).num_layers} layers, pattern {cfg.pattern}, "
+          f"window {cfg.sliding_window}, "
+          f"moe {cfg.moe_backend if cfg.num_experts else None}, "
           f"{weights / 1e9:.2f} GB of weights, init "
           f"{time.perf_counter() - t1:.1f} s")
     s1, s2, out, gaps = _timed(f"{TAGS[arch]} captured and eager",
@@ -2861,8 +2895,8 @@ def main():
     torch.cuda.empty_cache()
     print(f"[done] serving-mla {time.perf_counter() - t0:.1f} s")
 
-    for arch in LOCAL_MODELS:
-        phase_local_model(arch)
+    for arch in SERVED_MODELS:
+        phase_model(arch)
         print(f"[done] {TAGS[arch]} {time.perf_counter() - t0:.1f} s")
 
     rows = []

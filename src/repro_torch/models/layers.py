@@ -1,5 +1,6 @@
-"""Transformer layers of the port (``repro/models/layers.py``): norms, RoPE,
-GQA attention for prefill and paged decode, the MLP, embedding and logits.
+"""Transformer layers of the port (``repro/models/layers.py``): norms, RoPE
+and sinusoidal positions, GQA attention for prefill and paged decode, the
+gated and plain GELU MLPs, embedding and logits.
 
 Plain functions on tensors over a param dict. The reference's bf16 rounding
 points are kept: projections and the head are bf16 products, norms and RoPE
@@ -88,6 +89,17 @@ def rope(x, positions, theta: float):
     if hd != 2 * half:
         rot = torch.cat([rot, x[..., 2 * half:].float()], dim=-1)
     return rot.to(dt)
+
+
+def sinusoidal_embedding(positions, dim: int, max_scale: float = 1e4):
+    """Absolute sinusoidal position embedding (musicgen), fp32 [sin | cos]:
+    positions (B, S) -> (B, S, dim); the caller casts it to the
+    activations' type before the add, as the reference does."""
+    half = dim // 2
+    freqs = max_scale ** (-torch.arange(0, half, dtype=torch.float32,
+                                        device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------
@@ -309,16 +321,25 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
 def mlp_params(cfg: ModelConfig) -> Dict[str, Any]:
     D, Fd = cfg.d_model, cfg.d_ff
     dt = torch.bfloat16
-    if cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type} is not ported")
-    return {
-        "w_gate": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
-        "w_up": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
-        "w_down": Param((Fd, D), ("ff", "embed"), dt, "fan_in"),
-    }
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {
+            "w_gate": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
+            "w_up": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
+            "w_down": Param((Fd, D), ("ff", "embed"), dt, "fan_in"),
+        }
+    if cfg.mlp_type == "gelu":
+        return {
+            "w_in": Param((D, Fd), ("embed", "ff"), dt, "fan_in"),
+            "w_out": Param((Fd, D), ("ff", "embed"), dt, "fan_in"),
+        }
+    raise NotImplementedError(f"mlp_type {cfg.mlp_type} is not ported")
 
 
 def mlp_apply(p, x, *, cfg: ModelConfig):
+    """Gated (swiglu, geglu) or plain (gelu, musicgen's) MLP; GELU is the
+    tanh approximation, as the reference's ``approximate=True``."""
+    if cfg.mlp_type == "gelu":
+        return F.gelu(x @ p["w_in"], approximate="tanh") @ p["w_out"]
     act = F.silu if cfg.mlp_type == "swiglu" else (
         lambda t: F.gelu(t, approximate="tanh"))
     h = act(x @ p["w_gate"]) * (x @ p["w_up"])

@@ -60,15 +60,17 @@ def _init_leaf(gen: torch.Generator, p: Param, device) -> torch.Tensor:
     if p.init not in ("embed", "fan_in", "normal"):
         raise ValueError(f"unknown init {p.init}")
     std = _std(p)
+    # the scale multiplies in place: one fp32 temporary, not two (a row of
+    # grok-1's stacked experts is 6.4 GB of fp32)
     if p.size <= CHUNKED_INIT_ELEMENTS:
         x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                         device=device)
-        return (x * std).to(p.dtype)
+        return x.mul_(std).to(p.dtype)
     out = torch.empty(p.shape, dtype=p.dtype, device=device)
     rows = max(1, CHUNKED_INIT_ELEMENTS // out[0].numel())
     for block in out.split(rows):
         block.copy_(torch.randn(block.shape, generator=gen,
-                                dtype=torch.float32, device=device) * std)
+                                dtype=torch.float32, device=device).mul_(std))
     return out
 
 

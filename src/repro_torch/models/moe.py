@@ -1,20 +1,31 @@
-"""Mixture-of-Experts of the port (``repro/models/moe.py``): the top-k router
-and the sort-based ``gather`` dispatch backend, with shared experts.
+"""Mixture-of-Experts of the port (``repro/models/moe.py``): the top-k
+router and the two dispatch backends of the reference, with shared experts.
 
-The gather backend argsorts the (token, k) slots by expert, builds an
-(E, C) slot table, gathers the rows, runs batched per-expert GEMMs over all
-E experts and combines the weighted outputs back per token. Slots ranked at
-or beyond the capacity C = max(8, round_up_8(ceil(T * k / E * 1.25))) are
-dropped, as in the reference. The reference's semantics are kept to the
-letter: a stable argsort, drops kept out of the slot table (JAX's
-``.at[].set(mode="drop")``), counts over all E, and deepseek's softmax ->
-top-k routing without renormalisation. Nothing here waits on the device:
-counts are a scatter-add (CUDA ``bincount`` reads its maximum back to the
-host) and dropped slots write a spill column that is cut off, not a
+``gather`` (deepseek-v2): argsort the (token, k) slots by expert, build an
+(E, C) slot table, gather the rows, run batched per-expert GEMMs over all
+E experts and combine the weighted outputs back per token. The reference's
+semantics are kept to the letter: a stable argsort, drops kept out of the
+slot table (JAX's ``.at[].set(mode="drop")``), counts over all E, and
+deepseek's softmax -> top-k routing without renormalisation.
+
+``einsum`` (grok-1, the config default): capacity one-hot dispatch and
+combine einsums over groups of min(T, 2048) tokens (the last group
+zero-padded, its padding routed like any token), with grok's top-k over the
+logits, then a softmax over the k. Each (token, k) slot's position in its
+expert is a cumsum of one-hots in token order; slots at or past C drop.
+The reference's rounding points are kept: the one-hots and the combine
+weights are cast to the activations' type and every einsum runs in it.
+The dispatch and expert products are plain GEMMs in the reference too
+(outside Pallas), so ``torch.einsum`` is their port.
+
+Both drop slots ranked at or past the capacity C = max(8,
+round_up_8(ceil(T * k / E * capacity_factor))) of a group (of the whole
+batch for gather). Nothing here waits on the device, so a decode step
+that runs either backend can be captured: counts are a scatter-add (CUDA
+``bincount`` reads its maximum back to the host), one-hots are
+comparisons with an arange (``F.one_hot`` checks its indices on the
+host), and dropped slots write a spill column that is cut off, not a
 boolean-masked subset (whose size the host would have to read).
-
-The ``einsum`` backend (grok-1's one-hot dispatch) is not ported yet
-(ROADMAP, the rest of the zoo): asking for it raises.
 """
 from __future__ import annotations
 
@@ -54,18 +65,36 @@ def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
 
 def _route(p, x_flat, cfg: ModelConfig):
     """Returns (ids (T, k), weights (T, k) fp32, aux_loss): deepseek's
-    softmax -> top-k (grok's top-k -> softmax comes with its einsum
-    backend). Top-k as ``jax.lax.top_k``: largest first, the lower expert
-    first among ties."""
+    softmax -> top-k, or grok's top-k over the logits -> softmax over the k
+    (chosen by the config's name, as the reference does). Top-k as
+    ``jax.lax.top_k``: largest first, the lower expert first among ties."""
     k, E = cfg.experts_per_tok, cfg.num_experts
-    probs = torch.softmax(x_flat.float() @ p["router"], dim=-1)
-    ids = torch.argsort(probs, dim=-1, descending=True, stable=True)[:, :k]
-    weights = probs.gather(-1, ids)
+    logits = x_flat.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    if cfg.name.startswith("grok"):
+        ids = _top_k(logits, k)
+        weights = torch.softmax(logits.gather(-1, ids), dim=-1)
+    else:
+        ids = _top_k(probs, k)
+        weights = probs.gather(-1, ids)
     # load-balance auxiliary (Switch): E * sum_e f_e * P_e
     T = x_flat.shape[0]
     f = _counts(ids, E).float() / max(T * k, 1)
     aux = E * torch.sum(f * probs.mean(dim=0))
     return ids, weights, aux
+
+
+def _top_k(values, k: int):
+    """Indices of the k largest of each row, largest first, the lower index
+    first among ties (``jax.lax.top_k``; ``torch.topk`` orders ties
+    arbitrarily)."""
+    return torch.argsort(values, dim=-1, descending=True, stable=True)[:, :k]
+
+
+def _one_hot(idx, n: int, dtype):
+    """One-hot rows of `idx` over n classes in `dtype`; an index outside
+    0..n-1 gives a zero row (``jax.nn.one_hot``)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 def _expert_ffn(p, h, cfg: ModelConfig):
@@ -117,14 +146,45 @@ def _moe_gather(p, x_flat, cfg: ModelConfig):
     return y.to(x_flat.dtype), aux
 
 
+def _moe_einsum(p, x_flat, cfg: ModelConfig):
+    T, D = x_flat.shape
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    dt = x_flat.dtype
+    Tg = min(T, 2048)
+    n_groups = -(-T // Tg)
+    xg = F.pad(x_flat, (0, 0, 0, n_groups * Tg - T)).reshape(n_groups, Tg, D)
+    C = _capacity(cfg, Tg)
+    ys, aux = [], 0.0
+    for xt in xg:               # the reference's lax.scan over the groups
+        ids, w, a = _route(p, xt, cfg)
+        oe = _one_hot(ids, E, torch.int32)                       # (Tg, k, E)
+        # position of each (token, slot) within its expert
+        flat = oe.reshape(Tg * k, E)
+        pos = torch.cumsum(flat, dim=0) * flat
+        pos_tok = (pos.sum(dim=-1) - 1).reshape(Tg, k)
+        keep = (pos_tok < C) & (pos_tok >= 0)
+        oc = _one_hot(torch.where(keep, pos_tok, C), C, dt)      # (Tg, k, C)
+        oe_f = oe.to(dt)
+        dispatch = torch.einsum("tke,tkc->tec", oe_f, oc)        # (Tg, E, C)
+        combine = torch.einsum("tke,tkc,tk->tec", oe_f, oc, w.to(dt))
+        h = torch.einsum("td,tec->ecd", xt, dispatch)
+        out = _expert_ffn(p, h, cfg)
+        ys.append(torch.einsum("ecd,tec->td", out, combine))
+        aux = aux + a
+    y = torch.cat(ys)[:T]
+    return y, aux / n_groups
+
+
 def moe_apply(p, x, *, cfg: ModelConfig):
-    """x: (B, S, D) -> (y, aux_loss)."""
+    """x: (B, S, D) -> (y, aux_loss), dispatched on cfg.moe_backend."""
     B, S, D = x.shape
-    if cfg.moe_backend != "gather":
-        raise NotImplementedError(
-            f"MoE backend {cfg.moe_backend!r} is not ported yet (ROADMAP, the "
-            "rest of the zoo: grok-1's einsum dispatch)")
-    y, aux = _moe_gather(p, x.reshape(B * S, D), cfg)
+    x_flat = x.reshape(B * S, D)
+    if cfg.moe_backend == "einsum":
+        y, aux = _moe_einsum(p, x_flat, cfg)
+    elif cfg.moe_backend == "gather":
+        y, aux = _moe_gather(p, x_flat, cfg)
+    else:
+        raise ValueError(f"unknown moe backend {cfg.moe_backend}")
     y = y.reshape(B, S, D)
     if cfg.num_shared_experts:
         y = y + mlp_apply(p["shared"], x, cfg=cfg)

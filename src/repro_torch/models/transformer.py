@@ -2,8 +2,10 @@
 cache trees, prefill, the dense decode step and the paged decode step, for
 dense patterns of global and sliding-window local GQA layers (("global",),
 gemma2's ("local", "global"), gemma3's five local and one global), with or
-without sandwich norms, for ("moe",) with MLA attention, and for unscanned
-dense leading layers (deepseek-v2's layer 0).
+without sandwich norms, for ("moe",) with GQA (grok-1) or MLA attention,
+for unscanned dense leading layers (deepseek-v2's layer 0), rope or
+sinusoidal positions (musicgen) and a frontend prefix in prefill
+(internvl2's and musicgen's stubs).
 
 A config's ``pattern`` forms one group; the parameter tree keeps one
 subtree per pattern entry, ``"groups"/"{i}:{kind}"``, each stacked over
@@ -33,18 +35,16 @@ from repro_torch.models.module import stack_params
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves any pattern of dense global and local (sliding
-    window) layers, or ("moe",) (gather dispatch), with GQA or MLA
-    attention, sandwich norms and unscanned dense leading layers; any other
-    feature of the reference zoo raises (ROADMAP, port queue)."""
+    window) layers, or ("moe",) (gather or einsum dispatch), with GQA or
+    MLA attention, rope or sinusoidal positions, a frontend prefix in
+    prefill, sandwich norms and unscanned dense leading layers; the
+    reference zoo's recurrent blocks (rwkv, mamba, zamba2's shared
+    attention) and attention-free configs raise (ROADMAP, port queue)."""
     dense = set(cfg.pattern) <= {"global", "local"}
     missing = [name for name, on in (
         ("pattern other than global/local layers or ('moe',)",
          not dense and cfg.pattern != ("moe",)),
-        ("MoE einsum backend", cfg.num_experts > 0
-         and cfg.moe_backend != "gather"),
         ("attention other than GQA or MLA", cfg.attn_type not in ("gqa", "mla")),
-        ("sinusoidal positions", cfg.pos_embedding != "rope"),
-        ("modality frontend", cfg.frontend is not None),
     ) if on]
     if missing:
         raise NotImplementedError(
@@ -183,15 +183,39 @@ def _tree(cfg: ModelConfig, per_block) -> Dict[str, Any]:
 # --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
-def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
-               max_seq: Optional[int] = None):
-    """tokens (B, T) int; lengths (B,) real tokens per right-padded row.
-    Returns (logits (B, V) at each row's last real token, caches), the cache
-    tree of :func:`cache_specs` at seq size max_seq (bf16 K/V or c_kv /
-    k_rope, idx = T)."""
-    B, T = tokens.shape
+def _embed_inputs(params, tokens, cfg: ModelConfig, pos0=None,
+                  frontend_embeds=None):
+    """The backbone's input (reference ``_embed_inputs``): the token
+    embeddings after the frontend prefix (B, Tf, D), where the config has a
+    frontend and one is given, and their positions, (1, S) counting from 0
+    or (B, S) counting from pos0 (B,). Sinusoidal positions are added as
+    fp32 [sin | cos] cast to the activations' type. Returns (x,
+    positions)."""
     x = L.embed_apply(params["embedding"], tokens, cfg=cfg)
-    positions = torch.arange(T, device=x.device)[None, :]
+    if cfg.frontend is not None and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    if pos0 is not None:
+        positions = positions + pos0[:, None]
+    if cfg.pos_embedding == "sinusoidal":
+        x = x + L.sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+    return x, positions
+
+
+def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
+               max_seq: Optional[int] = None, frontend_embeds=None):
+    """tokens (B, T) int; lengths (B,) real tokens per right-padded row;
+    frontend_embeds (B, Tf, D), prepended to the tokens where the config
+    has a frontend. Returns (logits (B, V) at each row's last real token,
+    caches), the cache tree of :func:`cache_specs` at seq size max_seq
+    (bf16 K/V or c_kv / k_rope, idx = Tf + T).
+
+    The reference's quirk is kept: with a frontend prefix, `lengths` index
+    the concatenated sequence (the logits are read at lengths - 1, not
+    shifted by Tf)."""
+    x, positions = _embed_inputs(params, tokens, cfg,
+                                 frontend_embeds=frontend_embeds)
+    B, T = x.shape[:2]
     caches = []
     for _, _, kind, p in _blocks(params, cfg):
         x, c = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
@@ -218,8 +242,8 @@ def decode_fn(params, batch, caches, *, cfg: ModelConfig):
     the stacked leaves, so no copy of the cache is made) and attends over
     rows <= idx. Returns (logits (B, V), new caches): the same leaves, every
     idx + 1."""
-    x = L.embed_apply(params["embedding"], batch["tokens"], cfg=cfg)
-    positions = batch["pos0"][:, None]
+    x, positions = _embed_inputs(params, batch["tokens"], cfg,
+                                 pos0=batch["pos0"])
     for prefix, g, kind, p in _blocks(params, cfg):
         cache = caches[prefix[0]][prefix[1]]
         if prefix[0] == "groups":
@@ -255,8 +279,8 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
 
     `pul_distance` is the preload distance of the in-kernel page ring (the
     engine passes the planner's d*)."""
-    x = L.embed_apply(params["embedding"], batch["tokens"], cfg=cfg)
-    positions = batch["pos0"][:, None]
+    x, positions = _embed_inputs(params, batch["tokens"], cfg,
+                                 pos0=batch["pos0"])
     pul_cfg = PULConfig(distance=pul_distance)
     lengths = batch["lengths"]
     sweep = None

@@ -20,10 +20,12 @@ class Model:
     cfg: ModelConfig
     params: Dict[str, Any]        # nested dict of tensors (see model_params)
 
-    def prefill(self, tokens, lengths=None, max_seq: Optional[int] = None):
-        """(B, T) tokens -> (logits (B, V), caches); see prefill_fn."""
+    def prefill(self, tokens, lengths=None, max_seq: Optional[int] = None,
+                frontend_embeds=None):
+        """(B, T) tokens [after a (B, Tf, D) frontend prefix] -> (logits
+        (B, V), caches); see prefill_fn."""
         return T.prefill_fn(self.params, tokens, lengths, cfg=self.cfg,
-                            max_seq=max_seq)
+                            max_seq=max_seq, frontend_embeds=frontend_embeds)
 
     def decode_step(self, batch, caches):
         """One dense decode step; see transformer.decode_fn."""

@@ -634,19 +634,35 @@ class PagedServingEngine:
             working.add(pid)
         self.pool.note_deadline(pids, req.deadline_tick())
 
-    def _prefill(self, rows: List[List[int]], bucket: int):
-        """Prefill right-padded prompts (one row per prompt) at `bucket`;
-        returns (fp32 numpy logits (n, V), packed KV rows (n, bucket, F))."""
-        toks = np.zeros((len(rows), bucket), np.int64)
-        lengths = np.ones((len(rows),), np.int64)
-        for r, prompt in enumerate(rows):
+    def _prefill(self, rows: List[List[int]], slots: List[int], bucket: int):
+        """Prefill right-padded prompts (row r for slot slots[r]) at
+        `bucket`; returns (fp32 numpy logits (n, V), packed KV rows
+        (n, bucket, F)), in the order of `rows`.
+
+        A dense model prefills the n rows alone: its rows are independent.
+        An MoE model prefills the reference's batch, all B slots with each
+        row at its slot and every other slot a padding row (token 0, length
+        1), since capacity dispatch mixes tokens across the batch: the
+        batch's token count sets each group's capacity C, and the padding
+        rows' tokens use it up (``repro/serving/engine.py``,
+        ``_prefill_group_inner`` and ``_chunk_pass``)."""
+        moe = self.model_cfg.num_experts > 0
+        at = list(slots) if moe else list(range(len(rows)))
+        n = self.cfg.batch_slots if moe else len(rows)
+        toks = np.zeros((n, bucket), np.int64)
+        lengths = np.ones((n,), np.int64)
+        for r, prompt in zip(at, rows):
             toks[r, :len(prompt)] = prompt
             lengths[r] = len(prompt)
         logits, caches = self.model.prefill(
             torch.as_tensor(toks, device=self.device),
             torch.as_tensor(lengths, device=self.device), max_seq=bucket)
         self.metrics.prefills += 1
-        return logits.cpu().numpy(), self.layout.pack(caches)
+        packed = self.layout.pack(caches)
+        if moe:
+            idx = torch.as_tensor(at, device=self.device)
+            logits, packed = logits[idx], packed[idx]
+        return logits.cpu().numpy(), packed
 
     def _prefill_group(self, bucket: int, group: List[Admission]):
         with self.tracer.span("engine", f"prefill@{bucket}"):
@@ -657,7 +673,8 @@ class PagedServingEngine:
         prompts = [a.request.prompt[-bucket:] for a in group]
         for a in group:
             self.slot_req[a.slot] = a.request
-        logits, packed = self._prefill(prompts, bucket)
+        logits, packed = self._prefill(prompts, [a.slot for a in group],
+                                       bucket)
         working = {pid for pages in self.slot_pages for pid in pages}
         for r, (a, prompt) in enumerate(zip(group, prompts)):
             slot, n = a.slot, len(prompt)
@@ -704,7 +721,7 @@ class PagedServingEngine:
         hi = min(f + self.cfg.prefill_chunk_tokens, n)
         bucket = self.scheduler.pick_bucket(hi)
         P = self.cfg.page_tokens
-        logits, packed = self._prefill([prompt[:hi]], bucket)
+        logits, packed = self._prefill([prompt[:hi]], [slot], bucket)
         self.metrics.chunk_passes += 1
         working = {pid for pages in self.slot_pages for pid in pages}
         self._write_prompt_pages(slot, req.bucket, prompt, f, hi, packed[0],

@@ -280,6 +280,10 @@ SERVED = {
                           [4000, 4095, 4096, 4111, 5015, 6143]),
     "gemma3-12b": _served("gemma3-12b", 6, 256,
                           [1000, 1023, 1024, 1039, 2100, 4095]),
+    # grok-1's group of 6 with softcap 30, musicgen's MHA (group 1) at hd 64
+    "grok-1-314b": _served("grok-1-314b", 5, 64, [0, 17, 512, 1000, 1023]),
+    "musicgen-large": _served("musicgen-large", 5, 64,
+                              [1, 16, 300, 999, 1023]),
 }
 
 
@@ -288,7 +292,8 @@ SERVED = {
 @pytest.mark.parametrize("model", sorted(SERVED))
 def test_kernels_hold_at_the_served_geometries(dev, model, n_split):
     """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap and
-    window of 4096 and gemma3-12b's hd 256 and window of 1024, at the
+    window of 4096, gemma3-12b's hd 256 and window of 1024, grok-1's group
+    of 6 with softcap 30 and musicgen's group of 1 at hd 64, at the
     plan's split count and at forced ones; at 128 splits gemma3's rows (at
     most 65 visible pages) and qwen2.5's short rows leave splits that see
     no page, which must weigh 0 in the merge. Within the limit of the plain version, K1 == K2 bitwise,
@@ -1132,13 +1137,19 @@ def test_dense_launches_are_counted_and_checks_raise(dev):
 
 
 # ------------------------------------------------- the captured decode step
+#: the zoo models served through K1/K2 without windows: grok-1 (MoE,
+#: einsum dispatch), internvl2 (a frontend in prefill only) and musicgen
+#: (sinusoidal positions, MHA)
+ZOO = ("grok-1-314b", "internvl2-2b", "musicgen-large")
+
+
 @pytest.fixture(scope="module")
 def reduced_models():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     out = {}
     for arch in ("qwen3-1.7b", "deepseek-v2-236b", "gemma2-27b",
-                 "gemma3-12b"):
+                 "gemma3-12b", *ZOO):
         cfg = get_config(arch).reduced()
         out[arch] = (cfg, init_params(cfg, seed=0, device="cuda"))
     return out
@@ -1180,13 +1191,15 @@ def _capture_script(models, arch, sweep, capture):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
-                                  "gemma2-27b", "gemma3-12b"])
+                                  "gemma2-27b", "gemma3-12b", *ZOO])
 def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
     """The graph replays K1/K2 (K3/K4) and the model's ops as the eager
     step runs them: every logit row, the tokens, the planes, PoolMetrics
     and the launch counts are equal, the counts one per layer and step.
     The reduced gemmas' window is 16 tokens, which request 2 (20 prompt
-    tokens, 7 new) passes, so their local layers' K1/K2 skip pages."""
+    tokens, 7 new) passes, so their local layers' K1/K2 skip pages; grok's
+    step runs the einsum dispatch and musicgen's the sinusoidal positions
+    inside the graph."""
     got, cap, launched = _capture_script(reduced_models, arch, sweep, True)
     want, eager, eager_launched = _capture_script(reduced_models, arch, sweep,
                                                   False)

@@ -258,15 +258,20 @@ def test_dense_decode_matches_reference(pair):
 
 def test_unported_archs_and_features_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("grok-1-314b")
+        get_config("rwkv6-7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config(ARCH).reduced()
-    for change, what in ((dict(frontend="vit_stub", frontend_tokens=4),
-                          "frontend"),
-                         (dict(pos_embedding="sinusoidal"), "sinusoidal")):
+    for change, what in ((dict(pattern=("rwkv",)), "pattern"),
+                         (dict(pattern=("mamba", "mamba", "shared_attn"),
+                               num_layers=3), "pattern"),
+                         (dict(attn_type="none"), "attention")):
         with pytest.raises(NotImplementedError, match=what):
             T.check_supported(dataclasses.replace(cfg, **change))
+    # frontends and sinusoidal positions are served now
+    T.check_supported(dataclasses.replace(
+        cfg, frontend="vit_stub", frontend_tokens=4,
+        pos_embedding="sinusoidal"))
     # local/global patterns with sandwich norms are served now
     local = dataclasses.replace(cfg, pattern=("local", "global"),
                                 sliding_window=16, sandwich_norm=True)
@@ -375,10 +380,22 @@ def test_moe_gather_matches_reference(ds_pair, tokens, capacity_factor):
     assert (most > C) == (capacity_factor < 1)
 
 
-def test_moe_einsum_backend_is_not_ported(ds_pair):
-    _, cfg, _, p = _moe_layer(ds_pair, dict(moe_backend="einsum"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MOE.moe_apply(p, torch.zeros((1, 2, cfg.d_model), dtype=torch.bfloat16),
-                      cfg=cfg)
-    with pytest.raises(NotImplementedError, match="einsum"):
-        T.model_params(cfg)
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.25],
+                         ids=["no-drops", "drops"])
+def test_moe_einsum_backend_is_not_ported(ds_pair, capacity_factor):
+    """The einsum backend (grok-1's dispatch) on deepseek's reduced expert
+    weights and router (softmax -> top-k): a 64-token prefill group against
+    the reference's einsum backend, where nothing drops and where tokens
+    drop; the model tree builds with it."""
+    change = dict(moe_backend="einsum", capacity_factor=capacity_factor)
+    ref_cfg, cfg, ref_p, p = _moe_layer(ds_pair, change)
+    x = (np.random.default_rng(9).standard_normal((2, 32, cfg.d_model))
+         * 0.5).astype(np.float32)
+    want, want_aux = ref_moe.moe_apply(
+        ref_p, jnp.asarray(x).astype(jnp.bfloat16), cfg=ref_cfg)
+    got, aux = MOE.moe_apply(p, torch.from_numpy(x).to(torch.bfloat16),
+                             cfg=cfg)
+    _close(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+           "einsum moe y")
+    np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-5)
+    T.model_params(cfg)

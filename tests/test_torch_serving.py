@@ -460,7 +460,7 @@ def test_unported_paths_raise(models):
         **{**BASE, "shadow_check": True}, device="cpu"))
     assert eng.pool.trace is not None and eng._shadow_checker is not None
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        PagedServingEngine(dataclasses.replace(cfg, pos_embedding="sinusoidal"),
+        PagedServingEngine(dataclasses.replace(cfg, pattern=("rwkv",)),
                            params, PagedEngineConfig(**BASE, device="cpu"))
 
 
