@@ -131,15 +131,35 @@ exit code is not 0:
                      sinusoidal positions, the plain GELU MLP) at full
                      width and depth
      (kernels-served, after phase 3: K1/K2 at the widths and windows of
-     qwen2.5-32b, gemma2-27b, gemma3-12b, grok-1 and musicgen against the
-     plain version, at the plan's split count and at 128 splits, with
-     times and byte bounds; kernels-gather holds K5 at every served model's
-     page width; every phase of 17-20 prints its seconds and peak allocated
-     memory)
- 21. summary      -- one JSON line listing the kernels, with the body each
+     qwen2.5-32b, gemma2-27b, gemma3-12b, grok-1, musicgen and zamba2
+     (with planted faults) against the plain version, at the plan's split
+     count and at 128 splits, with times and byte bounds; kernels-gather
+     holds K5 at every served model's page width; every phase of 17-21
+     prints its seconds and peak allocated memory)
+ 21. serving-zamba2, serving-rwkv6 -- the recurrent pair at full width and
+                     depth, random weights from seed 0, one at a time:
+                     zamba2-7b (54 Mamba2 layers, the shared attention
+                     block at 27 invocations through K1/K2, G 1 at hd 112,
+                     its LoRA B matrices redrawn from the seed so that each
+                     invocation's merge adds a delta) as phase 17 (three
+                     streams bitwise equal, K5 assembly, the same-state
+                     step), and rwkv6-7b (no pageable KV: the dense step
+                     over the engine's recurrent state on every path,
+                     eager, no kernel of the port) on the script and the
+                     same-state step against the dense engine; both: the
+                     preempted request's stream equal to an undisturbed
+                     run's, a chunked prefill's first token and logits
+                     equal to the monolithic one's, bitwise; a summary
+                     line: the decode tick beside its byte bound (the
+                     shared block counted once per invocation, the LoRA
+                     merges' writes and reads, the recurrent state read
+                     and written), zamba2's span share, kernels a tick and
+                     the LoRA merges' device time beside the span, and the
+                     init's and the serving's peak memory
+ 22. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 22. last line: {"ok": true, "device": {...}}
+ 23. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes on another path (device busy share, top
 kernels) is a one-off measurement:
@@ -212,6 +232,7 @@ from repro_torch.kernels.pul_matmul import (  # noqa: E402
     matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.module import flatten  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, PackedKVLayout, PagedEngineConfig, PagedServingEngine,
@@ -236,6 +257,12 @@ MLA_LAYERS = 6
 # layer's experts (6.4 GB) fit one card
 GROK = "grok-1-314b"
 GROK_LAYERS = 6
+# the recurrent pair, full width and depth: zamba2-7b (54 Mamba2 layers and
+# the shared attention block at 27 invocations, each with its LoRA merged
+# into the shared q/k/v; 9.45 GB of weights) and rwkv6-7b (attention free,
+# 15.07 GB)
+ZAMBA2, RWKV6 = "zamba2-7b", "rwkv6-7b"
+RECURRENT_MODELS = (ZAMBA2, RWKV6)
 # published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
 # dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
 # every bound uses, and float32 flop/s outside the tensor cores, where the
@@ -582,7 +609,25 @@ SERVED_K12 = {
     "gemma3-12b": [500, 1023, 1024, 1039, 2100, 4095],
     GROK: [0, 7, 16, 1000, 513, 250, 64, 999],
     "musicgen-large": [1, 15, 16, 17, 1000, 500, 128, 1023],
+    # zamba2's shared attention: MHA (a group of 1) at hd 112, which tpk
+    # rounds from 14 granules to 16 lanes; its planted faults run too
+    ZAMBA2: [0, 7, 16, 1000, 513, 250, 64, 999],
 }
+
+
+def _features(cfg):
+    """The packed KV row's width of `cfg` (PackedKVLayout; 0 for a model
+    without pageable KV)."""
+    return PackedKVLayout(dataclasses.replace(cfg, paged_kv=True), 1,
+                          P).features
+
+
+def _attention_layers(cfg):
+    """Layers whose attention K1/K2 launch for (the dense layers and the
+    pattern's attention entries, in every group)."""
+    attn = sum(kind not in transformer.RECURRENT_KINDS
+               for kind in cfg.pattern)
+    return cfg.first_dense_layers + attn * cfg.num_groups
 
 
 def _attention_widths(cfg):
@@ -597,10 +642,11 @@ def _attention_widths(cfg):
 def phase_kernels_served():
     """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap 50 and
     window 4096, gemma3-12b's hd 256 and window 1024, grok-1's group of 6
-    with softcap 30 and musicgen's group of 1 at hd 64 (SERVED_K12):
-    within two bf16 ulps of the plain version at the plan's split count and
-    at 128 splits (where a windowed row's visible pages leave splits that
-    see none), K1 == K2 bitwise, the commit bitwise; times at the engine's
+    with softcap 30, musicgen's group of 1 at hd 64 and zamba2's group of
+    1 at hd 112 (SERVED_K12): within two bf16 ulps of the plain version at
+    the plan's split count and at 128 splits (where a windowed row's
+    visible pages leave splits that see none), K1 == K2 bitwise, the commit
+    bitwise; zamba2's planted faults rejected; times at the engine's
     distance beside the plain version's and the byte bound, which counts
     only the pages inside the window. Returns the rows by model."""
     dev = torch.device("cuda")
@@ -609,13 +655,12 @@ def phase_kernels_served():
     out = {}
     for model, lengths in SERVED_K12.items():
         widths, opts = _attention_widths(get_config(model))
-        past = SERVED_MODELS[model]
+        past = SERVED_MODELS.get(model)
         widths["max_seq"] = past.geometry[1] if past else MAX_SEQ
         c = _kernel_case(gen, dev, lengths, layers=4, **widths, **opts)
         hd = widths["hd"]
         cfg = PULConfig(distance=engine_distance(
-            2 * smoke_config(model).num_layers * widths["kv"] * hd,
-            widths["heads"] // widths["kv"]))
+            _features(smoke_config(model)), widths["heads"] // widths["kv"]))
         kw = dict(scale=1.0 / math.sqrt(hd), softcap=c["softcap"],
                   window=c["window"])
         layer = 3
@@ -643,6 +688,8 @@ def phase_kernels_served():
                                      "plain version's")
             errs.append((out1.float() - want.float()).abs().max().item())
             del kp, vp
+        if model == ZAMBA2:
+            _planted_faults(c, want, layer, kw, _split_plan(c, cfg).n_split)
         args = (c["q"], c["kp"], c["vp"], layer, c["pt"], c["lens"], c["kn"],
                 c["vn"], c["frames"], c["offs"])
         k1_ms = _time_ms(lambda: PA.pul_paged_sweep_decode_attention(
@@ -873,9 +920,9 @@ def phase_kernels_gather():
     """K5 against its plain version, bitwise: the general gather in three
     types at three distances and both issue orders, then the page form at
     the serving geometry (8 slots x 64 pages of the engine's 516 frames) at
-    the page width of every served model (qwen3, deepseek and
-    SERVED_MODELS', whose rows of up to 384 KB change the bulk plan's
-    chunks a page), with planted faults, times and bounds."""
+    the page width of every served model (qwen3, deepseek,
+    SERVED_MODELS' and zamba2's, whose rows of up to 387 KB change the
+    bulk plan's chunks a page), with planted faults, times and bounds."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -899,10 +946,11 @@ def phase_kernels_gather():
     out = {}
     widths = [("qwen3", 2 * L * KV * HD, H // KV),
               ("deepseek", MLA_LAYERS * (KVR + DR), 1)]
-    for arch in SERVED_MODELS:
-        cfg = dataclasses.replace(smoke_config(arch), paged_kv=True)
-        widths.append((arch, PackedKVLayout(cfg, 1, P).features,
-                       cfg.num_heads // cfg.num_kv_heads))
+    for arch in (*SERVED_MODELS, *RECURRENT_MODELS):
+        cfg = smoke_config(arch)
+        if _features(cfg):
+            widths.append((arch, _features(cfg),
+                           cfg.num_heads // cfg.num_kv_heads))
     for label, F, gqa in widths:
         cfg = PULConfig(distance=engine_distance(F, gqa))
         plan = gather_bulk_plan(cfg, rows_per_req=P, row_bytes=F * 2)
@@ -1647,10 +1695,15 @@ def _engine(cfg, params, path, device):
 
 
 def _path_kernel(cfg, path):
-    """(the kernel the path launches, launches per decode step)."""
+    """(the kernel the path launches, launches per decode step): one per
+    attention layer on the kernel-true paths; none on any path for a model
+    without pageable KV (rwkv6), which decodes by the dense step."""
+    if not _features(cfg):
+        return None, 0
     mla = cfg.attn_type == "mla"
-    return {"sweep": ("k3" if mla else "k1", cfg.num_layers),
-            "per-layer": ("k4" if mla else "k2", cfg.num_layers),
+    n = _attention_layers(cfg)
+    return {"sweep": ("k3" if mla else "k1", n),
+            "per-layer": ("k4" if mla else "k2", n),
             "assembly": ("k5", 1),
             "assembly-plain": (None, 0)}[path.removesuffix("-eager")]
 
@@ -1672,7 +1725,8 @@ TAGS = {"qwen3-1.7b": "serving", DEEPSEEK: "serving-mla",
         "qwen2.5-32b": "serving-qwen2.5", "gemma2-27b": "serving-gemma2",
         "gemma3-12b": "serving-gemma3", GROK: "serving-grok",
         "internvl2-2b": "serving-internvl2",
-        "musicgen-large": "serving-musicgen"}
+        "musicgen-large": "serving-musicgen", ZAMBA2: "serving-zamba2",
+        RWKV6: "serving-rwkv6"}
 
 
 def _tag(cfg, path):
@@ -1680,10 +1734,11 @@ def _tag(cfg, path):
     return f"[{base}-assembly]" if path.startswith("assembly") else f"[{base}]"
 
 
-def phase_serving(cfg, params, *, path, device="cuda"):
+def phase_serving(cfg, params, *, path, device="cuda", preempt=True):
     """Serve the request script on one decode path (PATHS): through the
     sweep kernel (K1; K3 for MLA), the per-layer one (K2; K4), or assembly
-    through K5 or plain indexing, with one preempt/resume mid-stream.
+    through K5 or plain indexing, with one preempt/resume mid-stream
+    (unless `preempt` is False; stats name the preempted request).
     Returns (tokens by request, stats, the engine's top-2 gaps)."""
     key, per_step = _path_kernel(cfg, path)
     tag = _tag(cfg, path)
@@ -1705,10 +1760,12 @@ def phase_serving(cfg, params, *, path, device="cuda"):
     for _ in range(6):
         step()
     victim = eng._live_slots()[0]
-    eng.preempt(victim)
-    for _ in range(3):
-        step()
-    eng.resume(victim)
+    preempted = eng.slot_req[victim].rid
+    if preempt:
+        eng.preempt(victim)
+        for _ in range(3):
+            step()
+        eng.resume(victim)
     while len(eng.scheduler) or any(r is not None for r in eng.slot_req):
         step()
     out = {rid: r.out_tokens for rid, r in eng.requests.items()}
@@ -1726,7 +1783,8 @@ def phase_serving(cfg, params, *, path, device="cuda"):
     others = [k for k, n in launches.items() if n and k != key]
     if others:
         raise AssertionError(f"{others} launched on the {path} path")
-    if pm.page_faults < 1 or pm.shared_hits < 1:
+    if eng.layout.features and preempt and (pm.page_faults < 1
+                                            or pm.shared_hits < 1):
         raise AssertionError(f"page_faults {pm.page_faults}, shared_hits "
                              f"{pm.shared_hits}: the cold tier or prefix "
                              "sharing did not run")
@@ -1742,7 +1800,8 @@ def phase_serving(cfg, params, *, path, device="cuda"):
              "page_faults": pm.page_faults, "evictions": pm.evictions,
              "shared_hits": pm.shared_hits,
              "bytes_hot_written": pm.bytes_hot_written,
-             "preload_distance": eng.pul_distance}
+             "preload_distance": eng.pul_distance,
+             "preempted_rid": preempted if preempt else None}
     print(f"{tag} " + json.dumps(stats))
     gaps = eng.gaps
     del eng
@@ -1798,9 +1857,10 @@ WINDOW_GEOMETRY = (2, 6144, (512, 1024, 2048, 4096, 6144))
 WINDOW_PROMPTS = (5000, 4500, 300)
 
 
-def _geometry_engine(cfg, params, path, device, geometry, chunk=0):
+def _geometry_engine(cfg, params, path, device, geometry, chunk=0,
+                     cls=None):
     slots, max_seq, buckets = geometry
-    return _CheckedEngine(cfg, params, PagedEngineConfig(
+    return (cls or _CheckedEngine)(cfg, params, PagedEngineConfig(
         batch_slots=slots, max_seq=max_seq, page_tokens=P,
         prefill_buckets=buckets, prefill_chunk_tokens=chunk, device=device,
         **PATHS[path]))
@@ -1893,14 +1953,26 @@ def _tick_bytes(cfg, params, eng):
     """Bytes a decode tick of `eng` must move at least, at its slots'
     present lengths: every weight once (the embedding table only for the
     rows the tick looks up, unless the head reads it whole as a tied
-    table), and every cached K/V row a live slot's attention sees once (a
-    local layer's within its window)."""
+    table), zamba2's shared block once per invocation (num_groups times),
+    each invocation's merged q/k/v weights written and read back (the
+    reference's per-invocation LoRA merge), the recurrent state read and
+    written once, and every cached K/V row a live slot's attention sees
+    once (a local layer's within its window)."""
     nbytes = 0
     for path, t in flatten(params):
         if path == "embedding/table" and not cfg.tie_embeddings:
             nbytes += len(eng.slot_req) * t[0].numel() * t.element_size()
+        elif path.startswith("shared/"):
+            nbytes += cfg.num_groups * t.numel() * t.element_size()
         else:
             nbytes += t.numel() * t.element_size()
+    if cfg.shared_lora_rank:
+        attn = params["shared"]["attn"]
+        merged = sum(attn[w].numel() * attn[w].element_size()
+                     for w in ("wq", "wk", "wv"))
+        nbytes += cfg.num_groups * 2 * merged
+    for _, t in flatten(eng.resident):
+        nbytes += 2 * t.numel() * t.element_size()
     lengths = [int(n) for n, r in zip(eng.slot_len, eng.slot_req)
                if r is not None]
     for e in eng.layout.entries:
@@ -2546,8 +2618,10 @@ def _same_state(cfg, params, tag, device, geometry, n_tokens):
     if bad:
         raise AssertionError(f"{cfg.name} at {n_tokens} tokens: {bad} past "
                              f"{limit} (2e-2 x max |K1 logits|)")
+    key = _path_kernel(cfg, "sweep")[0]
+    ref = key.upper() if key else "the sweep path"
     print(f"{tag} one decode step at position {n_tokens}, {slots} slots of "
-          f"{max_seq}: max |logits - K1's|: assembly {errs['assembly']:.4e}, "
+          f"{max_seq}: max |logits - {ref}'s|: assembly {errs['assembly']:.4e}, "
           f"dense engine {errs['dense']:.4e} (limit {limit:.4e} = 2e-2 x max "
           "|logits|)")
     return errs
@@ -2828,6 +2902,185 @@ def phase_model(arch, device="cuda"):
     return s1, s2
 
 
+def _redraw_lora_b(params, seed=0):
+    """zamba2's LoRA B matrices, which the init leaves at zero (so that each
+    invocation's merge would add nothing), drawn from `seed` in place:
+    normal with std 1/sqrt(rank)."""
+    dev = params["embedding"]["table"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for path, t in flatten(params):
+        if path.rsplit("/", 1)[-1] in ("q_b", "k_b", "v_b"):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev)
+                    * t.shape[-2] ** -0.5)
+
+
+def _lora_merge_ms(cfg, params):
+    """Device time of one tick's LoRA merges (CUDA events): the shared
+    q/k/v weights with each invocation's delta merged in, num_groups
+    times, as the decode step does."""
+    key = next(k for k in transformer.group_keys(cfg)
+               if k.endswith(":shared_attn"))
+    attn = params["shared"]["attn"]
+    loras = [transformer._layer(params["groups"][key], g)
+             for g in range(cfg.num_groups)]
+    return _time_ms(lambda: [transformer._merged_lora_attn(attn, lora, cfg)
+                             for lora in loras], reps=5, warmup=1)
+
+
+class _FirstLogits(_CheckedEngine):
+    """The checked engine keeping each request's first emitted logits."""
+
+    def _record(self, slot, logits):
+        self.first.setdefault(self.slot_req[slot].rid, logits.copy())
+        super()._record(slot, logits)
+
+
+def _undisturbed(cfg, params, out, stats, tag, device="cuda"):
+    """The script again on the same path without the preempt/resume: the
+    request that was paused for three ticks (its pages evicted, its
+    recurrent state's rows snapshotted and written back) gives the
+    undisturbed run's stream, bitwise."""
+    rid = stats["preempted_rid"]
+    path = stats["path"].split()[0]
+    calm, _, _ = phase_serving(cfg, params, path=path, device=device,
+                               preempt=False)
+    if calm[rid] != out[rid]:
+        raise AssertionError(f"{cfg.name}: request {rid} preempted and "
+                             f"resumed gave {out[rid]}, undisturbed "
+                             f"{calm[rid]}")
+    print(f"{tag} request {rid}, paused for 3 ticks and resumed: its "
+          f"{len(out[rid])} tokens == an undisturbed run's, bitwise")
+
+
+def _chunked_first_token(cfg, params, tag, device="cuda"):
+    """A 500-token prompt (bucket 512) on the sweep, prefilled at once and
+    in chunks of 128 tokens (passes at 128, 256, 384 and 500 tokens, the
+    last at the monolithic bucket, whose state the slot takes): the first
+    token and its logits equal bitwise."""
+    prompt = np.random.default_rng(4).integers(1, cfg.vocab_size,
+                                               500).tolist()
+    first = {}
+    for chunk in (0, 128):
+        eng = _geometry_engine(cfg, params, "sweep", device,
+                               (SLOTS, MAX_SEQ, SERVE_BUCKETS), chunk,
+                               cls=_FirstLogits)
+        eng.first = {}
+        eng.submit(Request(rid=0, prompt=prompt, max_new_tokens=2))
+        out = eng.run()
+        if eng.metrics.chunk_passes != (4 if chunk else 0):
+            raise AssertionError(f"{eng.metrics.chunk_passes} chunk passes "
+                                 f"at prefill_chunk_tokens {chunk}")
+        first[chunk] = (out[0][0], eng.first[0])
+        del eng
+    (t0, l0), (t1, l1) = first[0], first[128]
+    if t0 != t1 or not np.array_equal(l0, l1):
+        raise AssertionError(f"{cfg.name}: chunked prefill's first token "
+                             f"{t1} (logits equal: {np.array_equal(l0, l1)})"
+                             f" vs monolithic {t0}")
+    print(f"{tag} a 500-token prompt prefilled in 4 chunk passes of 128: "
+          f"first token {t1} and its logits == the monolithic prefill's, "
+          "bitwise")
+
+
+def _recurrent_tick(cfg, params, device="cuda"):
+    """A model without a kernel-true step at profile_decode's state (the
+    script's first 8 requests admitted, 3 ticks): the median of 4 decode
+    ticks' host time (each ends in the logits' copy, which waits for the
+    device) and the tick's byte bound at that state."""
+    eng = _engine(cfg, params, "sweep", device)
+    for r in _requests(cfg.vocab_size)[:SLOTS]:
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    n = eng.metrics.prefills
+    bound_ms = _tick_bytes(cfg, params, eng) / HBM_PEAK * 1e3
+    ms = [_tick_ms(eng) for _ in range(4)]
+    if eng.metrics.prefills != n:
+        raise AssertionError("a prefill ran inside the decode window")
+    return statistics.median(ms), bound_ms
+
+
+def phase_recurrent(arch, device="cuda"):
+    """One model of RECURRENT_MODELS at full width and depth, random
+    weights from seed 0 (zamba2's LoRA B matrices redrawn from the seed, so
+    that each invocation's merge adds a delta), loaded alone and freed at
+    the end. zamba2: the request script captured on K1 and K2 and eager on
+    K1 (three streams bitwise equal, K1/K2 once per shared-attention
+    invocation and step), on the assembly path through K5, and one decode
+    step of the assembly path and of the dense ServingEngine held to K1's
+    on one state. rwkv6, which has no pageable KV: the script on its one
+    route (the dense step over the engine's recurrent state, eager,
+    launching no kernel of the port), and one decode step of the paged
+    engine held to the dense engine's. Both: the preempted request's
+    stream against an undisturbed run's, bitwise; a chunked prefill's
+    first token against the monolithic one's, bitwise; the decode tick
+    beside its byte bound; zamba2 also the captured step's profile (its
+    span's share of the tick, kernels a tick) and the LoRA merges' device
+    time beside the span; the init's and the serving's peak memory."""
+    cfg = smoke_config(arch)
+    tag = f"[{TAGS[arch]}]"
+    torch.cuda.reset_peak_memory_stats()
+    params = _timed(f"{TAGS[arch]} init", init_params, cfg, seed=0,
+                    device=device)
+    if cfg.shared_lora_rank:
+        _redraw_lora_b(params)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated() / 1e9
+    weights = sum(t.numel() * t.element_size() for _, t in flatten(params))
+    print(f"{tag} {cfg.name}: {cfg.num_layers} layers, pattern "
+          f"{cfg.pattern}, {weights / 1e9:.2f} GB of weights, "
+          f"{_features(cfg)} packed KV features a token, "
+          f"{_attention_layers(cfg)} attention layers")
+    summary = {"smi": _smi("name,power.limit"), "model": cfg.name,
+               "weights_gb": weights / 1e9, "init_peak_gb": init_peak}
+    peaks = []
+
+    def phase(label, fn, *args, **kw):
+        out = _timed(f"{TAGS[arch]} {label}", fn, *args, **kw)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        return out
+    if _features(cfg):
+        s1, _, out, gaps = phase("captured and eager",
+                                 _serve_captured_and_eager, cfg, params,
+                                 device, eager=("sweep",))
+        asm, _, _ = phase("assembly", phase_serving, cfg, params,
+                          path="assembly", device=device)
+        _divergence(_tag(cfg, "assembly"), out, gaps, asm)
+    else:
+        warm_up(cfg, params, device, paths=("sweep",))
+        out, s1, _ = phase("script", phase_serving, cfg, params,
+                           path="sweep", device=device)
+    phase("same state", _same_state, cfg, params, tag, device,
+          (SLOTS, MAX_SEQ, SERVE_BUCKETS), 512)
+    phase("undisturbed", _undisturbed, cfg, params, out, s1, tag, device)
+    phase("chunked", _chunked_first_token, cfg, params, tag, device)
+    summary["script_decode_tick_ms_median"] = s1["decode_tick_ms_median"]
+    summary["script_path"] = s1["path"]
+    if _features(cfg):
+        prof = phase("profile", profile_decode, arch, "sweep", params=params)
+        merge_ms = _lora_merge_ms(cfg, params)
+        span = prof["untraced_step_device_span_ms_per_tick"]
+        summary.update(
+            tick_ms=prof["untraced_wall_ms_per_tick"],
+            tick_byte_bound_ms=prof["tick_byte_bound_ms"],
+            step_span_ms=span, span_share=prof["untraced_step_span_share"],
+            kernels_per_tick=prof["kernels_per_tick"],
+            device_idle_share=prof["device_idle_share"],
+            lora_merge_ms=merge_ms, lora_merge_share_of_span=merge_ms / span)
+    else:
+        tick_ms, bound_ms = _recurrent_tick(cfg, params, device)
+        summary.update(tick_ms=tick_ms, tick_byte_bound_ms=bound_ms)
+    summary["tick_over_bound"] = summary["tick_ms"] / summary[
+        "tick_byte_bound_ms"]
+    summary["serving_peak_gb"] = max(peaks)
+    print(f"{tag} summary " + json.dumps(summary))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2897,6 +3150,9 @@ def main():
 
     for arch in SERVED_MODELS:
         phase_model(arch)
+        print(f"[done] {TAGS[arch]} {time.perf_counter() - t0:.1f} s")
+    for arch in RECURRENT_MODELS:
+        phase_recurrent(arch)
         print(f"[done] {TAGS[arch]} {time.perf_counter() - t0:.1f} s")
 
     rows = []

@@ -9,7 +9,10 @@ submits a burst of requests with different lengths (two sharing a
 page-aligned prompt prefix, so their prompt pages are physically shared),
 preempts one mid-stream to push its pages through the cold tier, resumes
 it, and checks that every request finished, that the prefix pages were
-shared and that the victim's pages were evicted and restored.
+shared and that the victim's pages were evicted and restored. A model
+without pageable KV (rwkv6-7b) keeps only recurrent state, which no page
+holds: there the page checks do not apply, and the preempted request's
+state is snapshotted and written back instead.
 
 The shared flag surface (``ServingConfig.add_flags``) picks the device and
 the decode path (kernel-true fused sweep by default); the example layers
@@ -88,9 +91,10 @@ def main(argv=None):
           f"{snap['shared_page_hits']} prefix-shared, "
           f"{snap['evictions']} evicted, {snap['page_faults']} restored")
     assert all(len(v) == args.max_new for v in out.values())
-    assert snap["shared_page_hits"] >= 1, "prefix pages should be shared"
-    if victim is not None:
-        assert snap["evictions"] >= 1 and snap["page_faults"] >= 1
+    if eng.layout.features:
+        assert snap["shared_page_hits"] >= 1, "prefix pages should be shared"
+        if victim is not None:
+            assert snap["evictions"] >= 1 and snap["page_faults"] >= 1
     return out, snap
 
 

@@ -1,23 +1,33 @@
 """Backbone of the port (``repro/models/transformer.py``): parameter and
 cache trees, prefill, the dense decode step and the paged decode step, for
-dense patterns of global and sliding-window local GQA layers (("global",),
-gemma2's ("local", "global"), gemma3's five local and one global), with or
-without sandwich norms, for ("moe",) with GQA (grok-1) or MLA attention,
-for unscanned dense leading layers (deepseek-v2's layer 0), rope or
-sinusoidal positions (musicgen) and a frontend prefix in prefill
-(internvl2's and musicgen's stubs).
+every pattern of the reference zoo: global and sliding-window local GQA
+layers (("global",), gemma2's ("local", "global"), gemma3's five local and
+one global), with or without sandwich norms; ("moe",) with GQA (grok-1) or
+MLA attention; unscanned dense leading layers (deepseek-v2's layer 0); the
+recurrent blocks, RWKV6's ("rwkv",) and zamba2's ("mamba", "mamba",
+"shared_attn"), whose shared attention block is applied at every
+invocation with that invocation's LoRA delta merged into its q/k/v
+weights; rope or sinusoidal positions (musicgen) and a frontend prefix in
+prefill (internvl2's and musicgen's stubs).
 
 A config's ``pattern`` forms one group; the parameter tree keeps one
 subtree per pattern entry, ``"groups"/"{i}:{kind}"``, each stacked over
-``num_groups``. The reference ``lax.scan``s over the groups; here the scan
-is a Python loop over the same stacked tensors (group g, then entry i,
-reads row g of entry i's stacked weights, a view). The unscanned dense
-layers run first, from their own ``"dense"`` subtree, as in the reference.
-In the single-sweep decode the loop hands each block's plane path and
-layer index to the sweep kernel, which reads and updates that layer's row
-of the full planes in place — a dense layer's planes have layer extent 1
-and are read at layer 0. In-place update replaces the reference's XLA
-input/output aliasing and buffer donation of the planes.
+``num_groups``, and zamba2's shared block once, under ``"shared"``. The
+reference ``lax.scan``s over the groups; here the scan is a Python loop
+over the same stacked tensors (group g, then entry i, reads row g of entry
+i's stacked weights, a view). The unscanned dense layers run first, from
+their own ``"dense"`` subtree, as in the reference. In the single-sweep
+decode the loop hands each attention block's plane path and layer index to
+the sweep kernel, which reads and updates that layer's row of the full
+planes in place — a dense layer's planes have layer extent 1 and are read
+at layer 0. In-place update replaces the reference's XLA input/output
+aliasing and buffer donation of the planes.
+
+A recurrent block's state (RWKV's S and token-shift carries, Mamba's h and
+conv state) is not pageable: prefill returns it beside the KV caches, and a
+decode step (dense or paged) takes it in the cache tree and returns its
+successor, as new tensors; a paged decode step is an ordinary decode step
+for these blocks, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,25 +40,28 @@ from repro_torch.core.pul import PULConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
-from repro_torch.models.module import stack_params
+from repro_torch.models import ssm as SSM
+from repro_torch.models.module import Param, stack_params
+
+#: the reference's block kinds
+BLOCK_KINDS = ("global", "local", "moe", "dense", "rwkv", "mamba",
+               "shared_attn")
+#: kinds whose cache is recurrent state, not pageable KV
+RECURRENT_KINDS = ("rwkv", "mamba")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves any pattern of dense global and local (sliding
-    window) layers, or ("moe",) (gather or einsum dispatch), with GQA or
-    MLA attention, rope or sinusoidal positions, a frontend prefix in
-    prefill, sandwich norms and unscanned dense leading layers; the
-    reference zoo's recurrent blocks (rwkv, mamba, zamba2's shared
-    attention) and attention-free configs raise (ROADMAP, port queue)."""
-    dense = set(cfg.pattern) <= {"global", "local"}
+    """Raises for what the reference itself lacks: a pattern kind outside
+    BLOCK_KINDS, an attention type other than GQA, MLA or none."""
     missing = [name for name, on in (
-        ("pattern other than global/local layers or ('moe',)",
-         not dense and cfg.pattern != ("moe",)),
-        ("attention other than GQA or MLA", cfg.attn_type not in ("gqa", "mla")),
+        (f"pattern kinds {sorted(set(cfg.pattern) - set(BLOCK_KINDS))}",
+         not set(cfg.pattern) <= set(BLOCK_KINDS)),
+        (f"attention type {cfg.attn_type!r}",
+         cfg.attn_type not in ("gqa", "mla", "none")),
     ) if on]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet ({', '.join(missing)})")
+            f"{cfg.name}: the reference has no {', '.join(missing)}")
 
 
 def group_keys(cfg: ModelConfig):
@@ -59,7 +72,7 @@ def group_keys(cfg: ModelConfig):
 # --------------------------------------------------------------------------
 # parameter and cache trees
 # --------------------------------------------------------------------------
-def block_params(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+def _attn_mlp_block_params(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
     p = {"norm1": L.rms_norm_params(cfg.d_model),
          "norm2": L.rms_norm_params(cfg.d_model)}
     if cfg.sandwich_norm:
@@ -69,6 +82,32 @@ def block_params(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
                  else L.attention_params(cfg))
     p["mlp"] = MOE.moe_params(cfg) if kind == "moe" else L.mlp_params(cfg)
     return p
+
+
+def _lora_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """Zamba2's per-invocation LoRA of the shared q/k/v projections; the B
+    matrices start at zero, as in the reference."""
+    D, H, hd, r = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.shared_lora_rank
+    K = cfg.num_kv_heads
+    dt = torch.bfloat16
+    return {
+        "q_a": Param((D, r), ("embed", "lora"), dt, "fan_in"),
+        "q_b": Param((r, H * hd), ("lora", "dinner"), dt, "zeros"),
+        "k_a": Param((D, r), ("embed", "lora"), dt, "fan_in"),
+        "k_b": Param((r, K * hd), ("lora", "dinner"), dt, "zeros"),
+        "v_a": Param((D, r), ("embed", "lora"), dt, "fan_in"),
+        "v_b": Param((r, K * hd), ("lora", "dinner"), dt, "zeros"),
+    }
+
+
+def block_params(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    if kind == "rwkv":
+        return SSM.rwkv_params(cfg)
+    if kind == "mamba":
+        return SSM.mamba_params(cfg)
+    if kind == "shared_attn":
+        return _lora_params(cfg) if cfg.shared_lora_rank else {}
+    return _attn_mlp_block_params(cfg, kind)
 
 
 def model_params(cfg: ModelConfig) -> Dict[str, Any]:
@@ -83,6 +122,8 @@ def model_params(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.first_dense_layers:
         p["dense"] = {str(i): block_params(cfg, "dense")
                       for i in range(cfg.first_dense_layers)}
+    if "shared_attn" in cfg.pattern:
+        p["shared"] = _attn_mlp_block_params(cfg, "global")
     return p
 
 
@@ -96,6 +137,10 @@ def local_rows(cfg: ModelConfig, max_seq: int) -> int:
 
 
 def _block_cache_spec(cfg: ModelConfig, kind: str, batch: int, max_seq: int):
+    if kind == "rwkv":
+        return SSM.rwkv_state_spec(cfg, batch)
+    if kind == "mamba":
+        return SSM.mamba_state_spec(cfg, batch)
     if cfg.attn_type == "mla":
         return MLA.mla_cache_spec(cfg, batch, max_seq)
     rows = local_rows(cfg, max_seq) if kind == "local" else max_seq
@@ -125,29 +170,58 @@ def _layer(tree: Dict[str, Any], g: int) -> Dict[str, Any]:
             for k, v in tree.items()}
 
 
+def _merged_lora_attn(shared_attn, lora, cfg: ModelConfig):
+    """Zamba2: the shared attention weights with one invocation's LoRA
+    deltas merged in, in bf16, once per invocation, as the reference does:
+    wq + (q_a @ q_b) and likewise k and v (not x @ wq + (x @ q_a) @ q_b,
+    which rounds otherwise)."""
+    if not lora:
+        return shared_attn
+    H, K, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    p = dict(shared_attn)
+    p["wq"] = shared_attn["wq"] + (lora["q_a"] @ lora["q_b"]).reshape(D, H, hd)
+    p["wk"] = shared_attn["wk"] + (lora["k_a"] @ lora["k_b"]).reshape(D, K, hd)
+    p["wv"] = shared_attn["wv"] + (lora["v_a"] @ lora["v_b"]).reshape(D, K, hd)
+    return p
+
+
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
-                step_kind: str, cache=None, max_seq=None, paged=None):
-    """Returns (x, new_cache)."""
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+                step_kind: str, cache=None, max_seq=None, paged=None,
+                shared=None):
+    """Returns (x, new_cache). A recurrent block's cache is its state; a
+    shared_attn block applies `shared` (the shared attention and MLP block,
+    its own norms) with `p`, the invocation's LoRA, merged in."""
+    if kind in RECURRENT_KINDS:
+        # no pageable KV: a paged decode step is an ordinary decode step
+        apply = (SSM.rwkv_block_apply if kind == "rwkv"
+                 else SSM.mamba_block_apply)
+        return apply(p, x, cfg=cfg, state=cache,
+                     kind="decode" if step_kind == "paged_decode"
+                     else step_kind)
+    if kind == "shared_attn":
+        blk, attn_p = shared, _merged_lora_attn(shared["attn"], p, cfg)
+    else:
+        blk, attn_p = p, p["attn"]
+    h = L.rms_norm(x, blk["norm1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
-        h, new_cache = MLA.mla_apply(p["attn"], h, cfg=cfg,
+        h, new_cache = MLA.mla_apply(attn_p, h, cfg=cfg,
                                      positions=positions, kind=step_kind,
                                      cache=cache, max_seq=max_seq, paged=paged)
     else:
         h, new_cache = L.attention_apply(
-            p["attn"], h, cfg=cfg, positions=positions, kind=step_kind,
+            attn_p, h, cfg=cfg, positions=positions, kind=step_kind,
             local=(kind == "local"), cache=cache, max_seq=max_seq,
             paged=paged)
     if cfg.sandwich_norm:
-        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
+        h = L.rms_norm(h, blk["post_norm1"], cfg.norm_eps)
     x = x + h
-    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
     if kind == "moe":
-        h, _ = MOE.moe_apply(p["mlp"], h, cfg=cfg)
+        h, _ = MOE.moe_apply(blk["mlp"], h, cfg=cfg)
     else:
-        h = L.mlp_apply(p["mlp"], h, cfg=cfg)
+        h = L.mlp_apply(blk["mlp"], h, cfg=cfg)
     if cfg.sandwich_norm:
-        h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
+        h = L.rms_norm(h, blk["post_norm2"], cfg.norm_eps)
     return x + h, new_cache
 
 
@@ -169,15 +243,28 @@ def _blocks(params, cfg: ModelConfig):
 
 def _tree(cfg: ModelConfig, per_block) -> Dict[str, Any]:
     """A cache tree from one cache per block, in `_blocks` order: each
-    pattern entry's caches stacked over the groups."""
+    pattern entry's caches stacked over the groups. Blocks whose cache is
+    None (the sweep's attention blocks) are left out."""
     n_dense = cfg.first_dense_layers
     keys = group_keys(cfg)
     scanned = per_block[n_dense:]
     tree = {"groups": {key: _stack(scanned[i::len(keys)])
-                       for i, key in enumerate(keys)}}
-    if n_dense:
-        tree["dense"] = {str(i): per_block[i] for i in range(n_dense)}
+                       for i, key in enumerate(keys)
+                       if scanned[i] is not None}}
+    dense = {str(i): per_block[i] for i in range(n_dense)
+             if per_block[i] is not None}
+    if dense:
+        tree["dense"] = dense
     return tree
+
+
+def _block_cache(caches, prefix, g):
+    """One block's cache from a tree of stacked entries: row g of each
+    leaf (views) under "groups", the dense layer's own otherwise."""
+    cache = caches[prefix[0]][prefix[1]]
+    if prefix[0] == "groups":
+        cache = {k: v[g] for k, v in cache.items()}
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -208,18 +295,22 @@ def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
     frontend_embeds (B, Tf, D), prepended to the tokens where the config
     has a frontend. Returns (logits (B, V) at each row's last real token,
     caches), the cache tree of :func:`cache_specs` at seq size max_seq
-    (bf16 K/V or c_kv / k_rope, idx = Tf + T).
+    (bf16 K/V or c_kv / k_rope, idx = Tf + T; a recurrent block's state).
 
-    The reference's quirk is kept: with a frontend prefix, `lengths` index
-    the concatenated sequence (the logits are read at lengths - 1, not
-    shifted by Tf)."""
+    The reference's quirks are kept: with a frontend prefix, `lengths`
+    index the concatenated sequence (the logits are read at lengths - 1,
+    not shifted by Tf); a recurrent block's state is taken at the end of
+    the whole (right-padded) sequence, after the padding tokens, not at
+    each row's length."""
     x, positions = _embed_inputs(params, tokens, cfg,
                                  frontend_embeds=frontend_embeds)
     B, T = x.shape[:2]
+    shared = params.get("shared")
     caches = []
     for _, _, kind, p in _blocks(params, cfg):
         x, c = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
-                           step_kind="prefill", max_seq=max_seq)
+                           step_kind="prefill", max_seq=max_seq,
+                           shared=shared)
         caches.append(c)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lengths is not None:
@@ -240,21 +331,27 @@ def decode_fn(params, batch, caches, *, cfg: ModelConfig):
     fill levels ((L, B) stacked for each pattern entry). Every layer writes
     the token's rows IN PLACE into `caches` at row idx % S (through views of
     the stacked leaves, so no copy of the cache is made) and attends over
-    rows <= idx. Returns (logits (B, V), new caches): the same leaves, every
-    idx + 1."""
+    rows <= idx; a recurrent block reads its state from `caches` and
+    returns the next one. Returns (logits (B, V), new caches): the same
+    attention leaves with every idx + 1, and each recurrent entry's new
+    state, stacked over the groups (new tensors)."""
     x, positions = _embed_inputs(params, batch["tokens"], cfg,
                                  pos0=batch["pos0"])
+    shared = params.get("shared")
+    states = []
     for prefix, g, kind, p in _blocks(params, cfg):
-        cache = caches[prefix[0]][prefix[1]]
-        if prefix[0] == "groups":
-            cache = {k: v[g] for k, v in cache.items()}
-        x, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
-                           step_kind="decode", cache=cache)
+        x, nc = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+                            step_kind="decode",
+                            cache=_block_cache(caches, prefix, g),
+                            shared=shared)
+        states.append(nc if kind in RECURRENT_KINDS else None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.logits_apply(params["embedding"], x, cfg=cfg)[:, 0, :]
-    new = {top: {key: {**blk, "idx": blk["idx"] + 1}
+    new = {top: {key: ({**blk, "idx": blk["idx"] + 1} if "idx" in blk
+                       else blk)
                  for key, blk in sub.items()}
            for top, sub in caches.items()}
+    new["groups"].update(_tree(cfg, states)["groups"])
     return logits, new
 
 
@@ -267,15 +364,19 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
     physical frame of each slot's logical page.
 
     **Single sweep** (`planes` = the layout's plane dict, batch also carries
-    frames/offsets (B,) int32): every layer runs the sweep kernel (K1, or K3
-    for MLA) on the full planes and commits the current token's rows in
-    place. Returns (logits (B, V), None).
+    frames/offsets (B,) int32): every attention layer runs the sweep kernel
+    (K1, or K3 for MLA) on the full planes and commits the current token's
+    rows in place. `caches` holds only the recurrent entries' state (None
+    without them). Returns (logits (B, V), the recurrent entries' new state
+    or None).
 
-    **Per layer** (`caches` = the layout's page-view tree, planes None):
-    every layer runs K2 (K4 for MLA) over its own frames; returns (logits,
-    new_caches) whose pageable leaves hold ONLY the current token's rows —
-    (L, B, ...) for each pattern entry, (B, ...) for a dense layer — for the
-    engine to commit (`KVPagePool.write_rows`).
+    **Per layer** (`caches` = the layout's page-view tree, with the
+    recurrent entries' state beside it; planes None): every attention layer
+    runs K2 (K4 for MLA) over its own frames; returns (logits, new_caches)
+    whose pageable leaves hold ONLY the current token's rows — (L, B, ...)
+    for each pattern entry, (B, ...) for a dense layer — for the engine to
+    commit (`KVPagePool.write_rows`), and whose recurrent entries hold the
+    new state.
 
     `pul_distance` is the preload distance of the in-kernel page ring (the
     engine passes the planner's d*)."""
@@ -287,22 +388,24 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
     if planes is not None:
         sweep = L.PagedSweep(batch["page_table"], lengths, pul_cfg,
                              batch["frames"], batch["offsets"], planes)
+    shared = params.get("shared")
     new = []
     for prefix, g, kind, p in _blocks(params, cfg):
-        if sweep is not None:
+        if kind in RECURRENT_KINDS:
+            cache, paged = _block_cache(caches, prefix, g), None
+        elif sweep is not None:
             sweep.prefix, sweep.layer = prefix, g
             cache, paged = None, sweep
         else:
-            leaf = caches[prefix[0]][prefix[1]]
-            if prefix[0] == "groups":
-                leaf = {k: v[g] for k, v in leaf.items()}
-            cache = {**leaf, "idx": lengths}
+            cache = {**_block_cache(caches, prefix, g), "idx": lengths}
             paged = (batch["page_table"], pul_cfg)
         x, nc = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
-                            step_kind="paged_decode", cache=cache, paged=paged)
+                            step_kind="paged_decode", cache=cache, paged=paged,
+                            shared=shared)
         new.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.logits_apply(params["embedding"], x, cfg=cfg)[:, 0, :]
-    if sweep is not None:
+    tree = _tree(cfg, new)
+    if sweep is not None and not tree["groups"]:
         return logits, None
-    return logits, _tree(cfg, new)
+    return logits, tree

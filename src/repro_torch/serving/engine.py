@@ -58,6 +58,19 @@ decode step and replayed every tick; ``capture_decode=False`` runs the same
 device half eagerly (the counterpart of ``jax.disable_jit``), as the CPU
 always does. The assembly path stays eager.
 
+A recurrent model's state (rwkv6's WKV state and token-shift carries,
+zamba2's Mamba h and conv state) is not pageable: it lives in ``resident``,
+one tree of the non-pageable cache leaves only, with one row per slot, at
+fixed addresses. Each prefill's state is copied into its slot's rows
+(after a monolithic prefill, and after the final chunk pass only), each
+decode step's new state replaces every row (paused and empty slots ride
+through the batched step with token 0 and advance, as in the reference),
+and ``preempt``/``resume`` and the swap-out and readmission of a preempted
+request snapshot and write back the slot's rows. Pages cannot rebuild that
+state, so a recurrent model never skips prefill. A model without pageable
+KV (rwkv6) decodes by the dense decode step over ``resident`` whatever the
+path (the reference's route with zero features), eagerly.
+
 ``shadow_check=True`` records the pool's page-lifecycle trace and replays
 each tick's new events through ``analysis.sanitizer.LifecycleChecker`` at
 the end of the tick, after the decode step (and its replay) has run,
@@ -105,6 +118,7 @@ from repro_torch.serving.kv_pages import (
     PageConfig,
     TRASH_FRAME,
     ZERO_FRAME,
+    _leaves,
 )
 from repro_torch.serving.scheduler import (
     Admission,
@@ -130,6 +144,19 @@ def mean(xs) -> float:
     if not xs:
         return 0.0
     return float(np.mean(np.asarray(xs, np.float64)))
+
+
+def _slot_row(keys: Tuple[str, ...], leaf: torch.Tensor,
+              slot: int) -> torch.Tensor:
+    """One slot's row of a cache leaf (a view): batch axis 1 under the
+    groups' layer axis, 0 for a dense layer's leaf."""
+    return leaf.select(1 if keys[0] == "groups" else 0, slot)
+
+
+def _put(tree: Dict[str, Any], keys: Tuple[str, ...], leaf) -> None:
+    for k in keys[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[keys[-1]] = leaf
 
 
 def _drain_results(requests: Dict[int, Request]) -> Dict[int, List[int]]:
@@ -368,6 +395,18 @@ class PagedServingEngine:
         self.slot_len = np.zeros((B,), np.int32)    # tokens cached per slot
         self.slot_pages: List[List[int]] = [[] for _ in range(B)]
         self.paused: List[bool] = [False] * B
+        # the non-pageable cache leaves (recurrent state) only, zeroed; the
+        # pageable ones live in the planes and idx in slot_len
+        pageable = {e.keys for e in self.layout.entries}
+        self.resident: Dict[str, Any] = {}
+        for keys, (shape, dt) in _leaves(T.cache_specs(self.model_cfg, B, S)):
+            if keys not in pageable and keys[-1] != "idx":
+                _put(self.resident, keys, torch.zeros(shape, dtype=dt,
+                                                      device=self.device))
+        # first-token logits are replayed only where pages rebuild every
+        # cache; recurrent state cannot be rebuilt from pages
+        self._has_recurrent = bool(self.resident)
+        self._paused_state: Dict[int, Dict[Tuple[str, ...], Any]] = {}
         self.metrics = EngineMetrics()
         self.requests: Dict[int, Request] = {}
         self._rng = np.random.default_rng(engine_cfg.sample_seed)
@@ -537,11 +576,13 @@ class PagedServingEngine:
 
     def _preempt_to_queue(self, slot: int):
         """Swap a running request out: private pages spill to the cold tier,
-        chunked-prefill progress is kept, and the request requeues."""
+        its recurrent state's rows and chunked-prefill progress are kept,
+        and the request requeues."""
         req = self.slot_req[slot]
         state = {
             "pages": self.slot_pages[slot],
             "slot_len": int(self.slot_len[slot]),
+            "nonpageable": self._nonpageable_rows(slot),
             "chunk": self._chunk.pop(slot, None),
         }
         self.pool.evict_pages([pid for pid in state["pages"]
@@ -559,7 +600,8 @@ class PagedServingEngine:
 
     def _resume_swapped(self, a: Admission):
         """Readmit a swapped-out request: its saved pages re-attach (still
-        cold until the next decode step's planned restore)."""
+        cold until the next decode step's planned restore) and its
+        recurrent state's rows are written back."""
         state = self._swapped.pop(a.request.rid)
         req = a.request
         req.resuming = False
@@ -568,6 +610,8 @@ class PagedServingEngine:
         self.slot_pages[slot] = state["pages"]
         self.slot_len[slot] = state["slot_len"]
         self.paused[slot] = False
+        if state["nonpageable"]:
+            self._write_nonpageable_rows(slot, state["nonpageable"])
         if state["chunk"] is not None:
             self._chunk[slot] = state["chunk"]
         self.pool.note_deadline(state["pages"], req.deadline_tick())
@@ -583,7 +627,7 @@ class PagedServingEngine:
         P = self.cfg.page_tokens
         prompt = a.request.prompt[-a.bucket:]
         n = len(prompt)
-        if not self.cfg.share_prefix_pages or n == 0 or n % P:
+        if not self._replays_logits(n):
             return False
         key = (a.bucket, tuple(prompt))
         logits = self._prompt_logits.get(key)
@@ -645,7 +689,10 @@ class PagedServingEngine:
         1), since capacity dispatch mixes tokens across the batch: the
         batch's token count sets each group's capacity C, and the padding
         rows' tokens use it up (``repro/serving/engine.py``,
-        ``_prefill_group_inner`` and ``_chunk_pass``)."""
+        ``_prefill_group_inner`` and ``_chunk_pass``).
+
+        Also returns the prefill's cache tree and, for each row of `rows`,
+        its row in that tree (for the recurrent state)."""
         moe = self.model_cfg.num_experts > 0
         at = list(slots) if moe else list(range(len(rows)))
         n = self.cfg.batch_slots if moe else len(rows)
@@ -658,35 +705,71 @@ class PagedServingEngine:
             torch.as_tensor(toks, device=self.device),
             torch.as_tensor(lengths, device=self.device), max_seq=bucket)
         self.metrics.prefills += 1
-        packed = self.layout.pack(caches)
+        packed = self.layout.pack(caches) if self.layout.features else None
         if moe:
             idx = torch.as_tensor(at, device=self.device)
-            logits, packed = logits[idx], packed[idx]
-        return logits.cpu().numpy(), packed
+            logits = logits[idx]
+            packed = packed[idx] if packed is not None else None
+        return logits.cpu().numpy(), packed, caches, at
 
     def _prefill_group(self, bucket: int, group: List[Admission]):
         with self.tracer.span("engine", f"prefill@{bucket}"):
             self._prefill_group_inner(bucket, group)
 
     def _prefill_group_inner(self, bucket: int, group: List[Admission]):
-        P = self.cfg.page_tokens
         prompts = [a.request.prompt[-bucket:] for a in group]
         for a in group:
             self.slot_req[a.slot] = a.request
-        logits, packed = self._prefill(prompts, [a.slot for a in group],
-                                       bucket)
+        logits, packed, caches, at = self._prefill(
+            prompts, [a.slot for a in group], bucket)
         working = {pid for pages in self.slot_pages for pid in pages}
         for r, (a, prompt) in enumerate(zip(group, prompts)):
             slot, n = a.slot, len(prompt)
             self.slot_pages[slot] = []
-            self._write_prompt_pages(slot, bucket, prompt, 0, n, packed[r],
-                                     working)
+            if self.layout.features:
+                self._write_prompt_pages(slot, bucket, prompt, 0, n,
+                                         packed[r], working)
             self.slot_len[slot] = n
             self.paused[slot] = False
-            if self.cfg.share_prefix_pages and n and n % P == 0:
+            self._merge_resident(caches, at[r], slot)
+            if self._replays_logits(n):
                 self._remember_prompt_logits((bucket, tuple(prompt)),
                                              logits[r])
             self._emit_token(slot, logits[r])
+
+    def _replays_logits(self, n: int) -> bool:
+        """Whether a prompt of n tokens lands whole in shared pages that an
+        identical prompt can take with the cached first-token logits:
+        sharing on, page-aligned, and nothing but pages to rebuild (no
+        recurrent state)."""
+        return (self.cfg.share_prefix_pages and not self._has_recurrent
+                and n > 0 and n % self.cfg.page_tokens == 0)
+
+    def _merge_resident(self, fresh: Dict[str, Any], row: int, slot: int):
+        """Copy row `row` of every non-pageable leaf of a prefill's cache
+        tree into `slot`'s row of ``resident``, in place."""
+        for keys, leaf in _leaves(self.resident):
+            _slot_row(keys, leaf, slot).copy_(
+                _slot_row(keys, PackedKVLayout._get(fresh, keys), row))
+
+    def _nonpageable_rows(self, slot: int) -> Dict[Tuple[str, ...], Any]:
+        """A copy of `slot`'s rows of every non-pageable leaf: recurrent
+        state advances every decode step, for paused slots too, and pages
+        cannot rebuild it."""
+        return {keys: _slot_row(keys, leaf, slot).clone()
+                for keys, leaf in _leaves(self.resident)}
+
+    def _write_nonpageable_rows(self, slot: int,
+                                saved: Dict[Tuple[str, ...], Any]):
+        for keys, leaf in _leaves(self.resident):
+            _slot_row(keys, leaf, slot).copy_(saved[keys])
+
+    def _merge_nonpageable(self, new: Optional[Dict[str, Any]]):
+        """A decode step's new recurrent state copied over every row of
+        ``resident`` (live or not, as the reference replaces the tree), in
+        place."""
+        for keys, leaf in _leaves(self.resident):
+            leaf.copy_(PackedKVLayout._get(new, keys))
 
     def _remember_prompt_logits(self, key: tuple, logits: np.ndarray):
         self._prompt_logits[key] = logits
@@ -720,18 +803,22 @@ class PagedServingEngine:
         n = len(prompt)
         hi = min(f + self.cfg.prefill_chunk_tokens, n)
         bucket = self.scheduler.pick_bucket(hi)
-        P = self.cfg.page_tokens
-        logits, packed = self._prefill([prompt[:hi]], [slot], bucket)
+        logits, packed, caches, at = self._prefill([prompt[:hi]], [slot],
+                                                   bucket)
         self.metrics.chunk_passes += 1
         working = {pid for pages in self.slot_pages for pid in pages}
-        self._write_prompt_pages(slot, req.bucket, prompt, f, hi, packed[0],
-                                 working)
+        if self.layout.features:
+            self._write_prompt_pages(slot, req.bucket, prompt, f, hi,
+                                     packed[0], working)
         st["filled"] = hi
         self.slot_len[slot] = hi
         if hi < n:
             return
         del self._chunk[slot]
-        if self.cfg.share_prefix_pages and n and n % P == 0:
+        # the final pass's state: the prefill of the bucket holding the
+        # whole prompt, as a monolithic prefill's
+        self._merge_resident(caches, at[0], slot)
+        if self._replays_logits(n):
             self._remember_prompt_logits((req.bucket, tuple(prompt)),
                                          logits[0])
         self._emit_token(slot, logits[0])
@@ -768,22 +855,35 @@ class PagedServingEngine:
 
     def step_inputs(self) -> List[torch.Tensor]:
         """What the decode step's device half reads: the weights, the
-        planes and the step buffer (whose addresses a captured step keeps)."""
+        planes, the recurrent state and the step buffer (whose addresses a
+        captured step keeps)."""
         return [t for _, t in flatten(self.params)] + [
-            *self.pool.planes.values(), self._step_dev]
+            *self._updated().values(), self._step_dev]
+
+    def _updated(self) -> Dict[str, torch.Tensor]:
+        """The buffers the kernel-true step updates in place, by name: the
+        planes, and the recurrent state ("resident/..." leaves)."""
+        return {**self.pool.planes,
+                **{"/".join(("resident", *keys)): leaf
+                   for keys, leaf in _leaves(self.resident)}}
 
     def _device_step(self):
         """The kernel-true decode step's device half: (logits (B, V), the
         token's packed (B, F) rows for the per-layer path to commit, or None
-        on the sweep, whose kernels commit in place)."""
+        on the sweep, whose kernels commit in place). The recurrent state's
+        successor is copied into ``resident`` here, in place."""
         if self.cfg.sweep_decode:
-            logits, _ = self.model.paged_decode_step(
-                self._batch, planes=self.pool.planes,
-                pul_distance=self.pul_distance)
+            logits, new = self.model.paged_decode_step(
+                self._batch, caches=self.resident or None,
+                planes=self.pool.planes, pul_distance=self.pul_distance)
+            self._merge_nonpageable(new)
             return logits, None
+        caches = self.layout.page_view_tree(self.pool.planes)
+        for keys, leaf in _leaves(self.resident):
+            _put(caches, keys, leaf)
         logits, new = self.model.paged_decode_step(
-            self._batch, caches=self.layout.page_view_tree(self.pool.planes),
-            pul_distance=self.pul_distance)
+            self._batch, caches=caches, pul_distance=self.pul_distance)
+        self._merge_nonpageable(new)
         return logits, self.layout.token_rows(new)
 
     def _fill_step(self, live: List[int]):
@@ -798,9 +898,11 @@ class PagedServingEngine:
             h[key].fill(0)
         for i in live:
             pos = int(self.slot_len[i])
-            pids = self.slot_pages[i]
             h["tokens"][i] = self.slot_req[i].out_tokens[-1]
             h["pos0"][i] = h["lengths"][i] = pos
+            if not self.layout.features:
+                continue            # no pages to read or commit
+            pids = self.slot_pages[i]
             h["frames"][i] = self.pool.pages[pids[pos // P]].frame
             h["offsets"][i] = pos % P
             h["page_table"][i, :len(pids)] = self.pool.frames_of(pids)
@@ -810,22 +912,26 @@ class PagedServingEngine:
     def _ensure_captured(self):
         """On the card, capture the device half at the engine's first decode
         step, over dummy inputs that commit nothing (every slot writes to
-        TRASH_FRAME)."""
+        TRASH_FRAME); the warm-up's step of the recurrent state is taken
+        back."""
         if (self._captured is not None or self.device.type != "cuda"
                 or not self.cfg.capture_decode):
             return
         self._fill_step([])
+        state = [leaf.clone() for _, leaf in _leaves(self.resident)]
         self._captured = CapturedStep(
             self._device_step, inputs=self.step_inputs(),
-            planes=self.pool.planes,
+            planes=self._updated(),
             what="sweep" if self.cfg.sweep_decode else "per-layer")
+        for (_, leaf), saved in zip(_leaves(self.resident), state):
+            leaf.copy_(saved)
 
     def _run_device_step(self):
         """The device half: replayed from its CUDA graph when captured, else
         run eagerly."""
         if self._captured is None:
             return self._device_step()
-        return self._captured.replay(self.pool.planes)
+        return self._captured.replay(self._updated())
 
     def _decode_step(self):
         live = self._live_slots()
@@ -834,17 +940,24 @@ class PagedServingEngine:
         self._ensure_tail_pages()
         needed = sorted({pid for i in live for pid in self.slot_pages[i]})
         faults = self.pool.ensure_hot(needed)
-        if self.cfg.use_paged_kernel:
+        # with no pageable KV the kernel-true paths have nothing to read:
+        # the dense decode over the recurrent state, as in the reference
+        kernel_true = self.cfg.use_paged_kernel and self.layout.features > 0
+        if kernel_true:
             self._ensure_captured()
         frames, offs = self._fill_step(live)
-        if not self.cfg.use_paged_kernel:
-            # assembly: dense decode over pages gathered into a fresh tree,
-            # then the step's new rows written back into the tail pages
-            tree = self._assemble(self._batch["page_table"])
+        if not kernel_true:
+            # assembly: dense decode over pages gathered into a fresh tree
+            # beside the recurrent state, the step's new rows written back
+            # into the tail pages and its new state into resident
+            tree = (self._assemble(self._batch["page_table"])
+                    if self.layout.features else self.resident)
             logits, new = self.model.decode_step(self._batch, tree)
-            rows = self.layout.pack_rows(
-                new, torch.tensor(self.slot_len, device=self.device))
-            self.pool.write_rows(frames, offs, rows)
+            if self.layout.features:
+                rows = self.layout.pack_rows(
+                    new, torch.tensor(self.slot_len, device=self.device))
+                self.pool.write_rows(frames, offs, rows)
+            self._merge_nonpageable(new)
         elif self.cfg.sweep_decode:
             # account + trace the fused commit BEFORE the launch
             self.pool.note_fused_commit(frames, offs)
@@ -884,11 +997,10 @@ class PagedServingEngine:
         """The assembly path's decode cache tree: the packed store gathered
         by page table (ZERO_FRAME past each slot's pages) into a dense
         (B, S, F) view — through K5 with ``use_pallas_gather`` — unpacked
-        into cache leaves, with idx the slots' fill levels. The store is a
-        copy of the planes, so the dense decode's in-place row writes land
-        in this step's tree and never in the planes. The port's archs keep
-        no cache state besides the pages and idx, so nothing carries over
-        from one step's tree to the next."""
+        into cache leaves beside ``resident``'s recurrent state, with idx
+        the slots' fill levels. The store is a copy of the planes, so the
+        dense decode's in-place row writes land in this step's tree and
+        never in the planes."""
         store = self.pool.packed_store()
         if self.cfg.use_pallas_gather:
             packed = pul_page_gather(
@@ -896,7 +1008,7 @@ class PagedServingEngine:
         else:
             packed = store[page_table.long()].reshape(
                 self.cfg.batch_slots, self.cfg.max_seq, -1)
-        return self._set_idx(self.layout.unpack_into({}, packed),
+        return self._set_idx(self.layout.unpack_into(self.resident, packed),
                              self.slot_len)
 
     def _emit_token(self, slot: int, logits: np.ndarray):
@@ -931,32 +1043,41 @@ class PagedServingEngine:
         self.slot_req[slot] = None
         self.slot_len[slot] = 0
         self.paused[slot] = False
+        self._paused_state.pop(slot, None)
 
     # ------------------------------------------------------------------ #
     # preemption (swap-out: pages spill to the cold tier)
     # ------------------------------------------------------------------ #
     def preempt(self, slot: int):
         """Pause a slot and evict its private pages to the cold tier.
-        Shared prefix pages stay hot while other requests reference them."""
+        Shared prefix pages stay hot while other requests reference them.
+        The recurrent state's rows are snapshotted: a paused slot still
+        rides through the batched decode step with token 0, which advances
+        its state."""
         if self.slot_req[slot] is None:
             raise ValueError(f"slot {slot} is empty")
         if self.tracer.enabled:
             self.tracer.instant("engine", "pause", slot=slot,
                                 rid=self.slot_req[slot].rid)
         self.paused[slot] = True
+        self._paused_state[slot] = self._nonpageable_rows(slot)
         self.pool.evict_pages(
             [pid for pid in self.slot_pages[slot]
              if self.pool.pages[pid].refcount == 1])
 
     def resume(self, slot: int):
         """Un-pause; the next decode step's ensure_hot restores the pages
-        through the planned preload path (counted as page faults)."""
+        through the planned preload path (counted as page faults), and the
+        snapshotted recurrent state is written back."""
         if self.slot_req[slot] is None:
             raise ValueError(f"slot {slot} is empty")
         if self.tracer.enabled:
             self.tracer.instant("engine", "unpause", slot=slot,
                                 rid=self.slot_req[slot].rid)
         self.paused[slot] = False
+        saved = self._paused_state.pop(slot, None)
+        if saved:
+            self._write_nonpageable_rows(slot, saved)
 
     # ------------------------------------------------------------------ #
     def step(self):

@@ -407,6 +407,9 @@ class KVPagePool:
 
     Storage is ``pool.planes`` (one plane per pageable cache leaf, on
     `device`); the cold tier ``pool.cold`` holds packed (P, F) host tensors.
+    A layout without pageable leaves (an attention-free model) gets the
+    reference's vestigial pool instead: no planes and a packed (NF, P, 1)
+    store, so pages, tiers and trace still run.
     Frame ids, page ids, refcounts, eviction order, DMA descriptors and the
     lifecycle trace follow the reference pool."""
 
@@ -428,11 +431,18 @@ class KVPagePool:
                     f"a ({P}, {e.feat[-1]}) page slab of {slab} B is not a "
                     f"multiple of the {CP_ASYNC_BYTES}-byte cp.async granule; "
                     "change page_tokens")
+        if not self.features:
+            # no pageable KV (an attention-free model): the reference's
+            # vestigial packed pool of one column keeps the allocator, the
+            # tiers and the trace alive
+            self.features = 1
         self.page_bytes = P * self.features * itemsize
         self.row_bytes = self.features * itemsize
         n = max(pcfg.hot_frames, RESERVED_FRAMES + 1)
         self.planes: Dict[str, torch.Tensor] = layout.init_planes(
             n, P, dtype, self.device)
+        self._vestigial = (None if layout.features else torch.zeros(
+            (n, P, 1), dtype=dtype, device=self.device))
         self._n_frames = n
         self.n_layers = max((e.layers for e in layout.entries), default=1)
         self.free_frames: List[int] = list(range(RESERVED_FRAMES, n))
@@ -476,12 +486,19 @@ class KVPagePool:
     # tier movement (cold tier stays packed)
     # ------------------------------------------------------------------ #
     def _read_frame(self, frame: int) -> torch.Tensor:
-        rows = self.layout.read_frame_packed(self.planes, frame)
+        rows = (self._vestigial[frame] if self._vestigial is not None
+                else self.layout.read_frame_packed(self.planes, frame))
         if self.device.type == "cpu":
             return rows.clone()
         host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
         host.copy_(rows)
         return host
+
+    def _write_frame(self, frame: int, rows: torch.Tensor) -> None:
+        if self._vestigial is not None:
+            self._vestigial[frame] = rows.to(self.device)
+        else:
+            self.layout.write_frame_packed(self.planes, frame, rows)
 
     def _emit(self, kind: EventKind, **fields) -> None:
         if self.trace is not None:
@@ -609,7 +626,7 @@ class KVPagePool:
         for pid in faults:
             meta = self.pages[pid]
             frame = self._take_frame(needed=pids)
-            self.layout.write_frame_packed(self.planes, frame, self.cold.pop(pid))
+            self._write_frame(frame, self.cold.pop(pid))
             meta.frame = frame
             meta.pending_read = True
             self._emit(EventKind.RESTORE, pid=pid, frame=frame)
@@ -657,7 +674,7 @@ class KVPagePool:
         rows = rows[:n_valid]
         if pad:
             rows = F.pad(rows, (0, 0, 0, pad))
-        self.layout.write_frame_packed(self.planes, meta.frame, rows)
+        self._write_frame(meta.frame, rows)
         self.metrics.bytes_hot_written += self.page_bytes
 
     def _check_commit(self, frames: np.ndarray) -> None:

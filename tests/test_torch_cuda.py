@@ -68,6 +68,7 @@ from repro_torch.kernels.pul_sum import pul_sum, sum_ref
 from repro_torch.models import init_params
 from repro_torch.serving import (
     PackedKVLayout, PagedEngineConfig, PagedServingEngine, Request)
+from repro_torch.serving.kv_pages import TRASH_FRAME
 from repro_torch.serving.capture import StepNotCapturable
 
 # the module (the package exports the function pul_attention under its name)
@@ -284,6 +285,9 @@ SERVED = {
     "grok-1-314b": _served("grok-1-314b", 5, 64, [0, 17, 512, 1000, 1023]),
     "musicgen-large": _served("musicgen-large", 5, 64,
                               [1, 16, 300, 999, 1023]),
+    # zamba2's shared attention: MHA at hd 112 (14 granules on 16 lanes)
+    "zamba2-7b": _served("zamba2-7b", 8, 64,
+                         [0, 7, 16, 1000, 513, 250, 64, 999]),
 }
 
 
@@ -293,7 +297,8 @@ SERVED = {
 def test_kernels_hold_at_the_served_geometries(dev, model, n_split):
     """K1 and K2 at qwen2.5-32b's group of 5, gemma2-27b's softcap and
     window of 4096, gemma3-12b's hd 256 and window of 1024, grok-1's group
-    of 6 with softcap 30 and musicgen's group of 1 at hd 64, at the
+    of 6 with softcap 30, musicgen's group of 1 at hd 64 and zamba2's at
+    hd 112, at the
     plan's split count and at forced ones; at 128 splits gemma3's rows (at
     most 65 visible pages) and qwen2.5's short rows leave splits that see
     no page, which must weigh 0 in the merge. Within the limit of the plain version, K1 == K2 bitwise,
@@ -546,7 +551,8 @@ def _packed_width(arch):
 # 262,144, 376,832 and 393,216 B: 8-12 chunks of 32 KB a row)
 GATHER_CASES = {"qwen3": (6, 16, 57344), "deepseek": (9, 16, 3456),
                 **{arch: (6, 16, _packed_width(arch))
-                   for arch in ("qwen2.5-32b", "gemma2-27b", "gemma3-12b")}}
+                   for arch in ("qwen2.5-32b", "gemma2-27b", "gemma3-12b",
+                                "zamba2-7b")}}
 
 
 @pytest.mark.cuda
@@ -1149,7 +1155,7 @@ def reduced_models():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     out = {}
     for arch in ("qwen3-1.7b", "deepseek-v2-236b", "gemma2-27b",
-                 "gemma3-12b", *ZOO):
+                 "gemma3-12b", *ZOO, "zamba2-7b", "rwkv6-7b"):
         cfg = get_config(arch).reduced()
         out[arch] = (cfg, init_params(cfg, seed=0, device="cuda"))
     return out
@@ -1191,7 +1197,8 @@ def _capture_script(models, arch, sweep, capture):
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-236b",
-                                  "gemma2-27b", "gemma3-12b", *ZOO])
+                                  "gemma2-27b", "gemma3-12b", *ZOO,
+                                  "zamba2-7b"])
 def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
     """The graph replays K1/K2 (K3/K4) and the model's ops as the eager
     step runs them: every logit row, the tokens, the planes, PoolMetrics
@@ -1199,7 +1206,9 @@ def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
     The reduced gemmas' window is 16 tokens, which request 2 (20 prompt
     tokens, 7 new) passes, so their local layers' K1/K2 skip pages; grok's
     step runs the einsum dispatch and musicgen's the sinusoidal positions
-    inside the graph."""
+    inside the graph; zamba2's step reads and writes its Mamba state in
+    place (the state after the run equal too) and launches K1/K2 once per
+    shared-attention invocation."""
     got, cap, launched = _capture_script(reduced_models, arch, sweep, True)
     want, eager, eager_launched = _capture_script(reduced_models, arch, sweep,
                                                   False)
@@ -1211,8 +1220,16 @@ def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
             np.testing.assert_array_equal(g, w)
     assert {r.rid: r.out_tokens for r in cap.requests.values()} == \
         {r.rid: r.out_tokens for r in eager.requests.values()}
+    # the TRASH sink takes every idle slot's row in one launch; a recurrent
+    # model's idle slots carry state, so their rows differ and which one
+    # lands there is a race: it is never read
+    kept = [f for f in range(eager.pool.hot_frames)
+            if not (cap._has_recurrent and f == TRASH_FRAME)]
     for k, plane in eager.pool.planes.items():
-        assert torch.equal(cap.pool.planes[k], plane), k
+        assert torch.equal(cap.pool.planes[k][:, kept], plane[:, kept]), k
+    for k, leaf in eager._updated().items():
+        if k.startswith("resident/"):
+            assert torch.equal(cap._updated()[k], leaf), k
     assert dataclasses.asdict(cap.pool.metrics) == \
         dataclasses.asdict(eager.pool.metrics)
     assert cap.pool.metrics.page_faults >= 1
@@ -1220,9 +1237,28 @@ def test_captured_decode_matches_eager_bitwise(reduced_models, arch, sweep):
     mla = reduced_models[arch][0].attn_type == "mla"
     key = {(False, True): "k1", (False, False): "k2", (True, True): "k3",
            (True, False): "k4"}[mla, sweep]
-    layers = reduced_models[arch][0].num_layers
+    cfg = reduced_models[arch][0]
+    layers = cfg.first_dense_layers + cfg.num_groups * sum(
+        kind not in ("rwkv", "mamba") for kind in cfg.pattern)
     assert launched[key] == layers * cap.metrics.decode_steps > 0
     assert sum(launched.values()) == launched[key]
+
+
+@pytest.mark.cuda
+def test_rwkv6_decodes_eagerly_on_the_card(reduced_models):
+    """rwkv6 has no pageable KV: on the card too every path decodes by the
+    dense step over the engine's state, eagerly (no graph), launching no
+    kernel of the port; the sweep and the per-layer engines give the same
+    tokens and state bitwise."""
+    runs = [_capture_script(reduced_models, "rwkv6-7b", sweep, True)
+            for sweep in (True, False)]
+    (got, eng, launched), (want, other, _) = runs
+    assert eng._captured is None and eng.layout.features == 0
+    assert not any(launched.values())
+    assert {r: [g.tolist() for g in v] for r, v in got.items()} == \
+        {r: [w.tolist() for w in v] for r, v in want.items()}
+    for k, leaf in other._updated().items():
+        assert torch.equal(eng._updated()[k], leaf), k
 
 
 @pytest.mark.cuda

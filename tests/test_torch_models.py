@@ -257,17 +257,25 @@ def test_dense_decode_matches_reference(pair):
 
 
 def test_unported_archs_and_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("rwkv6-7b")
+    """What the reference itself lacks still raises: an unknown arch id, a
+    pattern kind outside its block kinds, an attention type other than
+    GQA, MLA or none. The recurrent pair builds now: rwkv6-7b (attention
+    free) and zamba2-7b (Mamba2 and the shared attention block)."""
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     cfg = get_config(ARCH).reduced()
-    for change, what in ((dict(pattern=("rwkv",)), "pattern"),
-                         (dict(pattern=("mamba", "mamba", "shared_attn"),
-                               num_layers=3), "pattern"),
-                         (dict(attn_type="none"), "attention")):
+    for change, what in ((dict(pattern=("conv",)), "pattern kinds"),
+                         (dict(pattern=("global", "xattn")), "pattern kinds"),
+                         (dict(attn_type="linear"), "attention type")):
         with pytest.raises(NotImplementedError, match=what):
             T.check_supported(dataclasses.replace(cfg, **change))
+    for arch, keys in (("rwkv6-7b", {"groups"}),
+                       ("zamba2-7b", {"groups", "shared"})):
+        rcfg = get_config(arch).reduced()
+        T.check_supported(rcfg)
+        tree = T.model_params(rcfg)
+        assert keys <= set(tree)
+    assert get_config("rwkv6-7b").attn_type == "none"
     # frontends and sinusoidal positions are served now
     T.check_supported(dataclasses.replace(
         cfg, frontend="vit_stub", frontend_tokens=4,

@@ -36,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import DMAEngine, KVPageWorkload, MemoryTier, PEModel
 from repro_torch.core import plan_kv_page_stream, run_kv_page_workload
 from repro_torch.launch import serve
+from repro_torch.models import init_params
 from repro_torch.models.bridge import params_from_reference
 from repro_torch.serving import (
     KVPagePool,
@@ -452,16 +453,24 @@ def test_pool_evict_restore_roundtrip_is_exact():
 def test_unported_paths_raise(models):
     """shadow_check is ported (held against the reference in
     test_torch_sanitizer.py): the engine traces its pool and builds its
-    checker. A model feature the port lacks still raises at construction
-    (the assembly path, the PUL gather and the dense engine are held
-    against the reference in test_torch_assembly.py)."""
+    checker. A pattern kind the reference lacks still raises at
+    construction; the recurrent archs build (held against the reference in
+    test_torch_recurrent_serving.py), rwkv6-7b with no pageable KV and its
+    state in ``resident``."""
     _, _, cfg, params = models
     eng = PagedServingEngine(cfg, params, PagedEngineConfig(
         **{**BASE, "shadow_check": True}, device="cpu"))
     assert eng.pool.trace is not None and eng._shadow_checker is not None
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        PagedServingEngine(dataclasses.replace(cfg, pattern=("rwkv",)),
+    with pytest.raises(NotImplementedError, match="pattern kinds"):
+        PagedServingEngine(dataclasses.replace(cfg, pattern=("conv",)),
                            params, PagedEngineConfig(**BASE, device="cpu"))
+    for arch in ("rwkv6-7b", "zamba2-7b"):
+        rcfg = get_config(arch).reduced()
+        eng = PagedServingEngine(rcfg, init_params(rcfg, seed=0,
+                                                   device="cpu"),
+                                 PagedEngineConfig(**BASE, device="cpu"))
+        assert eng._has_recurrent
+        assert (eng.layout.features == 0) == (arch == "rwkv6-7b")
 
 
 def test_serving_config_projects_device_and_kernel_default():
