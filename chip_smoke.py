@@ -156,10 +156,28 @@ exit code is not 0:
                      and written), zamba2's span share, kernels a tick and
                      the LoRA merges' device time beside the span, and the
                      init's and the serving's peak memory
- 22. summary      -- one JSON line listing the kernels, with the body each
+ 22. train        -- one training step of reduced qwen3-1.7b (f32) on the
+                     card against the CPU (loss, norm, every gradient and
+                     update); then full-width, full-depth qwen3-1.7b
+                     (random weights from seed 0) through
+                     launch.steps.make_train_step with remat on one
+                     repeated TokenPipeline batch of 8 x 1024, 10 steps at
+                     accum 1 and at accum 2: a finite loss that starts
+                     where the forward puts it and falls; step ms,
+                     tokens/s, model FLOPs and their share of the bf16
+                     peak, peak memory; then an async checkpoint of the
+                     state to a temporary directory: the snapshot's stall,
+                     the flush's seconds. No port kernel is on this path.
+ 23. train-resume -- train_lm.small_100m through launch.train.main: 8
+                     steps, checkpoints at 4 and 8; the step-8 one
+                     deleted and a rerun that resumes from step 4 to 8;
+                     the final parameters and Adam state held equal
+ 24. train-lm     -- examples/train_lm.py at its defaults (300 steps); it
+                     raises unless the loss falls by more than 1.0
+ 25. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 23. last line: {"ok": true, "device": {...}}
+ 26. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes on another path (device busy share, top
 kernels) is a one-off measurement:
@@ -188,6 +206,11 @@ a row (K9's bound):
     python3 -c "import chip_smoke; chip_smoke.decode_sweep()"
     python3 -c "import chip_smoke; chip_smoke.sector_probe()"
 
+and where a full-width training step's time goes (torch.profiler over two
+steps):
+
+    python3 -c "import chip_smoke; chip_smoke.profile_train()"
+
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
 """
@@ -201,9 +224,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Tuple
@@ -214,10 +239,18 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.benchmarks import common, paged_decode  # noqa: E402
+from repro_torch.benchmarks.flops import cell_cost  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    CheckpointConfig, CheckpointManager)
+from repro_torch.checkpoint.checkpoint import flatten_state  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core import IssueStrategy, PULConfig  # noqa: E402
 from repro_torch.core.planner import plan_kv_page_stream  # noqa: E402
 from repro_torch.core.pul import H100_PINNED_HOST, H100_SM  # noqa: E402
+from repro_torch.data import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.examples.train_lm import main as train_lm_main  # noqa: E402
+from repro_torch.examples.train_lm import small_100m  # noqa: E402
 from repro_torch.kernels import SOURCES, _build, ops  # noqa: E402
 from repro_torch.kernels.pul_decode import (  # noqa: E402
     DECODE_BODY, decode_attention_kernel_ref, decode_attention_split_ref,
@@ -231,9 +264,12 @@ from repro_torch.kernels.pul_gather import (  # noqa: E402
 from repro_torch.kernels.pul_matmul import (  # noqa: E402
     matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
+from repro_torch.launch.steps import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
-from repro_torch.models.module import flatten  # noqa: E402
+from repro_torch.models.module import flatten, unflatten  # noqa: E402
+from repro_torch.optim import OptimizerConfig, adamw_init  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, PackedKVLayout, PagedEngineConfig, PagedServingEngine,
     Request, ServingEngine)
@@ -2922,8 +2958,7 @@ def _lora_merge_ms(cfg, params):
     key = next(k for k in transformer.group_keys(cfg)
                if k.endswith(":shared_attn"))
     attn = params["shared"]["attn"]
-    loras = [transformer._layer(params["groups"][key], g)
-             for g in range(cfg.num_groups)]
+    loras = transformer._unbind(params["groups"][key], cfg.num_groups)
     return _time_ms(lambda: [transformer._merged_lora_attn(attn, lora, cfg)
                              for lora in loras], reps=5, warmup=1)
 
@@ -3081,6 +3116,276 @@ def phase_recurrent(arch, device="cuda"):
     return summary
 
 
+# ---------------------------------------------------------------------- #
+# training (no kernel of the port lies on this path: the reference's train
+# attention and loss are jnp, and its backward is XLA's autodiff)
+#: the train phase: full-width, full-depth qwen3-1.7b, B x S tokens a step,
+#: TRAIN_STEPS steps on one repeated batch of the port's TokenPipeline
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3-1.7b", 8, 1024, 10
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+#: the first loss, less ln(vocab): the reference's init at qwen3's full
+#: width starts above ln(vocab) and climbs with depth (its fan-in spans the
+#: stacked layer axis): 12.26 at 16 layers, 12.92 at 20 against ln(vocab) =
+#: 11.93 (tests/torch_init_loss.py on the CPU); the port's 28 layers start
+#: near 13.6 on this batch
+INIT_LOSS_SPAN = (-1.0, 3.0)
+#: the card's step against the CPU's on reduced qwen3 with f32 weights:
+#: loss and global norm within TRAIN_REL relative, every gradient leaf
+#: within GRAD_REL of its largest |value| (the CPU tests' tolerance against
+#: the reference), every parameter's update within UPDATE_REL of lr
+#: (Adam's first step is nearly lr * sign(g): an element whose gradient is
+#: near eps carries the gradient's last bits into its update; 0.0097 x lr
+#: on the card, 0.0017 between the port and the reference on the CPU,
+#: tests/torch_train_drift.py)
+TRAIN_REL, GRAD_REL, UPDATE_REL = 1e-5, 1e-4, 5e-2
+
+
+def _train_card_vs_cpu(device="cuda"):
+    """One training step of reduced qwen3-1.7b with f32 weights from one
+    state (the port's init from seed 0), on the card and on the CPU: the
+    loss, the global norm, every gradient and every update."""
+    cfg = get_config(TRAIN_ARCH).reduced()
+    cpu = {k: v.float() for k, v in flatten(init_params(cfg, seed=0,
+                                                        device="cpu"))}
+    batch = next(TokenPipeline(DataConfig(
+        global_batch=4, seq_len=64, vocab_size=cfg.vocab_size, seed=1),
+        device="cpu"))
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(cfg, ocfg)
+    results = []
+    for dev in ("cpu", device):
+        params = unflatten({k: v.to(dev) for k, v in cpu.items()})
+        on_dev = {k: v.to(dev) for k, v in batch.items()}
+        _, grads = value_and_grad(cfg)(params, on_dev)
+        p, _, m = step(params, adamw_init(params), on_dev)
+        results.append(({k: v.cpu() for k, v in flatten(p)},
+                        {k: v.cpu() for k, v in flatten(grads)},
+                        float(m["loss"]), float(m["grad_norm"])))
+    (p_cpu, g_cpu, l_cpu, n_cpu), (p_dev, g_dev, l_dev, n_dev) = results
+    grad = max(float((g_dev[k] - g_cpu[k]).abs().max()
+                     / g_cpu[k].abs().max()) for k in cpu)
+    upd = max(float(((p_dev[k] - cpu[k]) - (p_cpu[k] - cpu[k])).abs().max())
+              for k in cpu) / ocfg.lr
+    print(f"[train] card vs cpu, reduced {cfg.name} f32, one step: loss "
+          f"{l_dev:.7f} vs {l_cpu:.7f}, grad norm {n_dev:.7f} vs "
+          f"{n_cpu:.7f}, largest gradient difference {grad:.3e} of the "
+          f"leaf's largest, largest update difference {upd:.3e} x lr")
+    if (abs(l_dev - l_cpu) > TRAIN_REL * abs(l_cpu)
+            or abs(n_dev - n_cpu) > TRAIN_REL * n_cpu):
+        raise AssertionError("the card's training step left the CPU's: loss "
+                             f"{l_dev} vs {l_cpu}, norm {n_dev} vs {n_cpu}")
+    if grad > GRAD_REL or upd > UPDATE_REL:
+        raise AssertionError(f"a gradient differs by {grad} of its leaf's "
+                             f"largest, an update by {upd} x lr")
+
+
+def _train_run(cfg, params, batch, accum, device="cuda"):
+    """TRAIN_STEPS steps of make_train_step(accum) on one batch from
+    `params`, a line per step; returns (params, opt state, losses, step
+    times in s, peak allocated bytes)."""
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), accum=accum)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    p, opt = params, adamw_init(params)
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p, opt, m = step(p, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        print(f"[train] accum {accum} step {i + 1}: loss {losses[-1]:.4f}, "
+              f"grad norm {float(m['grad_norm']):.4f}, lr "
+              f"{float(m['lr']):.3e}, {times[-1] * 1e3:.1f} ms")
+    return p, opt, losses, times, torch.cuda.max_memory_allocated()
+
+
+def phase_train(device="cuda"):
+    """Full-width, full-depth qwen3-1.7b (random weights from seed 0)
+    through make_train_step with remat, on one repeated TokenPipeline batch
+    of TRAIN_BATCH x TRAIN_SEQ: TRAIN_STEPS steps at accum 1, then at the
+    config's train_accum (2), each from the same weights. Held: a finite
+    loss that starts where the forward alone puts it (and within
+    INIT_LOSS_SPAN of ln(vocab)) and falls; beforehand, one step on the
+    card against the CPU's on reduced qwen3. Printed: each
+    step's loss, grad norm and lr; the median step (the first left out)
+    and tokens/s; the model FLOPs of a step (benchmarks.flops.cell_cost)
+    and their share of the dense bf16 peak; peak allocated memory. Then
+    one asynchronous checkpoint of the final state into a temporary
+    directory, removed afterwards: the snapshot's stall and the flush."""
+    _train_card_vs_cpu(device)
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError("the train phase runs with remat")
+    params = init_params(cfg, seed=0, device=device)
+    n_params = sum(t.numel() for _, t in flatten(params))
+    batch = next(TokenPipeline(DataConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        vocab_size=cfg.vocab_size, seed=0), device=device))
+    with torch.no_grad():
+        forward = float(transformer.loss_fn(params, batch, cfg=cfg))
+    print(f"[train] {cfg.name}: the forward's loss at init {forward:.4f}, "
+          f"ln(vocab) {math.log(cfg.vocab_size):.4f}")
+    shape = InputShape("smoke_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    summary = {}
+    for accum in (1, cfg.train_accum):
+        p = opt = state = None         # free the last run's state first
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, opt, losses, times, peak = _train_run(cfg, params, batch, accum,
+                                                 device)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"accum {accum}: loss not finite: {losses}")
+        lo, hi = INIT_LOSS_SPAN
+        if not lo <= losses[0] - math.log(cfg.vocab_size) <= hi:
+            raise AssertionError(f"accum {accum}: first loss {losses[0]} is "
+                                 f"outside ln(vocab) + {INIT_LOSS_SPAN}")
+        if abs(losses[0] - forward) > TRAIN_REL * forward:
+            raise AssertionError(f"accum {accum}: the step's loss "
+                                 f"{losses[0]} is not the forward's {forward}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"accum {accum}: loss did not fall: "
+                                 f"{losses}")
+        med = statistics.median(times[1:])
+        flops = cell_cost(cfg, shape, accum).model_flops
+        summary[accum] = dict(step_ms=med * 1e3, tokens_s=tokens / med,
+                              model_flops=flops,
+                              peak_share=flops / med / BF16_TC_PEAK,
+                              peak_gb=peak / 1e9, first_ms=times[0] * 1e3,
+                              loss=(losses[0], losses[-1]))
+        print(f"[train] {cfg.name} ({n_params / 1e9:.3f} B params, "
+              f"{cfg.num_layers} layers, remat) B {TRAIN_BATCH} x S "
+              f"{TRAIN_SEQ}, accum {accum}: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; median step {med * 1e3:.1f} ms (first "
+              f"{times[0] * 1e3:.1f} ms), {tokens / med:.0f} tokens/s; "
+              f"model FLOPs {flops:.4e} a step, {flops / med / 1e12:.1f} "
+              f"TFLOP/s = {100 * flops / med / BF16_TC_PEAK:.1f} % of the "
+              f"dense bf16 peak; peak allocated {peak / 1e9:.2f} GB")
+        state = (p, opt)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in flatten_state(state))
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        mgr = CheckpointManager(CheckpointConfig(d, keep=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state)
+        snap = time.perf_counter() - t0
+        mgr.wait()
+        flush = time.perf_counter() - t0 - snap
+        if mgr.latest_step() != TRAIN_STEPS:
+            raise AssertionError("the checkpoint did not commit")
+        on_disk = sum(f.stat().st_size for f in
+                      (mgr.dir / f"step_{TRAIN_STEPS:08d}").iterdir())
+    summary["ckpt"] = dict(snapshot_ms=snap * 1e3, flush_s=flush,
+                           gb=state_bytes / 1e9)
+    print(f"[train] checkpoint of params + AdamW state ({state_bytes / 1e9:.2f}"
+          f" GB, {len(flatten_state(state))} leaves; {free / 1e9:.0f} GB "
+          f"free before): snapshot {snap * 1e3:.0f} ms (the step loop's "
+          f"stall), flush {flush:.1f} s ({on_disk / 1e9:.2f} GB written, "
+          f"{on_disk / 1e9 / flush:.2f} GB/s)")
+    del state, p, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def profile_train(accum=1, steps=2):
+    """Where a full-width training step's time goes (one-off): the train
+    phase's model and batch, one step to warm up, then `steps` steps under
+    torch.profiler. Prints one [profile-train] line: the step's wall time,
+    the device busy share, kernels a step, the device time by kind of
+    kernel (GEMMs, element-wise, reductions, indexing and the rest) and
+    the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    params = init_params(cfg, seed=0, device="cuda")
+    batch = next(TokenPipeline(DataConfig(
+        global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        vocab_size=cfg.vocab_size, seed=0), device="cuda"))
+    step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), accum=accum)
+    p, opt, _ = step(params, adamw_init(params), batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            p, opt, m = step(p, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device activity")
+    by_name, by_kind = {}, {}
+    kinds = (("gemm", r"gemm|xmma|cutlass|sm90_|nvjet|cublas"),
+             ("reduce", r"reduce|softmax|norm"),
+             ("index", r"index|scatter|gather|embedding|sort|radix"),
+             ("elementwise", r"elementwise|vectorized|unrolled|copy|fill"))
+    for e in kernels:
+        ms = e.time_range.elapsed_us() / 1e3 / steps
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        kind = next((k for k, pat in kinds if re.search(pat, e.name, re.I)),
+                    "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+    busy = sum(by_kind.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print("[profile-train] " + json.dumps({
+        "smi": _smi("name,power.limit"), "model": cfg.name,
+        "tokens": TRAIN_BATCH * TRAIN_SEQ, "accum": accum,
+        "wall_ms_per_step": wall * 1e3, "device_busy_ms_per_step": busy,
+        "device_idle_share": 1.0 - busy / (wall * 1e3),
+        "kernels_per_step": len(kernels) / steps,
+        "device_ms_by_kind": by_kind,
+        "top_kernels_ms": [(n[:70], ms) for n, ms in top]}))
+
+
+def phase_train_resume(device="cuda"):
+    """examples.train_lm.small_100m(qwen3-1.7b) through launch.train.main
+    on the card: 8 steps with a checkpoint every 4; then the step-8
+    checkpoint is deleted, as a crash after step 4 would leave the
+    directory, and a second invocation resumes from step 4 and finishes at
+    8. Every leaf of the two runs' final parameters and Adam state must be
+    equal: the step is deterministic on the card, so any fault of the
+    restore (a lost moment, step or parameter) shows."""
+    cfg = small_100m(TRAIN_ARCH)
+    args = ["--steps", "8", "--batch", "8", "--seq", "256", "--ckpt-every",
+            "4", "--log-every", "2", "--device", device]
+    with tempfile.TemporaryDirectory(prefix="smoke_resume_") as d:
+        full = train_main(args + ["--ckpt-dir", d], cfg=cfg)
+        shutil.rmtree(os.path.join(d, "step_00000008"))
+        res = train_main(args + ["--ckpt-dir", d], cfg=cfg)
+    if full["start"] != 0 or res["start"] != 4:
+        raise AssertionError(f"resumed from {res['start']}, not 4")
+    diffs = {}
+    for tree in ("params", "opt_state"):
+        a, b = dict(flatten(full[tree])), dict(flatten(res[tree]))
+        diffs.update({f"{tree}/{k}": (torch.equal(a[k], b[k]), float(
+            (a[k].double() - b[k].double()).abs().max())) for k in a})
+    worst = max(diffs, key=lambda k: diffs[k][1])
+    n_diff = sum(1 for eq, _ in diffs.values() if not eq)
+    print(f"[train-resume] {cfg.name} small_100m: final loss "
+          f"{full['loss']:.6f} uninterrupted, {res['loss']:.6f} resumed; "
+          f"largest |difference| {diffs[worst][1]:.3e} ({worst}), "
+          f"{n_diff} of {len(diffs)} leaves of params and Adam state "
+          f"differ (held to 0)")
+    if n_diff or res["loss"] != full["loss"]:
+        raise AssertionError("the resumed run left the uninterrupted one")
+    return diffs[worst][1]
+
+
+def phase_train_lm(device="cuda"):
+    """examples/train_lm.py at its defaults (qwen3-1.7b's small_100m, 300
+    steps of 8 x 256) on the card; it raises unless the loss falls by more
+    than 1.0."""
+    t0 = time.perf_counter()
+    first, last = train_lm_main(["--device", device])
+    print(f"[train-lm] loss {first:.3f} -> {last:.3f} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return first, last
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3154,6 +3459,10 @@ def main():
     for arch in RECURRENT_MODELS:
         phase_recurrent(arch)
         print(f"[done] {TAGS[arch]} {time.perf_counter() - t0:.1f} s")
+    _timed("train", phase_train)
+    _timed("train-resume", phase_train_resume)
+    _timed("train-lm", phase_train_lm)
+    print(f"[done] training {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for key, name, source, replaces in (

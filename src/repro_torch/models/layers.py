@@ -1,6 +1,7 @@
 """Transformer layers of the port (``repro/models/layers.py``): norms, RoPE
-and sinusoidal positions, GQA attention for prefill and paged decode, the
-gated and plain GELU MLPs, embedding and logits.
+and sinusoidal positions, GQA attention for training, prefill and paged
+decode, the gated and plain GELU MLPs, embedding, logits and the chunked
+cross-entropy of training (`chunked_xent`).
 
 Plain functions on tensors over a param dict. The reference's bf16 rounding
 points are kept: projections and the head are bf16 products, norms and RoPE
@@ -22,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import Param
@@ -149,8 +151,10 @@ def _attend_chunked(q, k, v, *, softcap: Optional[float], scale: float,
     bf16 product cast to fp32 and scaled, the softcap comes before the
     mask, the softmax runs in fp32 and p stays fp32 in the p·v product (JAX
     promotes v there), and the result is cast back to v's type. Peak memory
-    is O(T * kv_block) per head, never (T, S); the block's logits are
-    updated in place, which rounds as the out-of-place ops do."""
+    is O(T * kv_block) per head, never (T, S). Without autograd (serving)
+    the block's logits are updated in place, which rounds as the
+    out-of-place ops do; when a gradient is to flow (training) the same ops
+    run out of place, so autograd keeps the tensors its backward reads."""
     B, T, H, hd = q.shape
     S, K, vd = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
@@ -164,19 +168,28 @@ def _attend_chunked(q, k, v, *, softcap: Optional[float], scale: float,
     m = torch.full((B, K, G, T), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, K, G, T), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, K, G, T, vd), dtype=torch.float32, device=q.device)
+    inplace = not (torch.is_grad_enabled()
+                   and (q.requires_grad or k.requires_grad or v.requires_grad))
     for off in range(0, nb * kv_block, kv_block):
         kc, vc = k[:, off:off + kv_block], v[:, off:off + kv_block]
-        logits = torch.einsum("btkgh,bskh->bkgts", qg, kc).float().mul_(scale)
+        logits = torch.einsum("btkgh,bskh->bkgts", qg, kc).float()
+        logits = logits.mul_(scale) if inplace else logits * scale
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
         jk = off + torch.arange(kv_block, device=q.device)[None, :]
         msk = (jk <= iq) & (jk < S)
         if window is not None:
             msk &= jk > iq - window
-        logits.masked_fill_(~msk, NEG_INF)
+        if inplace:
+            logits.masked_fill_(~msk, NEG_INF)
+        else:
+            logits = logits.masked_fill(~msk, NEG_INF)
         new_m = torch.maximum(m, logits.amax(dim=-1))
         corr = torch.exp(m - new_m)
-        p = logits.sub_(new_m[..., None]).exp_()
+        if inplace:
+            p = logits.sub_(new_m[..., None]).exp_()
+        else:
+            p = torch.exp(logits - new_m[..., None])
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bkgts,bskh->bkgth", p,
                                                    vc.float())
@@ -203,6 +216,8 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
     A local layer (`local`) attends over the last cfg.sliding_window
     positions (key j visible to query i when i - window < j <= i) and
     rotates by cfg.local_rope_theta where the config sets one.
+    kind="train": causal attention over the sequence, no cache (new_cache
+    None), as prefill computes it.
     kind="prefill": causal attention over the prompt; the cache holds k/v
     (B, max_seq, K, hd) bf16 and idx (B,) = T. A local layer's cache is a
     ring of min(window, max_seq) rows unless cfg.paged_kv: the last rows
@@ -282,7 +297,7 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         out = _attend(q, kc, vc, mask=mask[:, None, None, None, :],
                       softcap=cfg.attn_softcap, scale=scale)
         new_cache = {"k": kc, "v": vc, "idx": idx + 1}
-    elif kind == "prefill":
+    elif kind in ("prefill", "train"):
         if T > 2 * KV_BLOCK:
             out = _attend_chunked(q, k, v, softcap=cfg.attn_softcap,
                                   scale=scale, window=window)
@@ -290,6 +305,8 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
             mask = _causal_mask(T, T, window=window, device=x.device)
             out = _attend(q, k, v, mask=mask, softcap=cfg.attn_softcap,
                           scale=scale)
+        if kind == "train":
+            return torch.einsum("bthk,hkd->btd", out, p["wo"]), None
         target = max_seq or T
         ring = window is not None and not cfg.paged_kv
         if ring:
@@ -375,3 +392,51 @@ def logits_apply(p, x, *, cfg: ModelConfig):
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits[..., :cfg.vocab_size]
+
+
+def _xent_chunk(m, lse, tgt_logit, x, wc, targets, off: int, *,
+                cfg: ModelConfig):
+    """One vocab tile of `chunked_xent`: the tile's fp32 logits (softcap,
+    then the padded rows masked), the online logsumexp update, and the
+    target logit where the target falls in the tile."""
+    C = wc.shape[0]
+    logits = torch.einsum("bsd,cd->bsc", x, wc).float()
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    valid = (off + torch.arange(C, device=x.device)) < cfg.vocab_size
+    logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
+    new_m = torch.maximum(m, logits.amax(dim=-1))
+    lse = torch.exp(m - new_m) * lse + torch.exp(
+        logits - new_m[..., None]).sum(dim=-1)
+    loc = targets.long() - off
+    in_chunk = (loc >= 0) & (loc < C)
+    gathered = logits.gather(-1, loc.clamp(0, C - 1)[..., None])[..., 0]
+    return new_m, lse, torch.where(in_chunk, gathered, tgt_logit)
+
+
+def chunked_xent(p, x, targets, mask, *, cfg: ModelConfig):
+    """Streaming cross-entropy over vocab tiles (reference ``chunked_xent``).
+
+    Never materializes the (B, S, V) logits: a loop over the padded table's
+    cfg.vocab_chunk tiles keeps an online logsumexp and picks the target
+    logit on the fly. Each tile runs under ``torch.utils.checkpoint``, so
+    its logits are recomputed in the backward (the reference's
+    ``jax.checkpoint``) and only the (B, S) carries are kept.
+    x: (B, S, D) final hiddens; targets: (B, S) int; mask: (B, S) {0, 1}.
+    Returns the mean nll over the masked tokens (fp32)."""
+    w = p["table"] if cfg.tie_embeddings else p["lm_head"]
+    Vp = w.shape[0]
+    C = min(cfg.vocab_chunk, Vp)
+    B, S, _ = x.shape
+    m = torch.full((B, S), NEG_INF, dtype=torch.float32, device=x.device)
+    lse = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    tgt_logit = torch.full_like(m, NEG_INF)
+    # split, not a slice per tile: its backward writes the table's
+    # gradient once, not one table-sized tensor per tile
+    for i, wc in enumerate(w.split(C)):
+        m, lse, tgt_logit = checkpoint(
+            _xent_chunk, m, lse, tgt_logit, x, wc, targets, i * C, cfg=cfg,
+            use_reentrant=False, preserve_rng_state=False)
+    nll = (m + torch.log(lse)) - tgt_logit
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -1,13 +1,14 @@
 """Multi-head Latent Attention of the port (``repro/models/mla.py``,
 DeepSeek-V2).
 
-Prefill runs the decompressed path: c_kv is up-projected to per-head keys
-and values and attended like standard attention (plain torch, as the
-reference's jnp). Paged decode runs the absorbed path: the k up-projection
-is folded into the query (q_abs) and the v up-projection applied after the
-attention, which runs straight over the compressed (c_kv, k_rope) pages
-through the port's CUDA kernels K3 (single sweep, fused commit) and K4 (per
-layer). The cache holds kv_lora + rope = 576 features per token.
+Training and prefill run the decompressed path: c_kv is up-projected to
+per-head keys and values and attended like standard attention (plain
+torch, as the reference's jnp). Paged decode runs the absorbed path: the k
+up-projection is folded into the query (q_abs) and the v up-projection
+applied after the attention, which runs straight over the compressed
+(c_kv, k_rope) pages through the port's CUDA kernels K3 (single sweep,
+fused commit) and K4 (per layer). The cache holds kv_lora + rope = 576
+features per token.
 
 The dense ``kind="decode"`` branch (the assembly path and the dense
 ``ServingEngine``) runs the same absorbed attention in plain torch over a
@@ -74,6 +75,7 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
               max_seq: Optional[int] = None, paged=None):
     """Returns (y, new_cache).
 
+    kind="train": the decompressed causal attention, no cache (None).
     kind="prefill": the decompressed causal attention; the cache holds c_kv
     (B, max_seq, kvr) and k_rope (B, max_seq, dr) bf16 and idx (B,) = T.
     kind="paged_decode": one token per slot over compressed pages. `paged`
@@ -115,7 +117,7 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                 cache["idx"], c_new, r_new, scale=scale, cfg=pul_cfg)
             new_cache = {"c_kv": c_new, "k_rope": r_new, "idx": cache["idx"] + 1}
         out = torch.einsum("bhr,rhv->bhv", o_c, wkv_b_v)[:, None]
-    elif kind == "prefill":
+    elif kind in ("prefill", "train"):
         c_kv, k_rope = _compress_kv(p, x, cfg, positions)
         kv = torch.einsum("btr,rhk->bthk", c_kv, p["wkv_b"])
         k_nope, v = kv[..., :dn], kv[..., dn:]
@@ -133,6 +135,8 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                                  torch.full_like(logits, NEG_INF))
             probs = torch.softmax(logits, dim=-1).to(v.dtype)
             out = torch.einsum("bhts,bshv->bthv", probs, v)
+        if kind == "train":
+            return torch.einsum("bthv,hvd->btd", out, p["wo"]), None
         target = max_seq or T
         if T > target:
             raise ValueError(f"prompt of {T} tokens exceeds max_seq {target}")

@@ -1,5 +1,6 @@
 """Backbone of the port (``repro/models/transformer.py``): parameter and
-cache trees, prefill, the dense decode step and the paged decode step, for
+cache trees, the training loss (with one remat checkpoint per group),
+prefill, the dense decode step and the paged decode step, for
 every pattern of the reference zoo: global and sliding-window local GQA
 layers (("global",), gemma2's ("local", "global"), gemma3's five local and
 one global), with or without sandwich norms; ("moe",) with GQA (grok-1) or
@@ -34,6 +35,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pul import PULConfig
@@ -164,10 +166,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     return spec
 
 
-def _layer(tree: Dict[str, Any], g: int) -> Dict[str, Any]:
-    """Row g of every stacked leaf (views)."""
-    return {k: (_layer(v, g) if isinstance(v, dict) else v[g])
-            for k, v in tree.items()}
+def _unbind(tree: Dict[str, Any], n: int):
+    """The n rows of every stacked leaf, as n trees of views. In training
+    their backward stacks the n rows' gradients once, where a view per row
+    would add a zero-filled stacked tensor to the gradient for each row."""
+    rows = [dict() for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for g in range(n):
+            rows[g][k] = parts[g]
+    return rows
 
 
 def _merged_lora_attn(shared_attn, lora, cfg: ModelConfig):
@@ -188,16 +196,20 @@ def _merged_lora_attn(shared_attn, lora, cfg: ModelConfig):
 def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
                 step_kind: str, cache=None, max_seq=None, paged=None,
                 shared=None):
-    """Returns (x, new_cache). A recurrent block's cache is its state; a
-    shared_attn block applies `shared` (the shared attention and MLP block,
-    its own norms) with `p`, the invocation's LoRA, merged in."""
+    """Returns (x, new_cache, aux). A recurrent block's cache is its state;
+    a shared_attn block applies `shared` (the shared attention and MLP
+    block, its own norms) with `p`, the invocation's LoRA, merged in. aux is
+    the MoE block's auxiliary loss, None for every other kind (whose aux is
+    0 in the reference)."""
+    aux = None
     if kind in RECURRENT_KINDS:
         # no pageable KV: a paged decode step is an ordinary decode step
         apply = (SSM.rwkv_block_apply if kind == "rwkv"
                  else SSM.mamba_block_apply)
-        return apply(p, x, cfg=cfg, state=cache,
-                     kind="decode" if step_kind == "paged_decode"
-                     else step_kind)
+        x, new_cache = apply(p, x, cfg=cfg, state=cache,
+                             kind="decode" if step_kind == "paged_decode"
+                             else step_kind)
+        return x, new_cache, aux
     if kind == "shared_attn":
         blk, attn_p = shared, _merged_lora_attn(shared["attn"], p, cfg)
     else:
@@ -217,12 +229,12 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
     x = x + h
     h = L.rms_norm(x, blk["norm2"], cfg.norm_eps)
     if kind == "moe":
-        h, _ = MOE.moe_apply(blk["mlp"], h, cfg=cfg)
+        h, aux = MOE.moe_apply(blk["mlp"], h, cfg=cfg)
     else:
         h = L.mlp_apply(blk["mlp"], h, cfg=cfg)
     if cfg.sandwich_norm:
         h = L.rms_norm(h, blk["post_norm2"], cfg.norm_eps)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 def _stack(caches) -> Dict[str, torch.Tensor]:
@@ -236,9 +248,9 @@ def _blocks(params, cfg: ModelConfig):
     for i in range(cfg.first_dense_layers):
         yield ("dense", str(i)), 0, "dense", params["dense"][str(i)]
     entries = list(zip(group_keys(cfg), cfg.pattern))
-    for g in range(cfg.num_groups):
+    for g, gp in enumerate(_unbind(params["groups"], cfg.num_groups)):
         for key, kind in entries:
-            yield ("groups", key), g, kind, _layer(params["groups"][key], g)
+            yield ("groups", key), g, kind, gp[key]
 
 
 def _tree(cfg: ModelConfig, per_block) -> Dict[str, Any]:
@@ -289,6 +301,62 @@ def _embed_inputs(params, tokens, cfg: ModelConfig, pos0=None,
     return x, positions
 
 
+def train_backbone(params, x, positions, *, cfg: ModelConfig):
+    """The reference's ``backbone(step_kind="train")``: the dense layers,
+    then the groups, then the final norm; no cache. Returns (x, aux), aux
+    the fp32 sum of the MoE blocks' auxiliary losses in the reference's
+    order. With cfg.remat each group runs under one
+    ``torch.utils.checkpoint``: only its input carry (x, aux) is kept, and
+    the group is recomputed in the backward, as the reference's
+    ``jax.checkpoint`` with ``save_only_these_names("group_carry")`` over
+    its scan body. The dense layers are not rematerialized (they sit
+    outside the reference's scan)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared")
+    for i in range(cfg.first_dense_layers):
+        x, _, _ = block_apply(params["dense"][str(i)], x, cfg=cfg,
+                              kind="dense", positions=positions,
+                              step_kind="train")
+    entries = list(zip(group_keys(cfg), cfg.pattern))
+
+    def group(x, aux, gp):
+        for key, kind in entries:
+            x, _, a = block_apply(gp[key], x, cfg=cfg, kind=kind,
+                                  positions=positions, step_kind="train",
+                                  shared=shared)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    for gp in _unbind(params["groups"], cfg.num_groups):
+        if cfg.remat:
+            x, aux = checkpoint(group, x, aux, gp, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = group(x, aux, gp)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+#: weight of the MoE auxiliary (load-balance) loss in the training loss
+AUX_COEF = 0.01
+
+
+def loss_fn(params, batch, *, cfg: ModelConfig):
+    """The training loss (reference ``loss_fn``). batch: tokens, targets
+    (B, S) int, loss_mask (B, S) {0, 1} [+ frontend_embeds (B, Tf, D),
+    whose positions are dropped before the loss]. Returns the fp32 scalar
+    mean nll over the masked tokens + AUX_COEF * the MoE auxiliary loss."""
+    fe = batch.get("frontend_embeds")
+    x, positions = _embed_inputs(params, batch["tokens"], cfg,
+                                 frontend_embeds=fe)
+    x, aux = train_backbone(params, x, positions, cfg=cfg)
+    if cfg.frontend is not None and fe is not None:
+        x = x[:, fe.shape[1]:, :]
+    nll = L.chunked_xent(params["embedding"], x, batch["targets"],
+                         batch["loss_mask"], cfg=cfg)
+    return nll + AUX_COEF * aux
+
+
 def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
                max_seq: Optional[int] = None, frontend_embeds=None):
     """tokens (B, T) int; lengths (B,) real tokens per right-padded row;
@@ -308,7 +376,7 @@ def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
     shared = params.get("shared")
     caches = []
     for _, _, kind, p in _blocks(params, cfg):
-        x, c = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+        x, c, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                            step_kind="prefill", max_seq=max_seq,
                            shared=shared)
         caches.append(c)
@@ -340,7 +408,7 @@ def decode_fn(params, batch, caches, *, cfg: ModelConfig):
     shared = params.get("shared")
     states = []
     for prefix, g, kind, p in _blocks(params, cfg):
-        x, nc = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+        x, nc, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                             step_kind="decode",
                             cache=_block_cache(caches, prefix, g),
                             shared=shared)
@@ -399,7 +467,7 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
         else:
             cache = {**_block_cache(caches, prefix, g), "idx": lengths}
             paged = (batch["page_table"], pul_cfg)
-        x, nc = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
+        x, nc, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                             step_kind="paged_decode", cache=cache, paged=paged,
                             shared=shared)
         new.append(nc)

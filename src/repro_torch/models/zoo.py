@@ -2,12 +2,14 @@
 
 A :class:`Model` binds a config to its parameters and exposes the entry
 points the serving engines call: ``prefill``, ``decode_step`` (dense caches)
-and ``paged_decode_step``.
+and ``paged_decode_step``, and the training loss, ``loss``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -19,6 +21,13 @@ from repro_torch.models import transformer as T
 class Model:
     cfg: ModelConfig
     params: Dict[str, Any]        # nested dict of tensors (see model_params)
+
+    def loss(self, batch):
+        """The training loss on `batch`; see transformer.loss_fn."""
+        return T.loss_fn(self.params, batch, cfg=self.cfg)
+
+    def num_params(self) -> int:
+        return M.count_params(T.model_params(self.cfg))
 
     def prefill(self, tokens, lengths=None, max_seq: Optional[int] = None,
                 frontend_embeds=None):
@@ -49,3 +58,25 @@ def build_model(cfg: ModelConfig, params: Optional[Dict[str, Any]] = None, *,
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
     return Model(cfg, params)
+
+
+def demo_batch(cfg: ModelConfig, batch_size: int, seq_len: int, *,
+               seed: int = 0, device="cuda") -> Dict[str, torch.Tensor]:
+    """A small concrete training batch (reference ``demo_batch``): uniform
+    tokens, targets the tokens rolled by one, a full loss mask, and the
+    frontend stub's bf16 embeddings (normal x 0.02) where the config has a
+    frontend. Drawn from a ``torch.Generator`` seeded with `seed`: the
+    numbers differ from the reference's, so tests hand both packages one
+    numpy batch."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch_size, seq_len),
+                           generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=1),
+             "loss_mask": torch.ones((batch_size, seq_len))}
+    if cfg.frontend and cfg.frontend_tokens:
+        batch["frontend_embeds"] = (torch.randn(
+            (batch_size, cfg.frontend_tokens, cfg.d_model),
+            generator=gen).to(torch.bfloat16) * 0.02)
+    return {k: v.to(dev) for k, v in batch.items()}

@@ -43,7 +43,7 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 65     # every module, not a stub
+    assert int(proc.stdout.split()[-1]) >= 77     # every module, not a stub
 
 
 @pytest.mark.parametrize("module", [
@@ -107,6 +107,32 @@ def test_serving_bench_slice_module_imports_with_jax_blocked(module):
     serving scripts and the serve example) on its own, jax and repro
     blocked; importing a script runs nothing."""
     test_mla_slice_module_imports_with_jax_blocked(module)
+
+
+TRAINING_SLICE = (
+    "repro_torch.optim", "repro_torch.optim.optimizer",
+    "repro_torch.optim.compression", "repro_torch.data",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint",
+    "repro_torch.checkpoint.checkpoint", "repro_torch.runtime",
+    "repro_torch.runtime.fault", "repro_torch.launch.steps",
+    "repro_torch.launch.train", "repro_torch.examples.train_lm")
+
+
+def test_training_slice_modules_import_with_jax_blocked():
+    """The training slice's modules (AdamW and the int8 compression, the
+    token pipeline, the checkpoints, the fault runtime, the steps, the
+    trainer and its example), each imported first in one interpreter with
+    jax and repro blocked; importing the trainer or the example runs
+    nothing (no output)."""
+    probe = ("import importlib, sys\n"
+             "sys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+             f"for name in {TRAINING_SLICE!r}:\n"
+             "    importlib.import_module(name)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout == ""
 
 
 def test_no_port_source_imports_jax_or_the_reference():

@@ -182,7 +182,7 @@ def _layerwise_prefill(pair, layout, toks):
             step_kind="prefill", max_seq=S)
         tx = torch.from_numpy(_np(x).copy()).to(
             torch.float32 if x.dtype == jnp.float32 else torch.bfloat16)
-        got_x, got_c = T.block_apply(
+        got_x, got_c, _ = T.block_apply(
             p, tx, cfg=cfg, kind=kind, positions=tpos, step_kind="prefill",
             max_seq=S)
         yield prefix, g, (want_x, want_c), (got_x, got_c)

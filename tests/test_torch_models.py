@@ -359,7 +359,8 @@ def _moe_layer(ds_pair, cfg_change):
     ref_cfg = dataclasses.replace(ds_pair["ref_model"].cfg, **cfg_change)
     cfg = dataclasses.replace(ds_pair["cfg"], **cfg_change)
     ref_p = jax.tree.map(lambda a: a[0], ds_pair["ref_params"]["groups"]["0:moe"]["mlp"])
-    p = T._layer(ds_pair["model"].params["groups"]["0:moe"]["mlp"], 0)
+    p = T._unbind(ds_pair["model"].params["groups"]["0:moe"]["mlp"],
+                  cfg.num_groups)[0]
     return ref_cfg, cfg, ref_p, p
 
 

@@ -280,7 +280,7 @@ def _block(pair, kind):
     """Layer 1 (group 1) of `kind`'s entry on both sides, the shared block."""
     key = next(k for k in T.group_keys(pair["cfg"]) if k.endswith(kind))
     ref_p = jax.tree.map(lambda a: a[1], pair["ref_params"]["groups"][key])
-    p = T._layer(pair["params"]["groups"][key], 1)
+    p = T._unbind(pair["params"]["groups"][key], pair["cfg"].num_groups)[1]
     return ref_p, p, pair["ref_params"].get("shared"), \
         pair["params"].get("shared")
 
@@ -330,7 +330,7 @@ def test_block_matches_reference(pairs, dtype, kind, step):
             ref_p, ref_shared, jnp.asarray(x).astype(act), cfg=ref_cfg,
             kind=kind, positions=jnp.asarray(pos), step_kind="prefill",
             max_seq=S)
-        got, got_cache = T.block_apply(
+        got, got_cache, _ = T.block_apply(
             p, _t(x, tact), cfg=cfg, kind=kind,
             positions=torch.as_tensor(pos), step_kind="prefill", max_seq=S,
             shared=shared)
@@ -346,7 +346,7 @@ def test_block_matches_reference(pairs, dtype, kind, step):
             ref_p, ref_shared, jnp.asarray(x).astype(act), cfg=ref_cfg,
             kind=kind, positions=jnp.asarray(pos), step_kind="decode",
             cache=want_in)
-        got, got_cache = T.block_apply(
+        got, got_cache, _ = T.block_apply(
             p, _t(x, tact), cfg=cfg, kind=kind,
             positions=torch.as_tensor(pos), step_kind="decode",
             cache=got_in, shared=shared)
@@ -378,7 +378,7 @@ def test_merged_lora_attn_matches_reference(pairs):
     for g in range(cfg.num_groups):
         ref_lora = jax.tree.map(lambda a: a[g],
                                 pair["ref_params"]["groups"][key])
-        lora = T._layer(pair["params"]["groups"][key], g)
+        lora = T._unbind(pair["params"]["groups"][key], cfg.num_groups)[g]
         want = ref_T._merged_lora_attn(pair["ref_params"]["shared"]["attn"],
                                        ref_lora, ref_cfg)
         got = T._merged_lora_attn(pair["params"]["shared"]["attn"], lora, cfg)
@@ -391,7 +391,7 @@ def test_merged_lora_attn_matches_reference(pairs):
     assert not torch.equal(merged[0]["wq"], merged[1]["wq"])
     x = torch.randn((3, cfg.d_model), generator=torch.Generator().manual_seed(
         0)).to(torch.bfloat16)
-    lora = T._layer(pair["params"]["groups"][key], 0)
+    lora = T._unbind(pair["params"]["groups"][key], cfg.num_groups)[0]
     wq = pair["params"]["shared"]["attn"]["wq"].reshape(cfg.d_model, -1)
     fused = x @ merged[0]["wq"].reshape(cfg.d_model, -1)
     factored = x @ wq + (x @ lora["q_a"]) @ lora["q_b"]
@@ -462,7 +462,7 @@ def _layerwise(pair, toks, step, caches=None, pos0=None):
             _ref_block(pair, prefix, g), pair["ref_params"].get("shared"), x,
             cfg=ref_cfg, kind=kind, positions=pos, step_kind=step,
             cache=rc, max_seq=S)
-        got_x, got_c = T.block_apply(
+        got_x, got_c, _ = T.block_apply(
             p, torch.from_numpy(_np(x).copy()).to(act), cfg=cfg, kind=kind,
             positions=tpos, step_kind=step,
             cache=None if rc is None else _to_torch(rc), max_seq=S,
@@ -598,7 +598,7 @@ def test_zamba2_shared_attention_through_k1_k2_matches_reference_kernel(
         got = {}
         for path in ("sweep", "per-layer"):
             planes = {k: v.clone() for k, v in planes0.items()}
-            lora = T._layer(pair["params"]["groups"][key], g)
+            lora = T._unbind(pair["params"]["groups"][key], cfg.num_groups)[g]
             tx = torch.from_numpy(x).to(torch.bfloat16)
             if path == "sweep":
                 paged = L.PagedSweep(torch.as_tensor(pt),
@@ -606,13 +606,13 @@ def test_zamba2_shared_attention_through_k1_k2_matches_reference_kernel(
                                      torch.as_tensor(frames),
                                      torch.as_tensor(offs), planes)
                 paged.prefix, paged.layer = ("groups", key), g
-                out, _ = T.block_apply(
+                out, _, _ = T.block_apply(
                     lora, tx, cfg=cfg, kind="shared_attn",
                     positions=torch.as_tensor(pos), step_kind="paged_decode",
                     paged=paged, shared=pair["params"]["shared"])
             else:
                 view = layout.page_view_tree(planes)["groups"][key]
-                out, new = T.block_apply(
+                out, new, _ = T.block_apply(
                     lora, tx, cfg=cfg, kind="shared_attn",
                     positions=torch.as_tensor(pos), step_kind="paged_decode",
                     cache={"k": view["k"][g], "v": view["v"][g],

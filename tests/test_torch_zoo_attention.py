@@ -300,7 +300,7 @@ def _grok_layer(pairs, **change):
     cfg = dataclasses.replace(pair["cfg"], **change)
     ref_p = jax.tree.map(lambda a: a[0],
                          pair["ref_params"]["groups"]["0:moe"]["mlp"])
-    p = T._layer(pair["params"]["groups"]["0:moe"]["mlp"], 0)
+    p = T._unbind(pair["params"]["groups"]["0:moe"]["mlp"], cfg.num_groups)[0]
     return ref_cfg, cfg, ref_p, p
 
 
@@ -391,7 +391,8 @@ def test_sinusoidal_embedding_and_gelu_mlp_match_reference(pairs):
     cfg = pair["cfg"]
     ref_p = jax.tree.map(lambda a: a[0],
                          pair["ref_params"]["groups"]["0:global"]["mlp"])
-    p = T._layer(pair["params"]["groups"]["0:global"]["mlp"], 0)
+    p = T._unbind(pair["params"]["groups"]["0:global"]["mlp"],
+                  cfg.num_groups)[0]
     _, jx, tx = _activations(16, cfg.d_model, 8)
     want = ref_layers.mlp_apply(ref_p, jx, cfg=pair["paged"][0].cfg)
     got = L.mlp_apply(p, tx, cfg=cfg)
