@@ -174,10 +174,24 @@ exit code is not 0:
                      the final parameters and Adam state held equal
  24. train-lm     -- examples/train_lm.py at its defaults (300 steps); it
                      raises unless the loss falls by more than 1.0
- 25. summary      -- one JSON line listing the kernels, with the body each
+ 25. mesh         -- the sharding layer, in subprocesses, all started
+                     together: the dry-run (``repro_torch.launch.dryrun``,
+                     a fake process group, no card) of full-width,
+                     full-depth qwen3-1.7b at
+                     train_4k, prefill_32k and decode_32k on the 256- and
+                     512-rank meshes: each cell ok, its per-device argument
+                     bytes equal to the arithmetic over cell_specs, its
+                     counted FLOPs per device within FLOPS_VS_ANALYTIC of the
+                     analytic exec FLOPs / chips, collective bytes and
+                     seconds printed; and ``repro_torch.launch.mesh_parity``
+                     on the card: full-width qwen3-1.7b's prefill and decode
+                     and a small_100m training step on a 1x1 mesh over a
+                     one-rank nccl group, 0 elements differing from the run
+                     without a mesh
+ 26. summary      -- one JSON line listing the kernels, with the body each
                      ran (wgmma, mma.sync, split-kv, split-kv mma.sync,
                      cp.async.bulk, cp.async.bulk.tensor or fma)
- 26. last line: {"ok": true, "device": {...}}
+ 27. last line: {"ok": true, "device": {...}}
 
 Where a decode tick's time goes on another path (device busy share, top
 kernels) is a one-off measurement:
@@ -299,6 +313,12 @@ GROK_LAYERS = 6
 # 15.07 GB)
 ZAMBA2, RWKV6 = "zamba2-7b", "rwkv6-7b"
 RECURRENT_MODELS = (ZAMBA2, RWKV6)
+# the mesh phase: full-width, full-depth qwen3-1.7b's dry-run cells (one
+# process each, in parallel on the host's cores); each cell's counted FLOPs
+# per device must fall within dryrun.FLOPS_VS_ANALYTIC of cell_cost's exec
+# FLOPs / chips (the reasons for its width are beside it)
+MESH_ARCH = "qwen3-1.7b"
+MESH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 # published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
 # dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
 # every bound uses, and float32 flop/s outside the tensor cores, where the
@@ -3386,6 +3406,96 @@ def phase_train_lm(device="cuda"):
     return first, last
 
 
+def _port_env(**extra):
+    env = dict(os.environ, **extra)
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (src, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def phase_mesh(timeout=900):
+    """The sharding layer (phase 25): the dry-run's six cells, each in its
+    own process on the host's CPU (a fake process group; no card, so
+    CUDA_VISIBLE_DEVICES is empty there), and the 1x1 mesh's parity on the
+    card, all started together. Raises unless every cell is ok with its
+    argument bytes equal to the arithmetic and its FLOPs within
+    dryrun.FLOPS_VS_ANALYTIC, and the 1x1 run differs from the run without
+    a mesh in 0 elements."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun, steps
+
+    cfg = get_config(MESH_ARCH)
+    lo, hi = dryrun.FLOPS_VS_ANALYTIC
+    with tempfile.TemporaryDirectory() as out:
+        procs = {}
+        for shape in MESH_SHAPES:
+            for mesh in ("single", "multi"):
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", MESH_ARCH, "--shape", shape, "--out", out]
+                procs[(shape, mesh)] = subprocess.Popen(
+                    cmd + (["--multi-pod"] if mesh == "multi" else []),
+                    env=_port_env(CUDA_VISIBLE_DEVICES=""),
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+        parity = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.mesh_parity",
+             "--arch", MESH_ARCH, "--device", "cuda"], env=_port_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        logs = {}
+        try:
+            for key, p in procs.items():
+                logs[key] = p.communicate(timeout=timeout)[0]
+            par_out, par_err = parity.communicate(timeout=timeout)
+        finally:
+            for p in (*procs.values(), parity):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        failed = []
+        for (shape, mesh), p in procs.items():
+            tag = f"{MESH_ARCH}__{shape}__{mesh}"
+            path = os.path.join(out, f"{tag}.json")
+            if p.returncode or not os.path.exists(path):
+                print(logs[(shape, mesh)][-3000:], file=sys.stderr)
+                failed.append(f"{tag}: exit {p.returncode}")
+                continue
+            with open(path) as f:
+                r = json.load(f)
+            stub = SimpleNamespace(shape=(
+                {"pod": 2, "data": 16, "model": 16} if mesh == "multi"
+                else {"data": 16, "model": 16}))
+            want = dryrun.argument_bytes_per_dev(
+                steps.cell_specs(cfg, SHAPES[shape], stub), stub)
+            cost = cell_cost(cfg, SHAPES[shape], accum=r.get("accum") or 0)
+            ratio = r["flops_per_dev"] / (cost.exec_flops / r["chips"])
+            print(f"[mesh] {tag} ({r['num_layers']} layers): {r['status']}, "
+                  f"{r['run_s']:.1f} s; args/dev "
+                  f"{r['argument_bytes_per_dev']} B (arithmetic {want}); "
+                  f"flops/dev {r['flops_per_dev']:.4e} vs exec/chips "
+                  f"{cost.exec_flops / r['chips']:.4e} (x{ratio:.3f}); "
+                  f"collective/dev {r['collective_bytes_per_dev']} B "
+                  f"{json.dumps(r['collective_kinds'])}; temp/dev "
+                  f"{r['temp_bytes_per_dev']} B")
+            if r["status"] != "ok":
+                failed.append(f"{tag}: {r['status']}")
+            elif r["argument_bytes_per_dev"] != want:
+                failed.append(f"{tag}: argument bytes "
+                              f"{r['argument_bytes_per_dev']} != {want}")
+            elif not lo <= ratio <= hi:
+                failed.append(f"{tag}: flops x{ratio:.3f} outside "
+                              f"[{lo}, {hi}]")
+    line = (par_out.strip().splitlines() or [""])[-1]
+    print(f"[mesh] 1x1 mesh vs no mesh: {line}")
+    if parity.returncode:
+        print(par_err[-3000:], file=sys.stderr)
+        failed.append(f"1x1 mesh parity: exit {parity.returncode}")
+    if failed:
+        raise RuntimeError("mesh phase: " + "; ".join(failed))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3463,6 +3573,8 @@ def main():
     _timed("train-resume", phase_train_resume)
     _timed("train-lm", phase_train_lm)
     print(f"[done] training {time.perf_counter() - t0:.1f} s")
+    _timed("mesh", phase_mesh)
+    print(f"[done] mesh {time.perf_counter() - t0:.1f} s")
 
     rows = []
     for key, name, source, replaces in (

@@ -1,4 +1,21 @@
-"""Serving roofline of the port: achieved-vs-peak bandwidth per KV tier.
+"""Roofline of the port: the dry-run table, and the serving roofline
+(achieved-vs-peak bandwidth per KV tier).
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.roofline \
+      [--dryrun-dir results/dryrun] [--csv results/roofline.csv]
+
+The default mode reads the dry-run's records (``repro_torch.launch.dryrun``,
+one JSON per (arch x shape x mesh) cell) and prints three terms per cell,
+in seconds, on the card's peaks (port of the reference's ``analyze`` and
+``to_markdown``):
+  compute    = EXEC_FLOPS / (chips * PEAK_BF16)
+  memory     = EXEC_BYTES / (chips * HBM_BW)
+  collective = per-device collective wire bytes / NVLINK_BW
+EXEC_FLOPS and EXEC_BYTES are the analytic model's (``benchmarks.flops``,
+global); the FLOPs the dry-run counted on a device's local shards are
+printed beside as a cross-check. The dry-run counts collectives as they
+execute, so its bytes already hold every loop trip (the reference scales
+its compiled program's static bytes by scan trip counts).
 
   PYTHONPATH=src python -m repro_torch.benchmarks.roofline --serving \
       [--serving-arch qwen3-1.7b] [--reduced] [--device cuda] \
@@ -27,26 +44,30 @@ at the 700 W power limit):
   host link   64 GB/s     (the cold tier: pinned host memory across PCIe
                            Gen5 x16, one direction; the port's copies
                            measured 52.06 GB/s, ``core.pul.H100_PINNED_HOST``)
-
-The reference's dry-run table (``analyze``, ``to_markdown`` over
-``results/dryrun``) reads the dry-run's artifacts; the dry-run is not
-ported yet, and ``main`` says so and exits non-zero without ``--serving``.
+  NVLink      450 GB/s    (card to card: NVLink 4, 18 links, 900 GB/s both
+                           directions together, so 450 GB/s each way)
 """
 from __future__ import annotations
 
 import argparse
+import csv
+import dataclasses
+import glob
 import json
 import os
 import sys
+from pathlib import Path
 
 import numpy as np
 
+from repro_torch.benchmarks.flops import cell_cost
 from repro_torch.benchmarks.common import (
     DECODE_PATHS,
     default_baseline,
     load_model,
     n_params_of,
 )
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.core.pul import H100_PINNED_HOST
 from repro_torch.obs import serving_roofline
 from repro_torch.serving import PagedEngineConfig, PagedServingEngine, Request
@@ -54,6 +75,10 @@ from repro_torch.serving import PagedEngineConfig, PagedServingEngine, Request
 PEAK_BF16 = 989e12
 HBM_BW = 3.35e12
 LINK_BW = 64e9
+#: card-to-card rate of the dry-run's collective term: NVLink 4 on the H100
+#: SXM, 900 GB/s both directions together, 450 GB/s each way (NVIDIA's data
+#: sheet); LINK_BW is the host link, not this
+NVLINK_BW = 450e9
 #: the cold tier's rate as the port's copies measured it (pinned host to
 #: device, ``core.pul.H100_PINNED_HOST``), printed beside LINK_BW
 MEASURED_LINK_BW = H100_PINNED_HOST.bandwidth
@@ -208,8 +233,114 @@ def serving_main(args) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# the dry-run table
+# --------------------------------------------------------------------------
+def analyze(dryrun_dir: str):
+    """One row per dry-run record: the three terms of an ok cell, the
+    reason of a skipped one, the exception of an error cell."""
+    rows = []
+    for f in sorted(glob.glob(f"{dryrun_dir}/*.json")):
+        with open(f) as fh:
+            r = json.load(fh)
+        if r["status"] != "ok":
+            rows.append({"arch": r["arch"], "shape": r["shape"],
+                         "mesh": r["mesh"], "status": r["status"],
+                         "note": r.get("reason") or r.get("error", "")})
+            continue
+        # the record's depth: a cell may have been run cut to fewer layers
+        cfg = dataclasses.replace(get_config(r["arch"]),
+                                  num_layers=r["num_layers"])
+        shape = SHAPES[r["shape"]]
+        chips = r["chips"]
+        cost = cell_cost(cfg, shape, accum=r.get("accum") or 0)
+        t_compute = cost.exec_flops / (chips * PEAK_BF16)
+        t_memory = cost.exec_bytes / (chips * HBM_BW)
+        t_coll = r["collective_bytes_per_dev"] / NVLINK_BW
+        terms = {"compute": t_compute, "memory": t_memory,
+                 "collective": t_coll}
+        dominant = max(terms, key=terms.get)
+        step_time = max(terms.values())
+        # roofline fraction: MFU-style for train/prefill (useful compute vs
+        # bottleneck), MBU-style for decode (achieved bandwidth vs HBM peak)
+        t_useful = cost.model_flops / (chips * PEAK_BF16)
+        if shape.kind == "decode":
+            frac = t_memory / step_time if step_time > 0 else 0.0
+        else:
+            frac = t_useful / step_time if step_time > 0 else 0.0
+        peak = r.get("peak_bytes_per_dev")
+        rows.append({
+            "arch": r["arch"], "shape": r["shape"], "mesh": r["mesh"],
+            "status": "ok", "chips": chips, "num_layers": r["num_layers"],
+            "t_compute_s": t_compute, "t_memory_s": t_memory,
+            "t_collective_s": t_coll, "dominant": dominant,
+            "roofline_frac": frac,
+            "model_flops": cost.model_flops, "exec_flops": cost.exec_flops,
+            "useful_ratio": cost.model_flops / cost.exec_flops,
+            "exec_bytes": cost.exec_bytes,
+            "counted_flops_per_dev": r["flops_per_dev"],
+            "counted_over_exec": r["flops_per_dev"]
+            / (cost.exec_flops / chips),
+            "peak_gib_per_dev": None if peak is None else peak / 2**30,
+            "accum": r.get("accum"),
+        })
+    return rows
+
+
+def to_markdown(rows) -> str:
+    out = ["| arch | shape | mesh | layers | compute s | memory s | "
+           "collective s | dominant | MODEL/EXEC | counted/EXEC | "
+           "roofline frac | peak GiB/dev |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for r in rows:
+        if r["status"] != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | — | — "
+                       f"| — | — | {r['status']} | — | — | — | — |")
+            continue
+        peak = ("—" if r["peak_gib_per_dev"] is None
+                else f"{r['peak_gib_per_dev']:.2f}")
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['num_layers']} "
+            f"| {r['t_compute_s']:.3e} | {r['t_memory_s']:.3e} "
+            f"| {r['t_collective_s']:.3e} | **{r['dominant']}** "
+            f"| {r['useful_ratio']:.2f} | {r['counted_over_exec']:.3f} "
+            f"| {r['roofline_frac']:.2%} | {peak} |")
+    return "\n".join(out)
+
+
+def dryrun_main(args) -> int:
+    rows = analyze(args.dryrun_dir)
+    if not rows:
+        print(f"roofline: no dry-run records under {args.dryrun_dir}; run "
+              "python -m repro_torch.launch.dryrun --all first",
+              file=sys.stderr)
+        return 1
+    ok = [r for r in rows if r["status"] == "ok"]
+    if ok:
+        Path(args.csv).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.csv, "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(ok[0].keys()))
+            w.writeheader()
+            for r in ok:
+                w.writerow(r)
+    print(to_markdown(rows))
+    if ok:
+        worst_frac = min(ok, key=lambda r: r["roofline_frac"])
+        worst_coll = max(ok, key=lambda r: r["t_collective_s"]
+                         / max(1e-12, max(r["t_compute_s"], r["t_memory_s"])))
+        print(f"\nworst roofline fraction: {worst_frac['arch']} x "
+              f"{worst_frac['shape']} x {worst_frac['mesh']} "
+              f"({worst_frac['roofline_frac']:.2%}, "
+              f"dominant {worst_frac['dominant']})")
+        print(f"most collective-bound: {worst_coll['arch']} x "
+              f"{worst_coll['shape']} x {worst_coll['mesh']}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dryrun-dir", default="results/dryrun")
+    ap.add_argument("--csv", default="results/roofline.csv")
     ap.add_argument("--serving", action="store_true",
                     help="roofline the paged serving engine's KV tiers; "
                          "gates vs --serving-baseline and merges into --out")
@@ -228,10 +359,7 @@ def main(argv=None):
                     help="JSON report to merge the roofline into")
     args = ap.parse_args(argv)
     if not args.serving:
-        print("roofline: the dry-run table reads the dry-run's artifacts, "
-              "and the dry-run is not ported yet (ROADMAP.md, 'Mesh, "
-              "dry-run and lint'); run with --serving", file=sys.stderr)
-        return 2
+        return dryrun_main(args)
     return serving_main(args)
 
 

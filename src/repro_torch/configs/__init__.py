@@ -6,7 +6,7 @@ internvl2-2b, musicgen-large and the recurrent pair, rwkv6-7b (attention
 free) and zamba2-7b (Mamba2 with a shared attention block). An unknown id
 raises ``KeyError``.
 """
-from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.base import SHAPES, InputShape, ModelConfig
 from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek_v2_236b
 from repro_torch.configs.gemma2_27b import CONFIG as _gemma2_27b
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3_12b
@@ -32,5 +32,5 @@ def get_config(arch: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch!r}; known: {sorted(CONFIGS)}")
 
 
-__all__ = ["CONFIGS", "ARCH_IDS", "get_config",
+__all__ = ["CONFIGS", "ARCH_IDS", "SHAPES", "get_config",
            "ModelConfig", "InputShape"]

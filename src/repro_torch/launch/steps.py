@@ -5,9 +5,12 @@ step and the dense decode step, each over an explicit parameter tree.
 Gradients come from ``torch.autograd.grad`` over detached copies of the
 parameter leaves (the same storage, marked to require grad): the caller's
 tensors never require grad, so nothing of a training step leaks into a
-serving engine or a captured decode step that shares them. The reference's
-sharding contracts (``abstract_state``, ``state_specs``, ``cell_specs``)
-need a mesh and are not ported.
+serving engine or a captured decode step that shares them.
+
+The sharding contracts: :func:`abstract_state` (meta tensors),
+:func:`state_specs` and :func:`cell_specs` resolve every input of a step to
+a spec (``runtime.sharding``) from its logical axes, so the dry-run, the
+trainer and the server agree on one layout.
 """
 from __future__ import annotations
 
@@ -15,10 +18,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.models import module as M
 from repro_torch.models import transformer as T
+from repro_torch.models import zoo
 from repro_torch.models.module import flatten, unflatten
 from repro_torch.optim import OptimizerConfig, adamw_update
+from repro_torch.runtime.sharding import (ShardingRules, constrain,
+                                          is_dtensor, mesh_shape, spec_tree)
 
 
 def value_and_grad(cfg: ModelConfig):
@@ -38,6 +45,24 @@ def value_and_grad(cfg: ModelConfig):
     return fn
 
 
+def _micro_batches(v, accum: int):
+    """The batch cut into `accum` micro-batches of contiguous rows, as the
+    reference's scan takes them. A batch split over its rows (a DTensor
+    under a mesh) is gathered whole and each micro-batch laid out by the
+    rules for its rows ("batch"): split as the batch was where its rows
+    divide that way, over fewer devices where they do not. Micro-batch i's
+    rows lie on other devices than the batch's split put them, and XLA
+    moves them the same way."""
+    b = v.shape[0] // accum
+    if not is_dtensor(v):
+        return list(v.reshape(accum, b, *v.shape[1:]))
+    from torch.distributed.tensor import Replicate
+
+    whole = v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim)
+    rows = ("batch",) + (None,) * (v.dim() - 1)
+    return [constrain(whole[i * b:(i + 1) * b], rows) for i in range(accum)]
+
+
 def make_train_step(cfg: ModelConfig,
                     opt_cfg: OptimizerConfig = OptimizerConfig(),
                     accum: int = 1):
@@ -54,10 +79,8 @@ def make_train_step(cfg: ModelConfig,
         if accum == 1:
             loss, grads = grads_of(params, batch)
         else:
-            micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                     for k, v in batch.items()}
-            g_sum = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            micro = {k: _micro_batches(v, accum) for k, v in batch.items()}
+            g_sum = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in flatten(params)}
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(iter(g_sum.values())).device)
@@ -94,3 +117,65 @@ def make_decode_step(cfg: ModelConfig):
         with torch.no_grad():
             return T.decode_fn(params, batch, caches, cfg=cfg)
     return decode_step
+
+
+# --------------------------------------------------------------------------
+# sharding contracts
+# --------------------------------------------------------------------------
+def abstract_state(cfg: ModelConfig):
+    """(params, opt_state) as meta tensors: nothing is allocated. The
+    moments take bf16 where the config sets ``bf16_moments``."""
+    aparams = M.abstract_tree(T.model_params(cfg))
+    mdt = torch.bfloat16 if cfg.bf16_moments else torch.float32
+
+    def moments():
+        return M.map_leaves(lambda p: torch.empty(p.shape, dtype=mdt,
+                                                  device="meta"), aparams)
+    opt = {"m": moments(), "v": moments(),
+           "step": torch.empty((), dtype=torch.int32, device="meta")}
+    return aparams, opt
+
+
+def state_specs(cfg: ModelConfig, mesh, rules: ShardingRules = ShardingRules()):
+    """(param specs, opt-state specs): the moments are laid out as their
+    parameter (ZeRO-3), the step replicated."""
+    pspecs = M.param_specs(T.model_params(cfg), mesh, rules)
+    return pspecs, {"m": pspecs, "v": pspecs, "step": ()}
+
+
+#: bf16 weights per device after tensor parallelism below which an
+#: inference cell replicates its weights over the data axes
+SERVE_REPLICATE_LIMIT = 12 * 2**30
+
+
+def cell_specs(cfg: ModelConfig, shape: InputShape, mesh,
+               rules: Optional[ShardingRules] = None) -> Dict[str, Any]:
+    """Everything a step needs for one (arch x shape) cell: abstract inputs
+    and their specs, keyed by the step kind: batch, batch_specs, params,
+    param_specs [, opt, opt_specs (train)] [, caches, cache_specs
+    (decode)].
+
+    Without `rules`, an inference cell replicates its weights across the
+    data axes (tensor parallelism only) when count_bytes / model-axis size
+    fits SERVE_REPLICATE_LIMIT: FSDP-sharded weights would be gathered
+    again on every decode step. Giant models (deepseek, grok) keep FSDP."""
+    if rules is None:
+        rules = ShardingRules()
+        if shape.kind != "train":
+            tp = mesh_shape(mesh).get("model", 1)
+            if M.count_bytes(T.model_params(cfg)) / tp <= SERVE_REPLICATE_LIMIT:
+                rules = rules.with_overrides(embed=(None,))
+    ins = zoo.input_specs(cfg, shape)
+    out = {"batch": ins["batch"],
+           "batch_specs": spec_tree(ins["batch_logical"], ins["batch"], mesh,
+                                    rules)}
+    aparams, aopt = abstract_state(cfg)
+    pspecs, ospecs = state_specs(cfg, mesh, rules)
+    out.update(params=aparams, param_specs=pspecs)
+    if shape.kind == "train":
+        out.update(opt=aopt, opt_specs=ospecs)
+    if shape.kind == "decode":
+        out["caches"] = ins["caches"]
+        out["cache_specs"] = spec_tree(ins["caches_logical"], ins["caches"],
+                                       mesh, rules)
+    return out

@@ -10,7 +10,7 @@ Weights are the port's own random init from seed 0, Adam moments in bf16
 where the config sets ``bf16_moments``. Restart: rerunning the same command
 resumes from the latest committed checkpoint under --ckpt-dir and skips the
 data stream to the restored step. ``--mesh`` (data and model parallelism
-over a device mesh) is not ported: it raises.
+over a device mesh) is not ported yet: it raises.
 """
 from __future__ import annotations
 
@@ -51,8 +51,10 @@ def main(argv=None, *, cfg=None):
     args = ap.parse_args(argv)
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: the port trains on one device; data and model "
-            "parallelism over a mesh is ROADMAP.md's mesh item")
+            "--mesh: the port trains on one device; the sharding rules and "
+            "the dry-run are ported (launch.dryrun), training over a mesh "
+            "(error-feedback compression, --mesh) is ROADMAP.md's next "
+            "slice")
 
     dev = resolve_device(args.device)
     if cfg is None:

@@ -27,6 +27,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import Param
+from repro_torch.runtime.sharding import (constrain, current_mesh,
+                                          is_dtensor, logical_to_spec,
+                                          split_dims)
 
 NEG_INF = -2.0e38  # large finite; avoids nan from (-inf) - (-inf)
 # KV-block length of the streamed prefill attention (`_attend_chunked`),
@@ -126,8 +129,89 @@ def attention_params(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
+def _heads_split(logical: str, n: int, mesh) -> bool:
+    """Whether the sharding rules split n heads of `logical` ("act_heads",
+    "act_kv_heads") over some axis of `mesh` (one of size 1 included), as
+    ``constrain`` lays them out."""
+    return bool(logical_to_spec((logical,), (n,), mesh))
+
+
+def _project(x, w, logical: str):
+    """x (B, T, D) through w (D, n, d) -> (B, T, n, d), "btd,dhk->bthk".
+    Under a mesh where the rules leave the n heads of `logical` whole (8 kv
+    heads on a 16-way model axis), DTensor may shard the einsum's flattened
+    (n * d) output over a mesh axis and then cannot split it into heads:
+    there the product runs as a matmul whose output is pinned whole over
+    all but the batch axes before the split. Elsewhere (no mesh, heads the
+    rules split, a 1x1 mesh) it is the einsum."""
+    mesh = current_mesh()
+    n = w.shape[1]
+    if mesh is None or _heads_split(logical, n, mesh):
+        return torch.einsum("btd,dhk->bthk", x, w)
+    B, T, D = x.shape
+    w2 = constrain(w.reshape(D, -1), ("embed", None))
+    y = constrain(x @ w2, ("batch", None, None))
+    return y.reshape(B, T, n, -1)
+
+
+def _heads_for_mesh(q, k, v):
+    """(q, k, v) as the attention core takes them under a mesh; as they are
+    outside one, or where nothing needs to move (a 1x1 mesh).
+
+    A KV cache sharded over its sequence (decode): q's heads come whole on
+    every device of that axis, so each scores its own rows of the cache
+    (the softmax then gathers the scores, not the cache). Otherwise, where
+    the rules split the query heads but not the kv heads (8 kv heads on a
+    16-way axis), DTensor cannot split q's sharded heads into (kv head,
+    group): each kv head is repeated over its group of query heads and
+    sharded like q (a local slice of the replicated k/v, no traffic)."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(q):
+        return q, k, v
+    if 1 in split_dims(k):
+        return constrain(q, ("batch", None, None, None)), k, v
+    H, K = q.shape[2], k.shape[2]
+    if (not _heads_split("act_heads", H, mesh)
+            or _heads_split("act_kv_heads", K, mesh)):
+        return q, k, v
+
+    def per_head(t):
+        B, S, _, d = t.shape
+        t = t[:, :, :, None, :].expand(B, S, K, H // K, d).reshape(B, S, H, d)
+        return constrain(t, ("batch", None, "act_heads", None))
+    return q, per_head(k), per_head(v)
+
+
+def _per_shard(fn, q, k, v, mask=None, **kw):
+    """`fn(q, k, v[, mask=mask], **kw)` on each device's own shards:
+    attention is independent across batch rows and heads, so once k and v
+    are laid out as q (split over those dims only) each device attends over
+    its own rows and heads, and the result is laid out as q. A DTensor mask
+    (B, ...) follows q's batch split. DTensor would otherwise plan every op
+    of the core anew, and its bmm flattens two split dims into a strided
+    one. (``local_map`` does the same; its placement arguments differ
+    between PyTorch releases.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pl = q.device_mesh, tuple(q.placements)
+    if any(p.is_partial() or (p.is_shard() and p.dim not in (0, 2))
+           for p in pl):
+        raise ValueError(f"attention over a split sequence or head dim: {pl}")
+    k, v = (t.redistribute(mesh, pl).to_local() for t in (k, v))
+    if mask is not None:
+        kw["mask"] = (mask.redistribute(mesh, [
+            p if p.is_shard(0) else Replicate() for p in pl]).to_local()
+            if is_dtensor(mask) else mask)
+    out = fn(q.to_local(), k, v, **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def _attend(q, k, v, *, mask, softcap: Optional[float], scale: float):
     """q: (B,T,H,hd) k/v: (B,S,K,hd); grouped-query attention core."""
+    q, k, v = _heads_for_mesh(q, k, v)
+    if is_dtensor(q) and 1 not in split_dims(k):
+        return _per_shard(_attend, q, k, v, mask=mask, softcap=softcap,
+                          scale=scale)
     B, T, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -155,6 +239,10 @@ def _attend_chunked(q, k, v, *, softcap: Optional[float], scale: float,
     the block's logits are updated in place, which rounds as the
     out-of-place ops do; when a gradient is to flow (training) the same ops
     run out of place, so autograd keeps the tensors its backward reads."""
+    q, k, v = _heads_for_mesh(q, k, v)
+    if is_dtensor(q):
+        return _per_shard(_attend_chunked, q, k, v, softcap=softcap,
+                          scale=scale, window=window, kv_block=kv_block)
     B, T, H, hd = q.shape
     S, K, vd = k.shape[1], k.shape[2], v.shape[-1]
     G = H // K
@@ -198,6 +286,40 @@ def _attend_chunked(q, k, v, *, softcap: Optional[float], scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, vd).to(v.dtype)
 
 
+def pad_zeros(t, n: int, dim: int = 1):
+    """`t` with `n` zero rows appended along `dim`, by a cat with zeros
+    (the values of ``F.pad``): PyTorch 2.11's DTensor gives
+    ``constant_pad_nd``'s result one placement per tensor dim, not one per
+    mesh dim, and the next op on it fails."""
+    shape = list(t.shape)
+    shape[dim] = n
+    return torch.cat([t, torch.zeros(shape, dtype=t.dtype, device=t.device)],
+                     dim=dim)
+
+
+def roll_rows(t, shift: int):
+    """``torch.roll(t, shift, dims=1)`` as a cat of its two slices (the
+    same values): PyTorch 2.11's DTensor has no strategy for roll."""
+    cut = t.shape[1] - shift % t.shape[1]
+    return torch.cat([t[:, cut:], t[:, :cut]], dim=1)
+
+
+def write_rows(cache, write, new) -> None:
+    """cache[b, write[b]] = new[b] for every slot b, in place (cache:
+    (B, S, ...), write: (B,) int64, new: (B, ...)). A DTensor cache (under
+    a mesh, its sequence sharded) has no indexed in-place write that keeps
+    its layout: the rows are selected into a copy of the same values and
+    copied back."""
+    new = new.to(cache.dtype)
+    if not is_dtensor(cache):
+        cache[torch.arange(cache.shape[0], device=cache.device), write] = new
+        return
+    hit = (torch.arange(cache.shape[1], device=cache.device)[None, :]
+           == write[:, None])
+    hit = hit.reshape(*hit.shape, *([1] * (cache.dim() - 2)))
+    cache.copy_(torch.where(hit, new[:, None], cache))
+
+
 def _causal_mask(tq: int, tk: int, *, window: Optional[int], device):
     iq = torch.arange(tq, device=device)[:, None]
     jk = torch.arange(tk, device=device)[None, :]
@@ -237,11 +359,14 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
     for the engine to commit)."""
     B, T, D = x.shape
     hd = cfg.head_dim
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q = _project(x, p["wq"], "act_heads")
+    k = _project(x, p["wk"], "act_kv_heads")
+    v = _project(x, p["wv"], "act_kv_heads")
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = constrain(q, ("batch", None, "act_heads", None))
+    k = constrain(k, ("batch", None, "act_kv_heads", None))
+    v = constrain(v, ("batch", None, "act_kv_heads", None))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -286,10 +411,9 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         idx = cache["idx"]
         kc, vc = cache["k"], cache["v"]
         S = kc.shape[1]
-        rows = torch.arange(B, device=x.device)
         write = idx.long() % S
-        kc[rows, write] = k[:, 0].to(kc.dtype)
-        vc[rows, write] = v[:, 0].to(vc.dtype)
+        write_rows(kc, write, k[:, 0])
+        write_rows(vc, write, v[:, 0])
         jk = torch.arange(S, device=x.device)[None, :]
         mask = jk <= idx.long()[:, None]
         if cfg.paged_kv and window is not None and S > window:
@@ -318,11 +442,11 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
                     f"prompt of {T} tokens exceeds max_seq {target}")
             # the last `target` tokens, ring-aligned (token t at row t % W)
             o = T % target
-            kc = torch.roll(k[:, T - target:], o, dims=1)
-            vc = torch.roll(v[:, T - target:], o, dims=1)
+            kc = roll_rows(k[:, T - target:], o)
+            vc = roll_rows(v[:, T - target:], o)
         elif T < target:
-            kc = F.pad(k, (0, 0, 0, 0, 0, target - T))
-            vc = F.pad(v, (0, 0, 0, 0, 0, target - T))
+            kc = pad_zeros(k, target - T)
+            vc = pad_zeros(v, target - T)
         new_cache = {"k": kc.to(torch.bfloat16), "v": vc.to(torch.bfloat16),
                      "idx": torch.full((B,), T, dtype=torch.int32,
                                        device=x.device)}
@@ -330,6 +454,12 @@ def attention_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         raise NotImplementedError(f"attention kind {kind!r} is not ported")
     y = torch.einsum("bthk,hkd->btd", out, p["wo"])
     return y, new_cache
+
+
+def attention_cache_logical():
+    """Logical axes of an attention layer's decode-cache leaves."""
+    kv = ("cache_batch", "cache_seq", "act_kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "idx": ("cache_batch",)}
 
 
 # --------------------------------------------------------------------------
@@ -376,8 +506,35 @@ def embedding_params(cfg: ModelConfig) -> Dict[str, Any]:
     return p
 
 
+class _SumLookup(torch.autograd.Function):
+    """The rows of a vocab-split table's lookup summed over the devices
+    (DTensor's masked partial made replicated); the gradient goes back
+    replicated, which the lookup's backward takes (DTensor cannot turn a
+    gradient back into a masked partial)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        placements = [Replicate() if p.is_partial() else p
+                      for p in x.placements]
+        ctx.placements = placements
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
 def embed_apply(p, tokens, *, cfg: ModelConfig):
-    x = p["table"][tokens]
+    # a table split over its vocab rows (under a mesh) is looked up by
+    # embedding, which DTensor runs as a masked local lookup and a sum;
+    # indexing would gather the whole table
+    if 0 in split_dims(p["table"]):
+        # the d_model dim gathered first (FSDP), so the batch stays split
+        table = constrain(p["table"], ("vocab", None))
+        x = _SumLookup.apply(F.embedding(tokens, table))
+    else:
+        x = p["table"][tokens]
     if cfg.embed_scale:
         # a device scalar: no host tensor enters a captured decode step
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
@@ -389,6 +546,7 @@ def logits_apply(p, x, *, cfg: ModelConfig):
     """Full logits (B, T, vocab_size) in fp32 from a bf16 head product."""
     w = p["table"] if cfg.tie_embeddings else p["lm_head"]
     logits = torch.einsum("btd,vd->btv", x, w).float()
+    logits = constrain(logits, ("batch", None, "vocab"))
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits[..., :cfg.vocab_size]
@@ -401,16 +559,30 @@ def _xent_chunk(m, lse, tgt_logit, x, wc, targets, off: int, *,
     target logit where the target falls in the tile."""
     C = wc.shape[0]
     logits = torch.einsum("bsd,cd->bsc", x, wc).float()
+    logits = constrain(logits, ("batch", None, "vocab"))
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     valid = (off + torch.arange(C, device=x.device)) < cfg.vocab_size
     logits = torch.where(valid, logits, torch.full_like(logits, NEG_INF))
-    new_m = torch.maximum(m, logits.amax(dim=-1))
-    lse = torch.exp(m - new_m) * lse + torch.exp(
-        logits - new_m[..., None]).sum(dim=-1)
+    # under a mesh each reduction over the split vocab is pinned whole over
+    # its axis at once (DTensor would otherwise reduce-scatter it over the
+    # sequence, and every later op, and the backward, would move it back)
+    row = ("batch", None)
+    new_m = torch.maximum(m, constrain(logits.amax(dim=-1), row))
+    lse = torch.exp(m - new_m) * lse + constrain(torch.exp(
+        logits - new_m[..., None]).sum(dim=-1), row)
     loc = targets.long() - off
     in_chunk = (loc >= 0) & (loc < C)
-    gathered = logits.gather(-1, loc.clamp(0, C - 1)[..., None])[..., 0]
+    if 2 in split_dims(logits):
+        # vocab split over devices (a mesh): the target's logit is picked
+        # by a mask and a sum over the tile, which stays split (a gather's
+        # backward would gather the tile); the sum of one logit and zeros
+        # is that logit
+        hit = loc[..., None] == torch.arange(C, device=x.device)
+        gathered = constrain(torch.where(
+            hit, logits, torch.zeros_like(logits)).sum(-1), row)
+    else:
+        gathered = logits.gather(-1, loc.clamp(0, C - 1)[..., None])[..., 0]
     return new_m, lse, torch.where(in_chunk, gathered, tgt_logit)
 
 
@@ -427,13 +599,17 @@ def chunked_xent(p, x, targets, mask, *, cfg: ModelConfig):
     w = p["table"] if cfg.tie_embeddings else p["lm_head"]
     Vp = w.shape[0]
     C = min(cfg.vocab_chunk, Vp)
+    # split, not a slice per tile: its backward writes the table's
+    # gradient once, not one table-sized tensor per tile. Under a mesh the
+    # vocab rows are gathered before the cut (DTensor cannot cut a split
+    # dim), then each tile's rows split again (the reference's pin)
+    tiles = [constrain(wc, ("vocab", "embed"))
+             for wc in constrain(w, (None, "embed")).split(C)]
     B, S, _ = x.shape
     m = torch.full((B, S), NEG_INF, dtype=torch.float32, device=x.device)
     lse = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     tgt_logit = torch.full_like(m, NEG_INF)
-    # split, not a slice per tile: its backward writes the table's
-    # gradient once, not one table-sized tensor per tile
-    for i, wc in enumerate(w.split(C)):
+    for i, wc in enumerate(tiles):
         m, lse, tgt_logit = checkpoint(
             _xent_chunk, m, lse, tgt_logit, x, wc, targets, i * C, cfg=cfg,
             use_reentrant=False, preserve_rng_state=False)

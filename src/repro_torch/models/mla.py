@@ -23,7 +23,6 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
@@ -35,6 +34,7 @@ from repro_torch.models.layers import (
     rope,
 )
 from repro_torch.models.module import Param
+from repro_torch.runtime.sharding import constrain
 
 
 def mla_params(cfg: ModelConfig) -> Dict[str, Any]:
@@ -57,6 +57,7 @@ def _project_q(p, x, cfg: ModelConfig, positions):
     dn = cfg.qk_nope_head_dim
     q_c = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
     q = torch.einsum("btr,rhk->bthk", q_c, p["wq_b"])
+    q = constrain(q, ("batch", None, "act_heads", None))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, rope(q_rope, positions, cfg.rope_theta)
 
@@ -120,6 +121,7 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
     elif kind in ("prefill", "train"):
         c_kv, k_rope = _compress_kv(p, x, cfg, positions)
         kv = torch.einsum("btr,rhk->bthk", c_kv, p["wkv_b"])
+        kv = constrain(kv, ("batch", None, "act_heads", None))
         k_nope, v = kv[..., :dn], kv[..., dn:]
         H = k_nope.shape[2]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
@@ -140,8 +142,8 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         target = max_seq or T
         if T > target:
             raise ValueError(f"prompt of {T} tokens exceeds max_seq {target}")
-        new_cache = {"c_kv": F.pad(c_kv, (0, 0, 0, target - T)).to(torch.bfloat16),
-                     "k_rope": F.pad(k_rope, (0, 0, 0, target - T)).to(torch.bfloat16),
+        new_cache = {"c_kv": layers.pad_zeros(c_kv, target - T).to(torch.bfloat16),
+                     "k_rope": layers.pad_zeros(k_rope, target - T).to(torch.bfloat16),
                      "idx": torch.full((B,), T, dtype=torch.int32,
                                        device=x.device)}
     elif kind == "decode":
@@ -153,10 +155,9 @@ def mla_apply(p, x, *, cfg: ModelConfig, positions, kind: str,
         c_kv, k_rope = cache["c_kv"], cache["k_rope"]
         S = c_kv.shape[1]
         c_new, r_new = _compress_kv(p, x, cfg, positions)
-        rows = torch.arange(B, device=x.device)
         write = idx.long() % S
-        c_kv[rows, write] = c_new[:, 0].to(c_kv.dtype)
-        k_rope[rows, write] = r_new[:, 0].to(k_rope.dtype)
+        layers.write_rows(c_kv, write, c_new[:, 0])
+        layers.write_rows(k_rope, write, r_new[:, 0])
         wkv_b_k = p["wkv_b"][..., :dn]                      # (kvr, H, dn)
         wkv_b_v = p["wkv_b"][..., dn:]                      # (kvr, H, dv)
         q_abs = torch.einsum("bthn,rhn->bthr", q_nope, wkv_b_k)
@@ -181,3 +182,9 @@ def mla_cache_spec(cfg: ModelConfig, batch: int, max_seq: int):
     return {"c_kv": ((batch, max_seq, cfg.kv_lora_rank), torch.bfloat16),
             "k_rope": ((batch, max_seq, cfg.qk_rope_head_dim), torch.bfloat16),
             "idx": ((batch,), torch.int32)}
+
+
+def mla_cache_logical():
+    return {"c_kv": ("cache_batch", "cache_seq", "kv_rank"),
+            "k_rope": ("cache_batch", "cache_seq", "kv_rank"),
+            "idx": ("cache_batch",)}

@@ -6,6 +6,11 @@ torch tensors. Every draw comes from one explicit ``torch.Generator``, in
 the tree's sorted-path order, so a seed fixes the weights. The numbers differ
 from the reference's (JAX and torch generators differ); tests that compare
 the two packages load the reference's weights through ``models.bridge``.
+
+The sharding half: :func:`abstract_tree` (meta tensors, nothing
+allocated), :func:`logical_tree`, :func:`param_specs` and
+:func:`param_shardings` (through ``runtime.sharding``) and
+:func:`count_bytes`.
 """
 from __future__ import annotations
 
@@ -14,6 +19,9 @@ import math
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+
+from repro_torch.runtime.sharding import (ShardingRules, logical_to_spec,
+                                          placements)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +35,10 @@ class Param:
     def __post_init__(self):
         if len(self.shape) != len(self.logical):
             raise ValueError(f"shape {self.shape} vs logical {self.logical}")
+
+    @property
+    def nbytes(self) -> int:
+        return math.prod(self.shape) * self.dtype.itemsize
 
     @property
     def size(self) -> int:
@@ -103,6 +115,38 @@ def init_tree(tree: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
                       for path, p in flatten(tree)})
 
 
+def map_leaves(fn, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """`fn` over every leaf of a nested dict (anything but a dict is a
+    leaf), the same structure back."""
+    return {k: map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def abstract_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Param tree -> tree of meta tensors of each leaf's shape and type
+    (nothing is allocated; the dry-run's stand-ins)."""
+    return map_leaves(lambda p: torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                tree)
+
+
+def logical_tree(tree: Dict[str, Any]) -> Dict[str, Any]:
+    return map_leaves(lambda p: p.logical, tree)
+
+
+def param_specs(tree: Dict[str, Any], mesh,
+                rules: ShardingRules = ShardingRules()) -> Dict[str, Any]:
+    """Param tree -> spec tree (``runtime.sharding.logical_to_spec``)."""
+    return map_leaves(lambda p: logical_to_spec(p.logical, p.shape, mesh, rules),
+                tree)
+
+
+def param_shardings(tree: Dict[str, Any], mesh,
+                    rules: ShardingRules = ShardingRules()) -> Dict[str, Any]:
+    """Param tree -> tree of DTensor placements on `mesh` (a DeviceMesh)."""
+    return map_leaves(lambda p: placements(
+        logical_to_spec(p.logical, p.shape, mesh, rules), mesh), tree)
+
+
 def stack_params(tree: Dict[str, Any], n: int,
                  axis_name: Optional[str] = None) -> Dict[str, Any]:
     """Add a leading 'layers' axis to every Param (stacked layer weights)."""
@@ -114,3 +158,7 @@ def stack_params(tree: Dict[str, Any], n: int,
 
 def count_params(tree: Dict[str, Any]) -> int:
     return sum(p.size for _, p in flatten(tree))
+
+
+def count_bytes(tree: Dict[str, Any]) -> int:
+    return sum(p.nbytes for _, p in flatten(tree))

@@ -37,8 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mlp_apply, mlp_params
+from repro_torch.models.layers import mlp_apply, mlp_params, pad_zeros
 from repro_torch.models.module import Param
+from repro_torch.runtime.sharding import constrain, is_dtensor
 
 
 def moe_params(cfg: ModelConfig) -> Dict[str, Any]:
@@ -57,8 +58,12 @@ def moe_params(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _counts(ids: torch.Tensor, E: int) -> torch.Tensor:
-    """Occurrences of each expert id in 0..E-1 (``bincount(minlength=E)``)."""
+    """Occurrences of each expert id in 0..E-1 (``bincount(minlength=E)``).
+    Split over devices (a DTensor under a mesh, which has no scatter_add),
+    a sum of one-hot rows: the same integers."""
     flat = ids.reshape(-1)
+    if is_dtensor(flat):
+        return _one_hot(flat, E, torch.long).sum(0)
     return torch.zeros(E, dtype=torch.long, device=ids.device).scatter_add_(
         0, flat, torch.ones_like(flat))
 
@@ -137,6 +142,7 @@ def _moe_gather(p, x_flat, cfg: ModelConfig):
     live = table < T * k
     h = torch.where(live[..., None], x_flat[tok_of_slot],
                     torch.zeros((), dtype=x_flat.dtype, device=dev))
+    h = constrain(h, ("experts", None, None))
     out = _expert_ffn(p, h, cfg)                                 # (E, C, D)
     # combine: gather each (token, kth) slot's output and weight it
     g = out[flat_e.reshape(T, k), torch.clamp(rank, max=C - 1).reshape(T, k)]
@@ -152,7 +158,10 @@ def _moe_einsum(p, x_flat, cfg: ModelConfig):
     dt = x_flat.dtype
     Tg = min(T, 2048)
     n_groups = -(-T // Tg)
-    xg = F.pad(x_flat, (0, 0, 0, n_groups * Tg - T)).reshape(n_groups, Tg, D)
+    xg = pad_zeros(x_flat, n_groups * Tg - T, dim=0).reshape(n_groups, Tg, D)
+    # under a mesh each group's tokens are split over the batch axes, and
+    # the groups whole on every device, so the loop takes a group locally
+    xg = constrain(xg, (None, "batch", None))
     C = _capacity(cfg, Tg)
     ys, aux = [], 0.0
     for xt in xg:               # the reference's lax.scan over the groups
@@ -168,6 +177,7 @@ def _moe_einsum(p, x_flat, cfg: ModelConfig):
         dispatch = torch.einsum("tke,tkc->tec", oe_f, oc)        # (Tg, E, C)
         combine = torch.einsum("tke,tkc,tk->tec", oe_f, oc, w.to(dt))
         h = torch.einsum("td,tec->ecd", xt, dispatch)
+        h = constrain(h, ("experts", None, None))
         out = _expert_ffn(p, h, cfg)
         ys.append(torch.einsum("ecd,tec->td", out, combine))
         aux = aux + a

@@ -31,8 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import rms_norm, rms_norm_params
+from repro_torch.models.layers import pad_zeros, rms_norm, rms_norm_params
 from repro_torch.models.module import Param
+from repro_torch.runtime.sharding import is_dtensor, split_dims
 
 F32 = torch.float32
 
@@ -49,7 +50,34 @@ def _lerp(x, x_shift, mu):
 
 def _pad_seq(t, pad: int):
     """Zero rows appended along axis 1 (identity steps of a scan)."""
-    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return pad_zeros(t, pad)
+
+
+class _ShardCumsum(torch.autograd.Function):
+    """``torch.cumsum(x, 1)`` of a DTensor whose dim 1 is whole on every
+    device, with autograd's own backward for cumsum (the gradient flipped,
+    summed and flipped back) run on each device's shard: PyTorch 2.11's
+    DTensor has no strategy for flip."""
+
+    @staticmethod
+    def forward(ctx, x):
+        if 1 in split_dims(x):
+            raise ValueError("cumsum over a dim split over devices")
+        return torch.cumsum(x, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        local = g.to_local().flip(1).cumsum(1).flip(1)
+        return DTensor.from_local(local, g.device_mesh, g.placements,
+                                  run_check=False)
+
+
+def _cumsum_rows(x):
+    """``torch.cumsum(x, dim=1)`` (a chunk's running sum over its steps);
+    a DTensor's through :class:`_ShardCumsum`."""
+    return _ShardCumsum.apply(x) if is_dtensor(x) else torch.cumsum(x, dim=1)
 
 
 def softplus(x):
@@ -97,7 +125,7 @@ def _rwkv_chunk(r, k, v, logw, u, S0):
     """One chunk, all heads. r, k, v, logw: (B, C, H, N) fp32; u: (H, N);
     S0: (B, H, N, N). Returns (out (B, C, H, N), S_C)."""
     C = r.shape[1]
-    L = torch.cumsum(logw, dim=1)                       # L_t, t = 1..C (<= 0)
+    L = _cumsum_rows(logw)                              # L_t, t = 1..C (<= 0)
     L_prev = L - logw                                   # L_{t-1}
     # intra-chunk, strictly causal: decay exp(L_{t-1} - L_j) for j <= t-1
     dec = L_prev[:, :, None] - L[:, None, :]            # (B, C, C, H, N): t, j
@@ -232,6 +260,12 @@ def rwkv_state_spec(cfg: ModelConfig, batch: int):
             "x_cm": ((batch, D), torch.bfloat16)}
 
 
+def rwkv_state_logical():
+    return {"S": ("cache_batch", "act_heads", None, None),
+            "x_tm": ("cache_batch", None),
+            "x_cm": ("cache_batch", None)}
+
+
 # ==========================================================================
 # Mamba2 (SSD)
 # ==========================================================================
@@ -259,7 +293,7 @@ def _ssd_chunk(x, B_, C_, la, dt_, S0):
     """x: (B, C, H, P) inputs; B_, C_: (B, C, N); la: (B, C, H) log decay;
     dt_: (B, C, H); S0: (B, H, P, N). h is read after its update (j <= t)."""
     C = x.shape[1]
-    L = torch.cumsum(la, dim=1)                          # (B, C, H), <= 0
+    L = _cumsum_rows(la)                                 # (B, C, H), <= 0
     dec = L[:, :, None, :] - L[:, None, :, :]            # (B, t, j, H)
     ar = torch.arange(C, device=x.device)
     tri = (ar[:, None] >= ar[None, :])[None, :, :, None]
@@ -363,3 +397,8 @@ def mamba_state_spec(cfg: ModelConfig, batch: int):
     K = cfg.conv_kernel
     return {"h": ((batch, H, P, N), F32),
             "conv": ((batch, K - 1, cfg.d_inner + 2 * N), torch.bfloat16)}
+
+
+def mamba_state_logical():
+    return {"h": ("cache_batch", "act_heads", None, None),
+            "conv": ("cache_batch", None, "dinner")}

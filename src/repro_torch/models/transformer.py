@@ -44,6 +44,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.module import Param, stack_params
+from repro_torch.runtime.sharding import constrain
 
 #: the reference's block kinds
 BLOCK_KINDS = ("global", "local", "moe", "dense", "rwkv", "mamba",
@@ -166,6 +167,37 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     return spec
 
 
+def _block_cache_logical(cfg: ModelConfig, kind: str):
+    if kind == "rwkv":
+        return SSM.rwkv_state_logical()
+    if kind == "mamba":
+        return SSM.mamba_state_logical()
+    if cfg.attn_type == "mla":
+        return MLA.mla_cache_logical()
+    return L.attention_cache_logical()
+
+
+def cache_logical(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of every leaf of :func:`cache_specs`' tree (the
+    reference's ``cache_specs`` returns them beside the shapes): a stacked
+    entry's leaves lead with an unsharded layer axis."""
+    out = {"groups": {key: {k: (None, *lg) for k, lg in
+                            _block_cache_logical(cfg, kind).items()}
+                      for key, kind in zip(group_keys(cfg), cfg.pattern)}}
+    if cfg.first_dense_layers:
+        out["dense"] = {str(i): _block_cache_logical(cfg, "dense")
+                        for i in range(cfg.first_dense_layers)}
+    return out
+
+
+def _group_end(x, cfg: ModelConfig, prefix):
+    """The reference's constraint on the scan carry after each group's
+    last entry (identity outside a mesh)."""
+    if prefix[0] == "groups" and prefix[1] == group_keys(cfg)[-1]:
+        return constrain(x, ("batch", None, None))
+    return x
+
+
 def _unbind(tree: Dict[str, Any], n: int):
     """The n rows of every stacked leaf, as n trees of views. In training
     their backward stacks the n rows' gradients once, where a view per row
@@ -224,6 +256,11 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
             attn_p, h, cfg=cfg, positions=positions, kind=step_kind,
             local=(kind == "local"), cache=cache, max_seq=max_seq,
             paged=paged)
+    # under a mesh each sublayer's output is pinned batch-sharded and whole
+    # over the model axis (the tensor-parallel all-reduce), as the residual
+    # stream is; DTensor would otherwise carry a partial sum or a sharded
+    # d_model into the next sublayer
+    h = constrain(h, ("batch", None, None))
     if cfg.sandwich_norm:
         h = L.rms_norm(h, blk["post_norm1"], cfg.norm_eps)
     x = x + h
@@ -232,6 +269,7 @@ def block_apply(p, x, *, cfg: ModelConfig, kind: str, positions,
         h, aux = MOE.moe_apply(blk["mlp"], h, cfg=cfg)
     else:
         h = L.mlp_apply(blk["mlp"], h, cfg=cfg)
+    h = constrain(h, ("batch", None, None))
     if cfg.sandwich_norm:
         h = L.rms_norm(h, blk["post_norm2"], cfg.norm_eps)
     return x + h, new_cache, aux
@@ -293,6 +331,9 @@ def _embed_inputs(params, tokens, cfg: ModelConfig, pos0=None,
     x = L.embed_apply(params["embedding"], tokens, cfg=cfg)
     if cfg.frontend is not None and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    # under a mesh the activations start batch-sharded (XLA propagates
+    # this from the tokens; DTensor picks each op's layout on its own)
+    x = constrain(x, ("batch", None, None))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     if pos0 is not None:
         positions = positions + pos0[:, None]
@@ -320,12 +361,18 @@ def train_backbone(params, x, positions, *, cfg: ModelConfig):
     entries = list(zip(group_keys(cfg), cfg.pattern))
 
     def group(x, aux, gp):
+        if cfg.seq_shard_carry:
+            x = constrain(x, ("batch", None, None))       # gather to compute
         for key, kind in entries:
             x, _, a = block_apply(gp[key], x, cfg=cfg, kind=kind,
                                   positions=positions, step_kind="train",
                                   shared=shared)
             if a is not None:
                 aux = aux + a
+        if cfg.seq_shard_carry:
+            x = constrain(x, ("batch", "seq_model", None))  # sharded carry
+        else:
+            x = constrain(x, ("batch", None, None))
         return x, aux
 
     for gp in _unbind(params["groups"], cfg.num_groups):
@@ -375,10 +422,11 @@ def prefill_fn(params, tokens, lengths=None, *, cfg: ModelConfig,
     B, T = x.shape[:2]
     shared = params.get("shared")
     caches = []
-    for _, _, kind, p in _blocks(params, cfg):
+    for prefix, _, kind, p in _blocks(params, cfg):
         x, c, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                            step_kind="prefill", max_seq=max_seq,
                            shared=shared)
+        x = _group_end(x, cfg, prefix)
         caches.append(c)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lengths is not None:
@@ -412,6 +460,7 @@ def decode_fn(params, batch, caches, *, cfg: ModelConfig):
                             step_kind="decode",
                             cache=_block_cache(caches, prefix, g),
                             shared=shared)
+        x = _group_end(x, cfg, prefix)
         states.append(nc if kind in RECURRENT_KINDS else None)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.logits_apply(params["embedding"], x, cfg=cfg)[:, 0, :]
@@ -470,6 +519,7 @@ def paged_decode_fn(params, batch, caches=None, planes=None, *,
         x, nc, _ = block_apply(p, x, cfg=cfg, kind=kind, positions=positions,
                             step_kind="paged_decode", cache=cache, paged=paged,
                             shared=shared)
+        x = _group_end(x, cfg, prefix)
         new.append(nc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.logits_apply(params["embedding"], x, cfg=cfg)[:, 0, :]

@@ -3,6 +3,8 @@
 A :class:`Model` binds a config to its parameters and exposes the entry
 points the serving engines call: ``prefill``, ``decode_step`` (dense caches)
 and ``paged_decode_step``, and the training loss, ``loss``.
+:func:`input_specs` gives a dry-run cell's abstract inputs (meta tensors,
+nothing allocated) and their logical axes.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
 
@@ -28,6 +30,16 @@ class Model:
 
     def num_params(self) -> int:
         return M.count_params(T.model_params(self.cfg))
+
+    def abstract_params(self):
+        """The parameter tree as meta tensors (nothing allocated)."""
+        return M.abstract_tree(T.model_params(self.cfg))
+
+    def cache_specs(self, batch: int, max_seq: int):
+        """(decode-cache tree of (shape, dtype) leaves, its logical axes),
+        the reference's pair."""
+        return (T.cache_specs(self.cfg, batch, max_seq),
+                T.cache_logical(self.cfg))
 
     def prefill(self, tokens, lengths=None, max_seq: Optional[int] = None,
                 frontend_embeds=None):
@@ -58,6 +70,49 @@ def build_model(cfg: ModelConfig, params: Optional[Dict[str, Any]] = None, *,
     if params is None:
         params = init_params(cfg, seed=seed, device=device)
     return Model(cfg, params)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> Dict[str, Any]:
+    """{"batch": tree, "batch_logical": tree[, "caches",
+    "caches_logical"]} for one (arch x shape) cell, every leaf a meta
+    tensor (reference ``zoo.input_specs``).
+
+    The modality frontend stub shows here: internvl2 receives its
+    precomputed ViT patch embeddings, musicgen its conditioning frames
+    (cfg.frontend_tokens), and the token count shrinks so the whole
+    sequence stays shape.seq_len."""
+    B, S = shape.global_batch, shape.seq_len
+    Tf = cfg.frontend_tokens if cfg.frontend else 0
+    St = S - Tf
+    out: Dict[str, Any] = {}
+    if shape.kind == "train":
+        batch = {"tokens": _meta((B, St), torch.int32),
+                 "targets": _meta((B, St), torch.int32),
+                 "loss_mask": _meta((B, St), torch.float32)}
+        logical = {"tokens": ("batch", "seq"), "targets": ("batch", "seq"),
+                   "loss_mask": ("batch", "seq")}
+    elif shape.kind == "prefill":
+        batch = {"tokens": _meta((B, St), torch.int32)}
+        logical = {"tokens": ("batch", "seq")}
+    elif shape.kind == "decode":
+        batch = {"tokens": _meta((B, 1), torch.int32),
+                 "pos0": _meta((B,), torch.int32)}
+        logical = {"tokens": ("batch", None), "pos0": ("batch",)}
+        spec = T.cache_specs(cfg, B, S)
+        out["caches"] = M.map_leaves(lambda sd: _meta(*sd), spec)
+        out["caches_logical"] = T.cache_logical(cfg)
+    else:
+        raise ValueError(shape.kind)
+    if Tf and shape.kind != "decode":
+        batch["frontend_embeds"] = _meta((B, Tf, cfg.d_model), torch.bfloat16)
+        logical["frontend_embeds"] = ("batch", "seq", None)
+    out["batch"] = batch
+    out["batch_logical"] = logical
+    return out
 
 
 def demo_batch(cfg: ModelConfig, batch_size: int, seq_len: int, *,

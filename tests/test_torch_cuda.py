@@ -1352,3 +1352,27 @@ def test_serving_slo_contract_at_full_width(full_qwen3):
     steps = sum(p["decode_steps"] for p in policies.values())
     assert PA.LAUNCHES["k1"] == cfg.num_layers * steps > 0
     assert sum(PA.LAUNCHES.values()) == PA.LAUNCHES["k1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b", "grok-1-314b",
+                                  "rwkv6-7b", "zamba2-7b"])
+def test_one_by_one_cuda_mesh_is_bitwise_no_mesh(dev, arch):
+    """The reduced model's prefill (streamed attention past 2048 tokens), a
+    decode step and a two-micro-batch training step on a 1x1 CUDA mesh over
+    a one-rank nccl group (FileStore, no network), in a subprocess: 0
+    elements differ from the run without a mesh."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.mesh_parity", "--arch",
+         arch, "--device", "cuda", "--reduced"], env=env, cwd=root,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["differing"] and not any(out["differing"].values())
