@@ -230,6 +230,7 @@ file); exits non-zero without CUDA.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -278,7 +279,8 @@ from repro_torch.kernels.pul_gather import (  # noqa: E402
 from repro_torch.kernels.pul_matmul import (  # noqa: E402
     matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
-from repro_torch.launch.steps import make_train_step, value_and_grad  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    BATCH_LOGICAL, lay_out_state, make_train_step, value_and_grad)
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -319,6 +321,15 @@ RECURRENT_MODELS = (ZAMBA2, RWKV6)
 # FLOPs / chips (the reasons for its width are beside it)
 MESH_ARCH = "qwen3-1.7b"
 MESH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+# the mesh phase's trainer: full-width qwen3-1.7b through launch.train at
+# TRAIN_BATCH x TRAIN_SEQ for MESH_TRAIN_STEPS steps, on one device and with
+# --mesh 1x1 (steps 2 and 3 time a step); its checkpoint and resume at full
+# width cut to MESH_RESUME_LAYERS layers (5.37 GB of state; 28 layers'
+# 17.45 GB took three 22 s saves and a restore, 147 s on an H100 SXM at
+# 700 W; the 28-layer checkpoint is timed by phase train), a checkpoint
+# every MESH_CKPT_EVERY steps; ef_psum's block on a one-rank nccl group
+MESH_TRAIN_STEPS, MESH_CKPT_EVERY, MESH_RESUME_LAYERS = 3, 2, 4
+EF_PSUM_SHAPE = (4096, 1024)
 # published peaks of the H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s,
 # dense bf16 tensor-core flop/s, the peak for the kernels' bf16 operands that
 # every bound uses, and float32 flop/s outside the tensor cores, where the
@@ -3311,29 +3322,51 @@ def phase_train(device="cuda"):
     return summary
 
 
-def profile_train(accum=1, steps=2):
+def profile_train(accum=1, steps=2, mesh=False):
     """Where a full-width training step's time goes (one-off): the train
     phase's model and batch, one step to warm up, then `steps` steps under
-    torch.profiler. Prints one [profile-train] line: the step's wall time,
-    the device busy share, kernels a step, the device time by kind of
-    kernel (GEMMs, element-wise, reductions, indexing and the rest) and
-    the top kernels."""
+    torch.profiler; with `mesh`, the state and batch laid out on a one-rank
+    nccl mesh and the step under set_mesh, as `launch.train --mesh 1x1`
+    runs it. Prints one [profile-train] line: the step's wall time, the
+    host's time to enqueue a step (before the profiler, one step each,
+    synchronized after), the device busy share, kernels a step, the device
+    time by kind of kernel (GEMMs, element-wise, reductions, indexing and
+    the rest) and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.mesh import one_rank_mesh
+    from repro_torch.runtime.sharding import (distribute_tree, set_mesh,
+                                              sharding_tree)
     cfg = get_config(TRAIN_ARCH)
     params = init_params(cfg, seed=0, device="cuda")
     batch = next(TokenPipeline(DataConfig(
         global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         vocab_size=cfg.vocab_size, seed=0), device="cuda"))
     step = make_train_step(cfg, OptimizerConfig(**TRAIN_OPT), accum=accum)
-    p, opt, _ = step(params, adamw_init(params), batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            p, opt, m = step(p, opt, batch)
+    opt = adamw_init(params)
+    with contextlib.ExitStack() as stack:
+        if mesh:
+            m1 = stack.enter_context(one_rank_mesh("cuda"))
+            params, opt = lay_out_state(cfg, params, opt, m1)
+            batch = distribute_tree(batch, sharding_tree(
+                {k: BATCH_LOGICAL[k] for k in batch}, batch, m1),
+                m1)
+            stack.enter_context(set_mesh(m1))
+        p, opt, _ = step(params, opt, batch)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
+        enqueue = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            p, opt, m = step(p, opt, batch)
+            enqueue.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                p, opt, m = step(p, opt, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -3354,6 +3387,8 @@ def profile_train(accum=1, steps=2):
     print("[profile-train] " + json.dumps({
         "smi": _smi("name,power.limit"), "model": cfg.name,
         "tokens": TRAIN_BATCH * TRAIN_SEQ, "accum": accum,
+        "mesh": "1x1" if mesh else None,
+        "host_enqueue_ms_per_step": statistics.median(enqueue) * 1e3,
         "wall_ms_per_step": wall * 1e3, "device_busy_ms_per_step": busy,
         "device_idle_share": 1.0 - busy / (wall * 1e3),
         "kernels_per_step": len(kernels) / steps,
@@ -3414,21 +3449,142 @@ def _port_env(**extra):
     return env
 
 
+def _state_diff(a, b):
+    """Leaves of two trainer results' params and Adam state that differ in
+    a bit, and the leaves compared."""
+    from repro_torch.launch.mesh_parity import bit_diff
+    pairs = [(x, y) for key in ("params", "opt_state") for (_, x), (_, y) in
+             zip(flatten(a[key]), flatten(b[key]), strict=True)]
+    return sum(1 for x, y in pairs if bit_diff(x, y)), len(pairs)
+
+
+def _mesh_trainer(smi, device="cuda"):
+    """launch.train on full-width qwen3-1.7b (seed 0, B TRAIN_BATCH x
+    TRAIN_SEQ, MESH_TRAIN_STEPS steps): at full depth on one device, then
+    with --mesh 1x1 (a one-rank nccl group the trainer opens; parameters,
+    moments and batch as DTensors, the step under set_mesh); then, cut to
+    MESH_RESUME_LAYERS layers, --mesh 1x1 with a checkpoint every
+    MESH_CKPT_EVERY steps, the last checkpoint deleted and a second run
+    resumed from step MESH_CKPT_EVERY. Held: the mesh run's losses equal
+    the one-device run's, loss by loss, its final state 0 leaves apart; the
+    resumed run's state 0 leaves apart from the uninterrupted one's.
+    Printed: the median step (steps 2 on, each timed to its loss) of both
+    full-depth runs."""
+    cfg = get_config(TRAIN_ARCH)
+    args = ["--steps", str(MESH_TRAIN_STEPS), "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_SEQ), "--log-every", "1", "--device", device]
+    t0 = time.perf_counter()
+    one = train_main(args, cfg=cfg)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = train_main(args + ["--mesh", "1x1"], cfg=cfg)
+    t_mesh = time.perf_counter() - t0
+    n_one, leaves = _state_diff(one, mesh)
+    same_losses = mesh["losses"] == one["losses"]
+    steps = (statistics.median(one["step_s"][1:]),
+             statistics.median(mesh["step_s"][1:]))
+    print(f"[mesh] train {cfg.name} ({cfg.num_layers} layers) B "
+          f"{TRAIN_BATCH} x S {TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps: losses "
+          f"one device {one['losses']}, --mesh 1x1 {mesh['losses']} (equal: "
+          f"{same_losses}); {n_one} of {leaves} leaves of params and Adam "
+          f"state differ (held to 0); median step {steps[0] * 1e3:.1f} ms "
+          f"one device, {steps[1] * 1e3:.1f} ms --mesh 1x1 "
+          f"(x{steps[1] / steps[0]:.3f}); runs {t_one:.1f} s and "
+          f"{t_mesh:.1f} s; {smi}")
+    one = mesh = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=MESH_RESUME_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="smoke_mesh_train_") as d:
+        ck = ["--mesh", "1x1", "--ckpt-dir", d, "--ckpt-every",
+              str(MESH_CKPT_EVERY)]
+        t0 = time.perf_counter()
+        full = train_main(args + ck, cfg=cut)
+        t_full = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(d, f"step_{MESH_TRAIN_STEPS:08d}"))
+        t0 = time.perf_counter()
+        res = train_main(args + ck, cfg=cut)
+        t_res = time.perf_counter() - t0
+    n_res, leaves = _state_diff(full, res)
+    state = sum(t.numel() * t.element_size() for t in flatten_state(
+        (res["params"], res["opt_state"])))
+    print(f"[mesh] train --mesh 1x1, {cut.name} cut to {cut.num_layers} "
+          f"layers ({state / 1e9:.2f} GB of state): uninterrupted "
+          f"{full['losses']} with checkpoints at steps {MESH_CKPT_EVERY} and "
+          f"{MESH_TRAIN_STEPS} ({t_full:.1f} s); resumed from step "
+          f"{res['start']}: {res['losses']} ({t_res:.1f} s with the restore "
+          f"and a checkpoint); {n_res} of {leaves} leaves differ from the "
+          f"uninterrupted run (held to 0); {smi}")
+    failed = []
+    if not same_losses or n_one:
+        failed.append(f"--mesh 1x1 left the one-device run ({n_one} leaves)")
+    if (res["start"] != MESH_CKPT_EVERY or n_res
+            or res["losses"] != full["losses"][MESH_CKPT_EVERY:]):
+        failed.append(f"the resumed --mesh 1x1 run left the uninterrupted "
+                      f"one (from step {res['start']}, {n_res} leaves)")
+    return failed, {"step_ms": steps[0] * 1e3, "mesh_step_ms": steps[1] * 1e3}
+
+
+def _ef_psum_one_rank(smi, device="cuda", rounds=3):
+    """compression.ef_psum on a one-rank nccl group, the axis named by the
+    mesh dim ("data", under set_mesh) and given as the group: over
+    `rounds` rounds of error feedback from zero, fp32 and bf16 blocks of
+    EF_PSUM_SHAPE, every sum and new error bitwise the quantize_int8
+    arithmetic done locally (a one-rank sum is the rank's own q * scale).
+    Printed: one call's time (CUDA events)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import one_rank_mesh
+    from repro_torch.launch.mesh_parity import bit_diff
+    from repro_torch.optim.compression import ef_psum, quantize_int8
+    from repro_torch.runtime.sharding import set_mesh
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    n_diff = n_cmp = 0
+    with one_rank_mesh(torch.device(device).type) as mesh, set_mesh(mesh):
+        for dtype in (torch.float32, torch.bfloat16):
+            for axis in ("data", dist.group.WORLD):
+                err = torch.zeros(EF_PSUM_SHAPE, device=device)
+                for rnd in range(rounds):
+                    g = (torch.randn(EF_PSUM_SHAPE, generator=gen)
+                         * 10.0 ** (rnd - 1)).to(device, dtype)
+                    corrected = g.float() + err
+                    q, scale = quantize_int8(corrected)
+                    want = (q.float() * scale, corrected - q.float() * scale)
+                    got = ef_psum(g, err, axis)
+                    n_diff += bit_diff(want[0], got[0]) + bit_diff(
+                        want[1], got[1])
+                    n_cmp += 2
+                    err = got[1]
+        g = torch.randn(EF_PSUM_SHAPE, generator=gen).to(device)
+        ms = _time_ms(lambda: ef_psum(g, err, "data"))
+    print(f"[mesh] ef_psum on a one-rank nccl group, {EF_PSUM_SHAPE} fp32 "
+          f"and bf16, axis by name and by group, {rounds} rounds: {n_diff} "
+          f"elements of {n_cmp} sums and errors differ from the local "
+          f"q * scale (held to 0); one call {ms:.4f} ms; {smi}")
+    return [f"ef_psum: {n_diff} elements differ"] if n_diff else [], ms
+
+
 def phase_mesh(timeout=900):
     """The sharding layer (phase 25): the dry-run's six cells, each in its
     own process on the host's CPU (a fake process group; no card, so
     CUDA_VISIBLE_DEVICES is empty there), and the 1x1 mesh's parity on the
-    card, all started together. Raises unless every cell is ok with its
-    argument bytes equal to the arithmetic and its FLOPs within
-    dryrun.FLOPS_VS_ANALYTIC, and the 1x1 run differs from the run without
-    a mesh in 0 elements."""
+    card for full-width qwen3 and reduced deepseek-v2 (its gather dispatch
+    on a mesh), all started together. Then, on the card alone: the trainer
+    over a 1x1 mesh against one device and resumed (_mesh_trainer), and
+    ef_psum on a one-rank nccl group. Raises unless every cell is ok with
+    its argument bytes equal to the arithmetic and its FLOPs within
+    dryrun.FLOPS_VS_ANALYTIC, both 1x1 runs differ from the runs without a
+    mesh in 0 elements, and the trainer and ef_psum checks hold."""
     from types import SimpleNamespace
 
     from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun, steps
 
+    smi = _smi("name,power.limit")
     cfg = get_config(MESH_ARCH)
     lo, hi = dryrun.FLOPS_VS_ANALYTIC
+    parity_runs = {MESH_ARCH: [], DEEPSEEK: ["--reduced"]}
     with tempfile.TemporaryDirectory() as out:
         procs = {}
         for shape in MESH_SHAPES:
@@ -3440,17 +3596,19 @@ def phase_mesh(timeout=900):
                     env=_port_env(CUDA_VISIBLE_DEVICES=""),
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)
-        parity = subprocess.Popen(
+        parity = {arch: subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.mesh_parity",
-             "--arch", MESH_ARCH, "--device", "cuda"], env=_port_env(),
+             "--arch", arch, "--device", "cuda", *extra], env=_port_env(),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        logs = {}
+            for arch, extra in parity_runs.items()}
+        logs, par = {}, {}
         try:
             for key, p in procs.items():
                 logs[key] = p.communicate(timeout=timeout)[0]
-            par_out, par_err = parity.communicate(timeout=timeout)
+            for arch, p in parity.items():
+                par[arch] = p.communicate(timeout=timeout)
         finally:
-            for p in (*procs.values(), parity):
+            for p in (*procs.values(), *parity.values()):
                 if p.poll() is None:
                     p.kill()
                     p.wait()
@@ -3487,11 +3645,17 @@ def phase_mesh(timeout=900):
             elif not lo <= ratio <= hi:
                 failed.append(f"{tag}: flops x{ratio:.3f} outside "
                               f"[{lo}, {hi}]")
-    line = (par_out.strip().splitlines() or [""])[-1]
-    print(f"[mesh] 1x1 mesh vs no mesh: {line}")
-    if parity.returncode:
-        print(par_err[-3000:], file=sys.stderr)
-        failed.append(f"1x1 mesh parity: exit {parity.returncode}")
+    for arch, (par_out, par_err) in par.items():
+        line = (par_out.strip().splitlines() or [""])[-1]
+        print(f"[mesh] 1x1 mesh vs no mesh, {arch}: {line}")
+        if parity[arch].returncode:
+            print(par_err[-3000:], file=sys.stderr)
+            failed.append(f"1x1 mesh parity {arch}: exit "
+                          f"{parity[arch].returncode}")
+    for check in (_mesh_trainer, _ef_psum_one_rank):
+        t0 = time.perf_counter()
+        failed += check(smi)[0]
+        print(f"[mesh] {check.__name__}: {time.perf_counter() - t0:.1f} s")
     if failed:
         raise RuntimeError("mesh phase: " + "; ".join(failed))
 

@@ -1,7 +1,8 @@
 """Page-lifecycle events, the lifecycle sanitizer and the DMA-plan verifier
 (copies of the reference package's `analysis/events.py`,
 `analysis/sanitizer.py` and `analysis/plan_verifier.py`; pure Python, no
-torch). The jit lint is not ported yet (ROADMAP)."""
+torch), and the capture-safety lint (`analysis/lint.py`, the reference's
+jit lint translated; `python -m repro_torch.analysis.lint`)."""
 from repro_torch.analysis.events import EventKind, PageEvent, TraceLog
 from repro_torch.analysis.plan_verifier import (
     PlanError,

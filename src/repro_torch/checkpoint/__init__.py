@@ -2,6 +2,7 @@
 from repro_torch.checkpoint.checkpoint import (
     CheckpointConfig,
     CheckpointManager,
+    Layout,
 )
 
-__all__ = ["CheckpointConfig", "CheckpointManager"]
+__all__ = ["CheckpointConfig", "CheckpointManager", "Layout"]

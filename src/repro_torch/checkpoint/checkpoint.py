@@ -13,9 +13,18 @@ Leaves are numbered in the order JAX flattens a pytree: dict keys sorted,
 tuple and list items in order. The port's trees are nested dicts (and
 tuples of them), flattened the same way here, so ``leaf_i`` of a
 checkpoint names the same tensor in both packages and either package
-restores the other's checkpoints. ``restore`` puts the leaves on
-``device``, the single-device counterpart of the reference's
-``shardings``.
+restores the other's checkpoints.
+
+On a mesh (a default process group of more than one rank, or DTensor
+leaves) the format stays the same: a DTensor leaf is made whole
+(``full_tensor``, a collective that every rank calls in the same leaf
+order) in the snapshot, and only rank 0 flushes and writes ``step_*/``;
+the other ranks go on after the snapshot. ``save(block=True)`` ends in a
+barrier, so every rank returns once the step is committed. ``restore``
+loads each leaf whole and lays it out with the mesh and placements of the
+``like`` leaf where that is a DTensor, or of ``shardings`` (a tree of
+:class:`Layout`, the reference's ``NamedSharding`` tree), else puts it on
+``device``: a checkpoint does not depend on the mesh that wrote it.
 """
 from __future__ import annotations
 
@@ -31,11 +40,33 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.runtime.sharding import is_dtensor, whole
 
 _DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
            torch.float16: "float16", torch.float64: "float64",
            torch.int32: "int32", torch.int64: "int64", torch.int8: "int8",
            torch.uint8: "uint8", torch.bool: "bool"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A restored leaf's place on a mesh: a DeviceMesh and one DTensor
+    placement per mesh dim."""
+    mesh: Any
+    placements: Tuple[Any, ...]
+
+
+def _rank_and_world() -> Tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    if _rank_and_world()[1] > 1:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +109,9 @@ def _snapshot(x) -> Tuple[np.ndarray, str]:
     if not isinstance(x, torch.Tensor):
         h = np.array(x)
         return h, str(h.dtype)
-    t = x.detach().to("cpu", copy=True)     # synchronous device -> host copy
+    # a DTensor is made whole first, a collective that every rank joins;
+    # then a synchronous device -> host copy
+    t = whole(x).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), _DTYPES[t.dtype]
@@ -104,9 +137,13 @@ class CheckpointManager:
         """Snapshot (device -> host, synchronous: when this returns, the
         caller may overwrite every tensor of `state`), then unload (host ->
         disk) in the background. Returns after the snapshot unless
-        block=True."""
+        block=True. On a mesh every rank calls it; rank 0 writes."""
         self.wait()                                  # one in-flight flush
         snaps = [_snapshot(x) for x in flatten_state(state)]
+        if _rank_and_world()[0] != 0:
+            if block:
+                _barrier()                           # rank 0 committed
+            return
         host_leaves = [h for h, _ in snaps]
         manifest = {
             "step": step,
@@ -130,7 +167,7 @@ class CheckpointManager:
                 (tmp / "manifest.json").write_text(json.dumps(manifest))
                 tmp.rename(final)                    # atomic commit
                 self._gc()
-            except BaseException as e:  # re-raised by wait()
+            except BaseException as e:  # pul-lint: disable=PUL105 (re-raised by wait())
                 self._last_error = e
 
         if self.cfg.async_write and not block:
@@ -139,6 +176,8 @@ class CheckpointManager:
         else:
             _flush()
             self._raise_if_failed()
+            if block:
+                _barrier()
 
     def wait(self):
         """The PRELOAD_WAIT of unloading: join the in-flight flush."""
@@ -169,10 +208,14 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ #
     def restore(self, step: Optional[int] = None, *, like=None,
-                device="cuda") -> Tuple[int, Any]:
+                device="cuda", shardings=None) -> Tuple[int, Any]:
         """Load a committed checkpoint (the latest unless `step`) into a
-        tree shaped like `like`, every leaf a tensor on `device` in the
-        dtype the manifest records."""
+        tree shaped like `like`, every leaf in the dtype the manifest
+        records: laid out by its `shardings` Layout (a tree shaped like
+        `like`, None leaves allowed) if given, else like its `like` leaf
+        if that is a DTensor (a collective: every rank of the mesh
+        restores), else a tensor on `device` (the reference's
+        ``shardings=None``)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -185,4 +228,18 @@ class CheckpointManager:
         with np.load(d / "shard_0.npz") as data:
             leaves = [_decode(data[f"leaf_{i}"], manifest["dtypes"][i]).to(dev)
                       for i in range(len(data.files))]
+        likes = flatten_state(like)
+        layouts = (flatten_state(shardings) if shardings is not None
+                   else [None] * len(likes))
+        if not len(leaves) == len(likes) == len(layouts):
+            raise ValueError(f"the checkpoint has {len(leaves)} leaves, "
+                             f"`like` {len(likes)}, `shardings` "
+                             f"{len(layouts)}")
+        for i, (lk, lay) in enumerate(zip(likes, layouts)):
+            if lay is None and is_dtensor(lk):
+                lay = Layout(lk.device_mesh, tuple(lk.placements))
+            if lay is not None:
+                from torch.distributed.tensor import distribute_tensor
+                leaves[i] = distribute_tensor(leaves[i], lay.mesh,
+                                              list(lay.placements))
         return step, unflatten_state(like, leaves)

@@ -53,8 +53,8 @@ from repro_torch.models import demo_batch, init_params
 from repro_torch.models import module as M
 from repro_torch.models import transformer as T
 from repro_torch.optim import OptimizerConfig, adamw_init
-from repro_torch.runtime.sharding import (is_dtensor, placements,
-                                          set_mesh, sharding_tree)
+from repro_torch.runtime.sharding import (distribute_tree, set_mesh,
+                                          sharding_tree, whole)
 
 _INT_OF = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
@@ -70,14 +70,10 @@ _INT_OF = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
 
-def _whole(x: torch.Tensor) -> torch.Tensor:
-    return x.full_tensor() if is_dtensor(x) else x
-
-
 def bit_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     """How many elements of a and b differ in their bits (all of them when
     shapes or types differ); a DTensor is compared whole."""
-    a, b = _whole(a), _whole(b)
+    a, b = whole(a), whole(b)
     if a.shape != b.shape or a.dtype != b.dtype:
         return max(a.numel(), b.numel())
     if a.dtype == torch.bool:
@@ -90,7 +86,7 @@ def tol_err(want: torch.Tensor, got: torch.Tensor) -> float:
     """max|got - want| / (TOLERANCE[dtype] * max|want|), a DTensor compared
     whole: at most 1 when `got` holds. inf when shapes or types differ, a
     value is not finite, or an integer or bool element differs."""
-    want, got = _whole(want), _whole(got)
+    want, got = whole(want), whole(got)
     if want.shape != got.shape or want.dtype != got.dtype:
         return math.inf
     if not want.is_floating_point():
@@ -118,14 +114,6 @@ def tree_diff(a, b, leaf=bit_diff):
     return sum(vals) if leaf is bit_diff else max(vals, default=0.0)
 
 
-def _distribute(tree, placements_tree, mesh):
-    from torch.distributed.tensor import distribute_tensor
-    if isinstance(tree, dict):
-        return {k: _distribute(tree[k], placements_tree[k], mesh)
-                for k in tree}
-    return distribute_tensor(tree, mesh, placements_tree)
-
-
 def _clone(tree, f32: bool = False):
     """A copy of `tree`; with `f32` its floating leaves in fp32 (the decode
     of fp32 weights reads fp32 caches)."""
@@ -135,12 +123,12 @@ def _clone(tree, f32: bool = False):
 
 
 def _params_on(cfg, params, mesh):
-    return _distribute(params, M.param_shardings(T.model_params(cfg), mesh),
-                       mesh)
+    return distribute_tree(params, M.param_shardings(T.model_params(cfg),
+                                                     mesh), mesh)
 
 
 def _batch_on(batch, logical, mesh):
-    return _distribute(batch, sharding_tree(logical, batch, mesh), mesh)
+    return distribute_tree(batch, sharding_tree(logical, batch, mesh), mesh)
 
 
 def _init(cfg, device, f32: bool):
@@ -211,16 +199,10 @@ def train_parity(cfg, mesh, *, batch: int, seq: int, accum: int, device,
     data["loss_mask"] = uneven_loss_mask(batch, seq, device)
     step = S.make_train_step(cfg, opt_cfg, accum=accum)
     new_p, new_o, metrics = step(params, opt, data)
-    logical = {"tokens": ("batch", "seq"), "targets": ("batch", "seq"),
-               "loss_mask": ("batch", "seq"),
-               "frontend_embeds": ("batch", "seq", None)}
-    pl = M.param_shardings(T.model_params(cfg), mesh)
-    dopt = {"m": _distribute(opt["m"], pl, mesh),
-            "v": _distribute(opt["v"], pl, mesh),
-            "step": _distribute(opt["step"], placements((), mesh), mesh)}
+    dparams, dopt = S.lay_out_state(cfg, params, opt, mesh)
     with set_mesh(mesh):
-        dp, do, dm = step(_params_on(cfg, params, mesh), dopt, _batch_on(
-            data, {k: logical[k] for k in data}, mesh))
+        dp, do, dm = step(dparams, dopt, _batch_on(
+            data, {k: S.BATCH_LOGICAL[k] for k in data}, mesh))
     return {"train_params": tree_diff(new_p, dp, leaf),
             "train_opt": tree_diff(new_o, do, leaf),
             "train_metrics": tree_diff(metrics, dm, leaf)}

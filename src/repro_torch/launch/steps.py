@@ -25,7 +25,8 @@ from repro_torch.models import zoo
 from repro_torch.models.module import flatten, unflatten
 from repro_torch.optim import OptimizerConfig, adamw_update
 from repro_torch.runtime.sharding import (ShardingRules, constrain,
-                                          is_dtensor, mesh_shape, spec_tree)
+                                          distribute_tree, is_dtensor,
+                                          mesh_shape, placements, spec_tree)
 
 
 def value_and_grad(cfg: ModelConfig):
@@ -40,9 +41,19 @@ def value_and_grad(cfg: ModelConfig):
             grads = torch.autograd.grad(loss, list(leaves.values()),
                                         allow_unused=True)
         return loss.detach(), unflatten({
-            k: torch.zeros_like(p) if g is None else g
+            k: torch.zeros_like(p) if g is None else _laid_out_as(g, p)
             for (k, p), g in zip(leaves.items(), grads)})
     return fn
+
+
+def _laid_out_as(g, p):
+    """A gradient in its parameter's layout, as JAX gives the cotangent of
+    a sharded parameter its sharding (DTensor's backward of an unbind may
+    split the stacked gradient over another dim; the update, and the next
+    step's parameter, would follow it)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def _micro_batches(v, accum: int):
@@ -134,6 +145,24 @@ def abstract_state(cfg: ModelConfig):
     opt = {"m": moments(), "v": moments(),
            "step": torch.empty((), dtype=torch.int32, device="meta")}
     return aparams, opt
+
+
+#: logical axes of a training batch's leaves
+BATCH_LOGICAL = {"tokens": ("batch", "seq"), "targets": ("batch", "seq"),
+                 "loss_mask": ("batch", "seq"),
+                 "frontend_embeds": ("batch", "seq", None)}
+
+
+def lay_out_state(cfg: ModelConfig, params, opt_state, mesh):
+    """(params, opt_state) as DTensors on `mesh` (a DeviceMesh): the
+    parameters by the sharding rules, the moments like them, the step
+    replicated (every rank calls it with the same whole tensors)."""
+    pl = M.param_shardings(T.model_params(cfg), mesh)
+    return distribute_tree(params, pl, mesh), {
+        "m": distribute_tree(opt_state["m"], pl, mesh),
+        "v": distribute_tree(opt_state["v"], pl, mesh),
+        "step": distribute_tree(opt_state["step"], placements((), mesh),
+                                mesh)}
 
 
 def state_specs(cfg: ModelConfig, mesh, rules: ShardingRules = ShardingRules()):

@@ -6,7 +6,11 @@ router and the two dispatch backends of the reference, with shared experts.
 E experts and combine the weighted outputs back per token. The reference's
 semantics are kept to the letter: a stable argsort, drops kept out of the
 slot table (JAX's ``.at[].set(mode="drop")``), counts over all E, and
-deepseek's softmax -> top-k routing without renormalisation.
+deepseek's softmax -> top-k routing without renormalisation. On a mesh
+DTensor has no layout for the sort and the slot table's indexed writes, so
+the routing integers and the rows they gather are made whole on every
+device and the dispatch runs on local tensors: the capacity, the ranking
+and the drops stay global, as the reference's, whatever the mesh.
 
 ``einsum`` (grok-1, the config default): capacity one-hot dispatch and
 combine einsums over groups of min(T, 2048) tokens (the last group
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import mlp_apply, mlp_params, pad_zeros
 from repro_torch.models.module import Param
-from repro_torch.runtime.sharding import constrain, is_dtensor
+from repro_torch.runtime.sharding import constrain, is_dtensor, whole
 
 
 def moe_params(cfg: ModelConfig) -> Dict[str, Any]:
@@ -117,13 +121,14 @@ def _capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
 
 
-def _moe_gather(p, x_flat, cfg: ModelConfig):
-    T, D = x_flat.shape
-    E, k = cfg.num_experts, cfg.experts_per_tok
-    dev = x_flat.device
-    C = _capacity(cfg, T)
-    ids, w, aux = _route(p, x_flat, cfg)
-    flat_e = ids.reshape(-1)                                     # (T*k,)
+def _slot_table(flat_e: torch.Tensor, T: int, k: int, E: int, C: int):
+    """The gather dispatch's routing integers from the (T*k,) expert id of
+    every (token, kth) slot: each slot's rank within its expert (a stable
+    sort by expert, as ``jnp.argsort``) and the (E, C) slot table naming the
+    flat slot (token * k + kth) that fills each place, T * k where none
+    does. Slots ranked past the capacity land in a spill column C, cut off:
+    dropped."""
+    dev = flat_e.device
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = _counts(flat_e, E)
@@ -132,24 +137,51 @@ def _moe_gather(p, x_flat, cfg: ModelConfig):
     # rank of each original slot within its expert
     rank = torch.empty_like(slots)
     rank[order] = slots - starts[sorted_e]
-    valid = rank < C
-    # slot table: (E, C) -> originating flat slot (token * k + kth); slots
-    # ranked past the capacity land in a spill column C, cut off: dropped
     table = torch.full((E, C + 1), T * k, dtype=torch.long, device=dev)
     table[flat_e, torch.clamp(rank, max=C)] = slots
-    table = table[:, :C]
+    return rank, table[:, :C]
+
+
+def _moe_gather(p, x_flat, cfg: ModelConfig):
+    T, D = x_flat.shape
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    C = _capacity(cfg, T)
+    ids, w, aux = _route(p, x_flat, cfg)
+    mesh = x_flat.device_mesh if is_dtensor(x_flat) else None
+    if mesh is not None:
+        # DTensor has no layout for the sort, the inverse permutation or the
+        # slot table's indexed writes: the routing integers (T * k and
+        # E * C of them) and the rows they gather are made whole on every
+        # device, and the dispatch runs on local tensors, so the global
+        # capacity, the stable ranking and the drops are the reference's
+        # whatever the mesh (on a 1x1 mesh the same ops on the same bits)
+        from torch.distributed.tensor import DTensor, Replicate
+        rep = [Replicate()] * mesh.ndim
+        x_rows, ids, w = (whole(t) for t in (x_flat, ids, w))
+    else:
+        x_rows = x_flat
+    flat_e = ids.reshape(-1)                                     # (T*k,)
+    rank, table = _slot_table(flat_e, T, k, E, C)
+    valid = rank < C
     tok_of_slot = torch.clamp(table // k, max=T - 1)
     live = table < T * k
-    h = torch.where(live[..., None], x_flat[tok_of_slot],
-                    torch.zeros((), dtype=x_flat.dtype, device=dev))
+    zero = torch.zeros((), dtype=x_flat.dtype, device=x_rows.device)
+    h = torch.where(live[..., None], x_rows[tok_of_slot], zero)
+    if mesh is not None:
+        h = DTensor.from_local(h, mesh, rep, run_check=False)
     h = constrain(h, ("experts", None, None))
     out = _expert_ffn(p, h, cfg)                                 # (E, C, D)
+    if mesh is not None:
+        out = whole(out)
     # combine: gather each (token, kth) slot's output and weight it
     g = out[flat_e.reshape(T, k), torch.clamp(rank, max=C - 1).reshape(T, k)]
     g = torch.where(valid.reshape(T, k)[..., None], g,
-                    torch.zeros((), dtype=g.dtype, device=dev))
-    y = torch.einsum("tkd,tk->td", g, w.to(g.dtype))
-    return y.to(x_flat.dtype), aux
+                    torch.zeros((), dtype=g.dtype, device=g.device))
+    y = torch.einsum("tkd,tk->td", g, w.to(g.dtype)).to(x_flat.dtype)
+    if mesh is not None:
+        y = DTensor.from_local(y, mesh, rep, run_check=False).redistribute(
+            mesh, x_flat.placements)
+    return y, aux
 
 
 def _moe_einsum(p, x_flat, cfg: ModelConfig):

@@ -288,6 +288,23 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def whole(x):
+    """A DTensor made whole on every rank (a collective; differentiable, the
+    gradient going back to its placements), a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def distribute_tree(tree, placements_tree, mesh):
+    """Every leaf of a nested dict laid out on `mesh` by the placements
+    at the same path of `placements_tree` (``distribute_tensor``: every
+    rank calls it, in the same leaf order, with the same whole tensor)."""
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, dict):
+        return {k: distribute_tree(tree[k], placements_tree[k], mesh)
+                for k in tree}
+    return distribute_tensor(tree, mesh, placements_tree)
+
+
 def split_dims(x) -> set:
     """The dims of `x` that a DTensor splits over some mesh dim of more
     than one device (none for a plain tensor, or on a 1x1 mesh)."""
@@ -301,4 +318,4 @@ def split_dims(x) -> set:
 __all__ = ["Axis", "Spec", "DEFAULT_RULES", "ShardingRules", "mesh_shape",
            "logical_to_spec", "placements", "local_shape", "spec_tree",
            "sharding_tree", "set_mesh", "current_mesh", "constrain",
-           "is_dtensor", "split_dims"]
+           "is_dtensor", "whole", "distribute_tree", "split_dims"]

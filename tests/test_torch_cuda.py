@@ -1356,7 +1356,8 @@ def test_serving_slo_contract_at_full_width(full_qwen3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-27b", "grok-1-314b",
-                                  "rwkv6-7b", "zamba2-7b"])
+                                  "rwkv6-7b", "zamba2-7b",
+                                  "deepseek-v2-236b"])
 def test_one_by_one_cuda_mesh_is_bitwise_no_mesh(dev, arch):
     """The reduced model's prefill (streamed attention past 2048 tokens), a
     decode step and a two-micro-batch training step on a 1x1 CUDA mesh over

@@ -43,7 +43,7 @@ def test_every_port_module_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 81     # every module, not a stub
+    assert int(proc.stdout.split()[-1]) >= 82     # every module, not a stub
 
 
 @pytest.mark.parametrize("module", [
@@ -133,6 +133,16 @@ def test_training_slice_modules_import_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout == ""
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.analysis.lint", "repro_torch.optim.compression",
+    "repro_torch.launch.train", "repro_torch.checkpoint.checkpoint"])
+def test_mesh_training_slice_module_imports_with_jax_blocked(module):
+    """The mesh-training slice's modules (the capture-safety lint and its
+    runner, ef_psum, the trainer's --mesh, the checkpoints on a mesh) on
+    their own, jax and repro blocked; importing the lint runs nothing."""
+    test_mla_slice_module_imports_with_jax_blocked(module)
 
 
 def test_no_port_source_imports_jax_or_the_reference():

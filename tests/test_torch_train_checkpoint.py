@@ -228,7 +228,9 @@ def test_trainer_resumed_run_equals_uninterrupted(tmp_path, capsys):
 
 
 def test_trainer_mesh_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """--mesh is ported (tests/test_torch_train_mesh.py); a lone process
+    without a process group cannot hold a 2x4 mesh and says so."""
+    with pytest.raises(ValueError, match="needs 8 rank"):
         train_cli.main(ARGS + ["--mesh", "2x4"])
 
 
