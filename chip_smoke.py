@@ -8,7 +8,9 @@ exit code is not 0:
   1. device       -- card name and power limit (nvidia-smi), copy rates that
                      feed the H100 tiers of ``repro_torch.core.pul``
   2. build        -- compile the CUDA sources of ``src/repro_torch/csrc``, one
-                     nvcc each, all started together
+                     nvcc each, all started together; each kernel's
+                     registers and spills, none allowed in the register-
+                     tiled f32 bodies of K10 and K7
   3. kernels      -- K1/K2 (split-KV: a split and a merge kernel per call)
                      against their plain PyTorch versions at qwen3-1.7b
                      widths (bf16, two bf16 ulps of each row's largest value),
@@ -34,8 +36,12 @@ exit code is not 0:
                      4096^3 bf16 -> f32, 2048^3 f32 and 4096^3 bf16 -> bf16
                      through ops.matmul_op, within 2 sqrt(K) 2^-24 (|A||B|) (plus
                      one bf16 rounding for the bf16 output), both bf16 cases
-                     on the wgmma body (its own launch count); a planted fault
-                     each; times, bounds, plain times, torch.matmul for K10
+                     on the wgmma body (its own launch count), the f32 case on
+                     the register-tiled CUDA-core body, held at d in {1, 4}
+                     in both issue orders too, its block, thread and warp
+                     tiles, K chunk, ring and blocks an SM printed; a planted
+                     fault each; times (TFLOP/s, share of the bound), bounds,
+                     plain times, torch.matmul for K10
   7. paper        -- run_all on the card: the DMA twin's Exps. 1-5 and the
                      functional sweep through K8 and K9, all 11 claims PASS;
                      then K8 timed over d in {1, ..., 32} x both issue orders
@@ -54,7 +60,9 @@ exit code is not 0:
                      against its plain version (bf16 two ulps of the row's
                      largest value, f32 3e-4) at d in {1, 4} in both issue
                      orders; planted faults (for K6 also one segment's piece
-                     left out of the merge); times, bounds, plain times and
+                     left out of the merge); the f32 body's rows, lane tiles,
+                     chunk, ring and blocks an SM; times (share of the
+                     bound), bounds, plain times and
                      scaled_dot_product_attention's times
   9. serving      -- full-width qwen3-1.7b (random weights from seed 0) served
                      by the paged engine through K1 (fused sweep), then the
@@ -225,6 +233,17 @@ steps):
 
     python3 -c "import chip_smoke; chip_smoke.profile_train()"
 
+and K10's and K7's register-tiled f32 bodies alone (their builds' registers
+and spills, each held against its plain version at every ring of the
+kernels phases, times beside bound, plain and library; about a minute):
+
+    python3 -c "import chip_smoke; chip_smoke.f32_bodies()"
+
+and the fp32 FMA rate of a register tile fed from shared memory (the
+measurement behind those bodies' tiles; seconds):
+
+    python3 -c "import chip_smoke; chip_smoke.fma_feed_probe()"
+
 Imports only torch, numpy and ``repro_torch`` (from ``src/`` beside this
 file); exits non-zero without CUDA.
 """
@@ -277,7 +296,8 @@ from repro_torch.kernels.pul_gather import (  # noqa: E402
     BODY as GATHER_BODY, gather_bulk_plan, gather_ref, page_gather_ref,
     pul_gather, pul_page_gather)
 from repro_torch.kernels.pul_matmul import (  # noqa: E402
-    matmul_body, matmul_ref, matmul_ring_plan, matmul_tc_plan)
+    FMA_BODY, TC_BODY, matmul_body, matmul_fma_block_n, matmul_fma_tiles,
+    matmul_ref, matmul_ring_plan, matmul_tc_plan)
 from repro_torch.kernels.pul_sum import pul_sum, sum_ref, sum_ring_plan  # noqa: E402
 from repro_torch.launch.steps import (  # noqa: E402
     BATCH_LOGICAL, lay_out_state, make_train_step, value_and_grad)
@@ -430,8 +450,21 @@ def phase_build():
         print(f"[build] {path.name}: nvcc {info['seconds']:.2f} s; "
               f"registers: {regs}; spill stores: "
               f"{', '.join(spills) or 'none'}")
+        _no_spills(kernels)
     print(f"[build] {len(paths)} sources in {secs:.2f} s")
     return secs
+
+
+#: the register-tiled f32 bodies of K10 and K7, which must not spill
+FMA_KERNELS = ("matmul_kernel", "flash_kernel")
+
+
+def _no_spills(kernels):
+    spilled = [f"{k} {sp} B" for k, _, sp in kernels
+               if k.split("<")[0] in FMA_KERNELS and sp]
+    if spilled:
+        raise AssertionError(f"the register-tiled f32 bodies spill: "
+                             f"{', '.join(spilled)}")
 
 
 def _kernel_label(mangled):
@@ -1194,6 +1227,41 @@ def _decode_plan(dev, cfg=PULConfig(), seg_chunks=None):
     return dataclasses.replace(plan, blocks_per_sm=bps, grid=sms * bps)
 
 
+def _k7_f32_plan(dev, hd):
+    """K7's f32 body at head dim hd and the default ring: its tiles, chunk,
+    ring and blocks an SM (the occupancy query on the card)."""
+    tiles = PA.attention_f32_tiles(hd)
+    plan = PA.attention_ring_plan(PULConfig(), hd=hd)
+    bps = (_blocks_per_sm("pul_dense_attention", hd, plan.smem_bytes,
+                          query="pul_flash_attention_blocks_per_sm")
+           if dev.type == "cuda" else "not queried")
+    return (f"{tiles.rows} rows a block; S tile {tiles.s_thread[0]}x"
+            f"{tiles.s_thread[1]} a lane, {tiles.s_warp[0]}x"
+            f"{tiles.s_warp[1]} a warp; O tile {tiles.o_thread[0]}x"
+            f"{tiles.o_thread[1]} a thread on {tiles.o_threads} threads; "
+            f"chunks of {PA.kv_chunk_rows(4)} keys, d={plan.distance}, "
+            f"{plan.slots} slots, {plan.smem_bytes} B a block, {bps} "
+            "blocks/SM")
+
+
+def _k10_fma_plan(dev, dtype, n, cfg=PULConfig()):
+    """K10's CUDA-core body at the default 128^3 tiles of an n x n product:
+    its block, tiles, K chunk, ring and blocks an SM (the occupancy query on
+    the card)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    block_n = matmul_fma_block_n(dtype, 128, 128, n)
+    tiles = matmul_fma_tiles(128, block_n)
+    plan = matmul_ring_plan(cfg, bm=128, bk=128, bn=block_n, itemsize=item)
+    bps = (_blocks_per_sm("pul_matmul", 128, block_n, int(item == 2),
+                          plan.smem_bytes)
+           if dev.type == "cuda" else "not queried")
+    return (f"block 128x{block_n}, thread tile {tiles.thread[0]}x"
+            f"{tiles.thread[1]}, warp tile {tiles.warp[0]}x{tiles.warp[1]}, "
+            f"{tiles.threads} threads; K chunk {plan.bk_chunk}, d "
+            f"{plan.distance}, {plan.slots} slots, {plan.smem_bytes} B a "
+            f"block, {bps} blocks/SM")
+
+
 def phase_kernels_attn(device="cuda"):
     """K7 and K6 on their main path (ops.attention_op at its default tiles
     and ring, pul_decode_attention), launches counted there; each case
@@ -1271,6 +1339,10 @@ def phase_kernels_attn(device="cuda"):
             del mask
         bound_ms, bound_by, flops = _attn_bound(shape, dtype, opts)
         body = PA.attention_body(dtype)
+        if body == PA.F32_BODY:
+            body_txt = f"{body} ({_k7_f32_plan(dev, hd)})"
+        else:
+            body_txt = body
         rows[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms, body=body)
@@ -1279,11 +1351,13 @@ def phase_kernels_attn(device="cuda"):
                    f"SDPA {library_ms:.4f} ms (K7 {ms / library_ms:.2f} x)")
         print(f"[kernels-attn] {label} B={B} H={Hq} K={K} T={T} S={S} "
               f"hd={hd} {str(dtype).split('.')[-1]}"
-              f"{' ' + str(opts) if opts else ''} body {body}: max|K7-plain| "
+              f"{' ' + str(opts) if opts else ''} body {body_txt}: "
+              f"max|K7-plain| "
               f"{err:.3e} within the limit via ops.attention_op and at d=1/4 "
               f"BATCH/SEQUENTIAL; planted faults rejected: "
               f"{planted}; K7 {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s visible), plain "
+              f"({flops / ms / 1e9:.1f} TFLOP/s visible, "
+              f"{bound_ms / ms:.1%} of the bound), plain "
               f"{plain_ms:.4f} ms, {lib_txt}, bound {bound_ms:.4f} ms "
               f"({bound_by}, {flops / 1e9:.1f} GFLOP visible)")
     del cases, outs
@@ -1569,7 +1643,7 @@ def phase_kernels_micro(device="cuda"):
     outs = [ops.matmul_op(a, b, out_dtype=od) for _, a, b, od in cases]
     _sync(device)
     k10_launches = PA.LAUNCHES["k10"]
-    n_tc = sum(matmul_body(a.dtype, 128, 128) == "wgmma"
+    n_tc = sum(matmul_body(a.dtype, 128, 128) == TC_BODY
                for _, a, _, _ in cases)
     if (k10_launches, PA.LAUNCHES["k10_wgmma"]) != (len(cases), n_tc):
         raise AssertionError(f"ops.matmul_op launched K10 {k10_launches} "
@@ -1587,10 +1661,24 @@ def phase_kernels_micro(device="cuda"):
                                  "limit")
         body = matmul_body(a.dtype, 128, 128)
         plan = (matmul_tc_plan(PULConfig(), bm=128, bk=128, bn=128)
-                if body == "wgmma" else
+                if body == TC_BODY else
                 matmul_ring_plan(PULConfig(), bm=128, bk=128, bn=128,
                                  itemsize=a.element_size()))
         c = plan.bk_chunk
+        rings = ""
+        if body == FMA_BODY:
+            # the CUDA-core body also at d = 1 and 4 in both issue orders
+            for cfg in ATTN_RINGS:
+                e = (ops.matmul_op(a, b, cfg=cfg, out_dtype=out_dtype)
+                     .float() - want).abs()
+                if not bool((e <= limit).all()):
+                    raise AssertionError(
+                        f"K10 {label} d={cfg.distance} {cfg.strategy.name}: "
+                        f"error up to {(e / limit).max().item():.2f} x the "
+                        "limit")
+                err = torch.maximum(err, e)
+                del e
+            rings = "; held at d=1/4 BATCH/SEQUENTIAL too"
         bad = want - a[:, :c].float() @ b[:c].float()
         if bool(((bad - want).abs() <= limit).all()):
             raise AssertionError(f"K10 {label}: the limit lets a planted "
@@ -1609,14 +1697,18 @@ def phase_kernels_micro(device="cuda"):
                    bound_ms=max(t_ops, t_bytes),
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
                    library_ms=library_ms, body=body)
+        plan_txt = (_k10_fma_plan(dev, a.dtype, b.shape[1])
+                    if body == FMA_BODY else
+                    f"K chunk {c}, d {plan.distance}, {plan.slots} slots")
         print(f"[kernels-micro] K10 {label} via ops.matmul_op (tiles 128^3, "
-              f"body {body}, K chunk {c}, d {plan.distance}, {plan.slots} "
-              f"slots): max|K10-plain| {row['max_abs_err']:.3e} (limit "
+              f"body {body}, {plan_txt}{rings}): max|K10-plain| "
+              f"{row['max_abs_err']:.3e} (limit "
               f"2 sqrt(K) 2^-24 (|A||B|)"
               f"{' + 2^-8 |AB|' if out_dtype == torch.bfloat16 else ''}, up to "
               f"{limit.max().item():.3e}); planted fault rejected: one K "
               f"chunk left out; K10 {ms:.4f} ms ({2.0 * n ** 3 / ms / 1e9:.1f} "
-              f"TFLOP/s), plain {plain_ms:.4f} ms, torch.matmul "
+              f"TFLOP/s, {row['bound_ms'] / ms:.1%} of the bound), plain "
+              f"{plain_ms:.4f} ms, torch.matmul "
               f"{library_ms:.4f} ms "
               f"({'bf16 out' if a.dtype == torch.bfloat16 else 'f32'}; K10 "
               f"{ms / library_ms:.2f} x), bound "
@@ -2514,6 +2606,122 @@ def chunk_sweep():
     gather_mod.CHUNK_BYTES = default
     print("[chunks] " + json.dumps(out))
     return out
+
+
+def f32_bodies(reps=20):
+    """K10's and K7's f32 bodies alone, at the smoke's cases (2048^3 f32
+    through ops.matmul_op, kernels-attn's K7-f32): the two sources built
+    together and their bodies' registers and spills; each product against
+    its plain version at the default ring and at d = 1 and 4 in both issue
+    orders; its plan; then, in turns (kernel, plain, library, kernel), its
+    time beside the bound. Returns {case: ms}."""
+    print(_smi("name,power.limit"))
+    sources = ("pul_matmul", "pul_dense_attention")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
+    kernels = []
+    for source in sources:
+        _build.load(source)
+        kernels += [k for k in _ptxas_kernels(str(
+            _build.BUILD_INFO[source]["ptxas"]))
+            if k[0].split("<")[0] in FMA_KERNELS]
+    print("[f32] " + ", ".join(f"{k} {r} registers, {sp} B spilled"
+                               for k, r, sp in kernels))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out = {}
+    n = 2048
+    a = torch.randn((n, n), generator=gen, device=dev)
+    b = torch.randn((n, n), generator=gen, device=dev)
+    want, limit = matmul_ref(a, b), _matmul_limit(a, b)
+    for cfg in (PULConfig(),) + ATTN_RINGS:
+        e = (ops.matmul_op(a, b, cfg=cfg) - want).abs()
+        if not bool((e <= limit).all()):
+            raise AssertionError(f"K10 d={cfg.distance} {cfg.strategy.name}:"
+                                 f" error up to {(e / limit).max().item():.2f}"
+                                 " x the limit")
+    ms = [_time_ms(lambda: ops.matmul_op(a, b), reps=reps)]
+    plain = _time_ms(lambda: matmul_ref(a, b), reps=reps)
+    lib_ms = _time_ms(lambda: torch.matmul(a, b), reps=reps)
+    ms.append(_time_ms(lambda: ops.matmul_op(a, b), reps=reps))
+    bound = 2.0 * n ** 3 / FP32_PEAK * 1e3
+    out["k10"] = min(ms)
+    print(f"[f32] K10 {n}^3 f32 ({_k10_fma_plan(dev, a.dtype, n)}): within "
+          f"the limit "
+          f"at the default ring and d=1/4 BATCH/SEQUENTIAL; K10 "
+          f"{ms[0]:.4f} / {ms[1]:.4f} ms ({2.0 * n ** 3 / min(ms) / 1e9:.1f}"
+          f" TFLOP/s, {bound / min(ms):.1%} of the bound), plain "
+          f"{plain:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms")
+    del a, b, want, limit
+    label, shape, dtype, opts, qs = next(c for c in ATTN
+                                         if c[2] == torch.float32)
+    B, Hq, K, T, S, hd = shape
+    q = torch.randn((B, Hq, T, hd), generator=gen, device=dev) * qs
+    k = torch.randn((B, K, S, hd), generator=gen, device=dev)
+    v = torch.randn((B, K, S, hd), generator=gen, device=dev)
+    want = PA.attention_kernel_ref(q, k, v, **opts)
+    err = max(_dense_check(PA.pul_attention(q, k, v, cfg=cfg, **opts), want,
+                           f"{label} d={cfg.distance} {cfg.strategy.name}")
+              for cfg in (PULConfig(),) + ATTN_RINGS)
+    ms = [_time_ms(lambda: ops.attention_op(q, k, v, **opts), reps=reps)]
+    plain = _time_ms(lambda: PA.attention_kernel_ref(q, k, v, **opts), reps=5)
+    lib_ms = _time_ms(_sdpa(q, k, v, is_causal=True), reps=reps)
+    ms.append(_time_ms(lambda: ops.attention_op(q, k, v, **opts), reps=reps))
+    bound, _, flops = _attn_bound(shape, dtype, opts)
+    out["k7"] = min(ms)
+    print(f"[f32] {label} {shape} ({_k7_f32_plan(dev, hd)}): max|K7-plain| "
+          f"{err:.3e} within the limit at the default ring and d=1/4 "
+          f"BATCH/SEQUENTIAL; K7 {ms[0]:.4f} / {ms[1]:.4f} ms "
+          f"({flops / min(ms) / 1e9:.1f} TFLOP/s visible, "
+          f"{bound / min(ms):.1%} of the bound), plain {plain:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound:.4f} ms")
+    print("[f32] " + json.dumps(out))
+    return out
+
+
+#: fma_feed_probe's register tiles: (kind, rows, columns, from shared memory)
+FMA_FEED_TILES = ((0, 8, 8, False), (1, 4, 4, True), (2, 4, 8, True),
+                  (3, 8, 8, True))
+
+
+def fma_feed_probe(iters=4000):
+    """One-off, not a phase of the smoke: the fp32 FMA rate of a register
+    tile fed from shared memory, the measurement behind the register tiles
+    of K10's and K7's f32 bodies. The probe kernel (csrc/probes/
+    fma_feed_probe.cu, built here and by nothing else) runs one block of
+    256 threads an SM; each thread accumulates a rows x columns tile, a
+    step loading rows + columns 16-byte granules (K7's S pattern) for 4
+    rows columns FMAs, or none (operands in registers). Prints one [probe]
+    line per tile (TFLOP/s by CUDA events, the share of 67 TFLOP/s) and
+    returns them."""
+    probe = ctypes.CDLL(str(_build.build("fma_feed_probe",
+                                         _build.CSRC_DIR / "probes")))
+    probe.fma_feed_probe.argtypes = [ctypes.c_int, ctypes.c_void_p] + [
+        ctypes.c_int] * 2 + [ctypes.c_void_p]
+    from repro_torch.kernels._runtime import _ptr, _stream
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(sms * 256, device=dev)
+    print(_smi("name,power.limit"))
+    rates = {}
+    for kind, rows, cols, loads in FMA_FEED_TILES:
+        def run():
+            rc = probe.fma_feed_probe(kind, _ptr(out), iters, sms,
+                                      _stream(out))
+            if rc:
+                raise RuntimeError(f"fma feed probe: CUDA error {rc}")
+        ms = _time_ms(run, reps=5)
+        rate = 2.0 * sms * 256 * iters * 8 * rows * cols * 4 / ms / 1e9
+        key = (f"{rows}x{cols} tile, "
+               f"{'operands from shared memory' if loads else 'in registers'}")
+        rates[key] = rate
+        ratio = (f", {rows * cols / (rows + cols):.2f} FMAs a loaded value"
+                 if loads else "")
+        print(f"[probe] {key}{ratio}: {ms:.3f} ms, {rate:.1f} TFLOP/s "
+              f"({rate * 1e12 / FP32_PEAK:.1%} of 67)")
+    return rates
 
 
 def _serve_two_paths(cfg, params, first, second, device="cuda"):

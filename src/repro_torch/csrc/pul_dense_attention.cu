@@ -36,9 +36,29 @@
 //     rounding the f32 body does not have; l sums the rounded P, so O stays
 //     a convex combination of V rows. The chunk is 64 keys (32 at hd 256,
 //     for registers);
-//   * f32: flash_kernel, fp32 FMAs on the CUDA cores (no TF32): 64 rows over
-//     256 threads as a 16 x 16 grid, q and the chunk's probabilities in fp32
-//     shared memory, the accumulator in registers, chunks of 32 keys.
+//   * f32: flash_kernel, fp32 FMAs on the CUDA cores (no TF32: the smoke's
+//     3e-4 and the reference's f32 tolerance are tighter). Bound by the FMA
+//     pipes (67 TFLOP/s: 2 hd FMAs a visible pair, 0.128 ms for the smoke's
+//     f32 case). What takes it below that: the data shared memory hands each
+//     lane (a value loaded from shared memory costs about as much SM time
+//     as an FFMA: see pul_matmul.cu), the exponents and shuffles between the
+//     two products, and, for causal rows, blocks of very different lengths. A
+//     block is 128 rows (64 at hd 256), a chunk 32 keys, and each warp owns
+//     an eighth of the rows: their S = Q K^T in 4 x 4 lane tiles (q and K
+//     read four dims at a time from rows padded by a granule: 8 bank
+//     groups), the online softmax in base-2 units (the scale times
+//     log2 e folded into each logit, one ex2 a logit, as in the bf16 body),
+//     P handed to O += P V through the warp's own shared memory, transposed
+//     (a __syncwarp, no block barrier), O in 8 x 8 lane tiles at hd >= 112
+//     (64 FMAs per 4 LDS.128), rescaled only where a row's maximum moved.
+//     One block barrier a chunk: its arrival, which also frees the slot the
+//     next preload refills (a second only under BATCH with slots == d). q
+//     (67.6 KB at hd 128, copied by cp.async with the first chunk) and the
+//     ring leave one block an SM (attention_ring_plan: 4 slots). The grid is
+//     1D, so that blocks start in the order of its index: the heaviest row
+//     tiles of every (kv head, b) first (a 3D grid starts (tile, 0, 0) for
+//     every tile before (0, 1, 0), and the longest causal tiles of the last
+//     heads then run alone at the end).
 // K6 (decode_split_kernel, decode_merge_kernel) does its few flops per byte
 // as fp32 FMAs on the CUDA cores in both types.
 //
@@ -101,7 +121,9 @@
 //     max(sum(l 2^(m - M)), 1e-30). Keys past S are the stream's zero rows
 //     (a zero logit before the mask, no value) and are not copied.
 //
-// K7 visits query tiles heaviest first (the causal diagonal's far end).
+// K7 visits query tiles heaviest first (the causal diagonal's far end):
+// within each (kv head, b) in the bf16 body, over all of them in the f32
+// body.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,7 +142,6 @@ using namespace pul;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGranule = 16;
-constexpr int kRows = 64;        // K7 f32: query rows of one block
 constexpr int kTcRows = 128;     // K7 bf16: query rows of one block
 constexpr int kMaxG = 16;        // K6: query heads of one kv head
 constexpr float kLog2e = 1.4426950408889634f;
@@ -155,9 +176,9 @@ struct Ring {
   static constexpr int kElems = 2 * BC * kRowStride;
 };
 
-// the chunk of K7's f32 body: 32 f32 keys
-template <typename T, int HD>
-using Chunk = Ring<T, HD, sizeof(T) == 2 ? 64 : 32>;
+// the chunk of K7's f32 body: 32 keys
+template <int HD>
+using F32Chunk = Ring<float, HD, 32>;
 // the chunk of K7's bf16 body: 64 keys, 32 at hd 256 (registers)
 template <int HD>
 using TcChunk = Ring<bf16, HD, HD == 256 ? 32 : 64>;
@@ -181,14 +202,6 @@ __device__ __forceinline__ void load16(const T* p, float* out) {
       out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x) {
-  if constexpr (std::is_same<T, float>::value)
-    return x;
-  else
-    return __bfloat162float(x);
 }
 
 template <typename T>
@@ -491,153 +504,264 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tc_kernel(Params p) {
 }
 
 // -------------------------------------------------------- K7, f32 body
-// Block (row tile, kv head, b): the flattened rows [row0, row0 + 64) of the
-// T G (position, head) rows of kv head kvh. Thread (ty, tx) of a 16 x 16
-// grid owns rows ty + 16 u (u < 4): their logits at keys tx + 16 v of each
-// chunk, and their accumulator granules tx + 16 w (of the row's HD / EPV).
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) flash_kernel(Params p) {
-  using C = Chunk<T, HD>;
-  constexpr int BC = C::kBC, EPV = C::kEpv, RS = C::kRowStride;
-  constexpr int NV = BC / 16;                // logit columns per thread
-  constexpr int GR = HD / EPV;               // granules of a row
-  constexpr int NW = (GR + 15) / 16;         // accumulator granules per thread
+// F32Tile<HD>: block (row tile, kv head, b) holds the flattened rows [row0,
+// row0 + BR) of the T G (position, head) rows of kv head kvh, BR = 128 (64
+// at hd 256, for shared memory), and warp w owns rows [w WR, w WR + WR) of
+// them, WR = BR / 8: their logits, softmax state and accumulator. Two
+// register tilings of a warp's lanes, one a phase:
+//   * S = Q K^T: lane (rg, kg) = (l / 8, l % 8) holds rows rg + 4 i (i < TR
+//     = WR / 4) at keys kg + 8 j (j < 4) of the chunk, so a row's max is
+//     shuffles over 8 lanes; each 4-wide step of hd loads TR + 4 granules
+//     (q rows, K rows: 8 bank groups) for 16 TR FMAs;
+//   * O += P V: lane (og_r, og_d) = (l / DG, l % DG) holds TRO rows (4 og_r
+//     + 4 RGW s + ii) x TDO dims (4 og_d + DSTEP s + jj), 8 x 8 at hd 128
+//     (RGW = 2 row groups, DG = 16 dim groups); each key loads TRO / 4
+//     granules of P^T and TDO / 4 of V for TRO TDO FMAs.
+// P (transposed, a key's probabilities of the warp's rows, rows padded so
+// that the S lanes' stores hit 32 banks) and each row's corr = 2^(m_old -
+// m_new) go from one tiling to the other through the warp's own shared
+// memory: a __syncwarp, no block barrier.
+template <int HD>
+struct F32Tile {
+  static constexpr int kBR = HD == 256 ? 64 : 128;
+  static constexpr int kBC = F32Chunk<HD>::kBC;
+  static constexpr int kWR = kBR / kWarps;
+  static constexpr int kTR = kWR / 4;
+  static constexpr int kTDO = HD >= 112 ? 8 : 4;
+  static constexpr int kDG = HD / kTDO;
+  static constexpr int kRGW = 32 / kDG < kWR / 4 ? 32 / kDG : kWR / 4;
+  static constexpr int kTRO = kWR / kRGW;
+  static constexpr int kDStep = HD / (kTDO / 4);
+  static constexpr int kQS = HD + 4;   // q row stride, floats
+  static constexpr int kPS = kWR + 4;  // a warp's P^T row stride, floats
+  // fp32 values beside the ring: q, each warp's P^T and corr, each row's l
+  static constexpr int kWarpAux = kBC * kPS + kWR;
+  static constexpr int kAux = kBR * kQS + kWarps * kWarpAux + kBR;
+  static_assert(kRGW * kDG <= 32 && kTR >= 1 && kTRO % 4 == 0 &&
+                    kBC == 32 && HD % 4 == 0,
+                "one O tile a lane, 8 lanes a row in S");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) flash_kernel(Params p) {
+  using F = F32Tile<HD>;
+  using C = F32Chunk<HD>;
+  constexpr int BR = F::kBR, BC = F::kBC, RS = C::kRowStride;
+  constexpr int QS = F::kQS, PS = F::kPS, TR = F::kTR, WR = F::kWR;
+  constexpr int TRO = F::kTRO, TDO = F::kTDO, DG = F::kDG, RGW = F::kRGW;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ring = reinterpret_cast<T*>(smem);
-  float* q_s = reinterpret_cast<float*>(smem + (size_t)p.slots * C::kElems * sizeof(T));
-  float* p_s = q_s + kRows * HD;             // (64, BC) probabilities
+  float* ring = reinterpret_cast<float*>(smem);
+  float* q_s = ring + (size_t)p.slots * C::kElems;  // (BR, QS)
+  float* l_s = q_s + BR * QS;                       // (BR)
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
+  // a 1D grid, the heaviest row tiles (the causal diagonal's far end) of
+  // every (kv head, b) dispatched first: blocks start in index order
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = p.G, T_ = p.T, H = p.K * G;
-  const int row0 = qt * kRows, off = p.S - T_;
+  const int tiles = (T_ * G + BR - 1) / BR, heads = gridDim.x / tiles;
+  const int qt = tiles - 1 - (int)blockIdx.x / heads;
+  const int kvh = (int)blockIdx.x % p.K, b = (int)blockIdx.x % heads / p.K;
+  const int row0 = qt * BR, off = p.S - T_;
+  // this warp's P^T (BC, PS) and corr (WR)
+  float* pt_w = l_s + BR + warp * F::kWarpAux;
+  float* corr_w = pt_w + BC * PS;
 
-  // q tile to fp32 shared memory (rows past T G are zero and never stored)
-  const T* q = static_cast<const T*>(p.q);
-  for (int e = tid; e < kRows * HD; e += kThreads) {
-    const int r = e / HD, dd = e - r * HD;
+  // q rows to shared memory by cp.async, a group before the ring's; rows
+  // past T G are zero and never stored
+  const float* q = static_cast<const float*>(p.q);
+  constexpr int GPR = HD / 4;  // granules of a row
+  for (int e = tid; e < BR * GPR; e += kThreads) {
+    const int r = e / GPR, gi = e - r * GPR;
     const int gr = row0 + r, t = gr / G, g = gr - t * G;
-    q_s[e] = t < T_ ? to_f32(q[(((size_t)b * H + kvh * G + g) * T_ + t) * HD + dd])
-                    : 0.f;
+    const bool ok = t < T_;
+    cp_async16_zfill(
+        q_s + r * QS + gi * 4,
+        q + (((size_t)b * H + kvh * G + (ok ? g : 0)) * T_ + (ok ? t : 0)) *
+                HD + gi * 4,
+        ok);
   }
+  cp_async_commit();
 
   const int t_first = row0 / G;
-  const int t_last = min(T_ - 1, (row0 + kRows - 1) / G);
+  const int t_last = min(T_ - 1, (row0 + BR - 1) / G);
   const KeyRange kr = key_range(p, t_first, t_last, BC);
 
-  int iq[4];
-  float m[4], l[4], acc[4][NW * EPV];
+  // S roles: rows wrow + rg + 4 i, keys kg + 8 j; m per row, l this lane's
+  // part of it
+  const int wrow = warp * WR, rg = lane / 8, kg = lane % 8;
+  int iq[TR];
+  float m[TR], l[TR];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    iq[u] = (row0 + ty + 16 * u) / G + off;
-    m[u] = kNegInf;
-    l[u] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NW * EPV; ++c) acc[u][c] = 0.f;
+  for (int r = 0; r < TR; ++r) {
+    iq[r] = (row0 + wrow + rg + 4 * r) / G + off;
+    m[r] = kNegInf;
+    l[r] = 0.f;
   }
+  // O roles: rows wrow + 4 og_r + 4 RGW s + ii, dims 4 og_d + DSTEP s + jj
+  const int og_r = lane / DG, og_d = lane - og_r * DG;
+  const bool o_active = og_r < RGW;
+  const int orow = 4 * og_r, odim = 4 * og_d;
+  float o[TRO][TDO];
+#pragma unroll
+  for (int u = 0; u < TRO; ++u)
+#pragma unroll
+    for (int v = 0; v < TDO; ++v) o[u][v] = 0.f;
 
+  const float scale2 = p.scale * kLog2e;
   const size_t head = ((size_t)b * p.K + kvh) * p.S * HD;
-  const T* kh = static_cast<const T*>(p.k) + head;
-  const T* vh = static_cast<const T*>(p.v) + head;
-  __syncthreads();  // q_s complete
+  const float* kh = static_cast<const float*>(p.k) + head;
+  const float* vh = static_cast<const float*>(p.v) + head;
 
-  stream_chunks<C>(p, ring, kh, vh, kr.c0, kr.c1 - kr.c0,
-                   [&](const T* slot, int c) {
-    const T* sk = slot;
-    const T* sv = slot + BC * RS;
-    float s[4][NV];
+  // the PUL loop over chunks [c0, c1): chunk c0 + i in slot i % slots,
+  // `distance` chunks in flight, one block barrier a chunk: its arrival,
+  // which also frees the slot SEQUENTIAL refills (BATCH needs a second
+  // only where slots == d)
+  const int n = kr.c1 - kr.c0, d = p.distance;
+  const bool seq = p.sequential, tail = !seq && p.slots == d;
+  auto issue = [&](int i) {
+    if (i < n)
+      copy_chunk<C>(ring + (size_t)(i % p.slots) * C::kElems, kh, vh,
+                    kr.c0 + i, p.S);
+    cp_async_commit();
+  };
+  for (int i = 0; i < d; ++i) issue(i);
+  for (int i = 0; i < n; ++i) {
+    const int c = kr.c0 + i;
+    cp_async_wait_dyn(d - 1);
+    __syncthreads();  // chunk i (and q_s) visible; chunk i - 1 consumed
+    if (seq) issue(i + d);  // PL[i + d] -> compute[i]
+    const float* sk = ring + (size_t)(i % p.slots) * C::kElems;
+    const float* sv = sk + BC * RS;
+
+    // S = Q K^T over the chunk, four dims at a time
+    float s[TR][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
+    for (int r = 0; r < TR; ++r)
 #pragma unroll
-      for (int v = 0; v < NV; ++v) s[u][v] = 0.f;
-    for (int d0 = 0; d0 < HD; d0 += EPV) {
-      float kf[NV][EPV], qf[4][EPV];
+      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
 #pragma unroll
-      for (int v = 0; v < NV; ++v) load16<T>(sk + (tx + 16 * v) * RS + d0, kf[v]);
+    for (int d0 = 0; d0 < HD; d0 += 4) {
+      float qf[TR][4], kf[4][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int r = 0; r < TR; ++r)
+        load16<float>(q_s + (wrow + rg + 4 * r) * QS + d0, qf[r]);
 #pragma unroll
-        for (int e = 0; e < EPV; e += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(
-              q_s + (ty + 16 * u) * HD + d0 + e);
-          qf[u][e] = x.x;
-          qf[u][e + 1] = x.y;
-          qf[u][e + 2] = x.z;
-          qf[u][e + 3] = x.w;
+      for (int j = 0; j < 4; ++j)
+        load16<float>(sk + (kg + 8 * j) * RS + d0, kf[j]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[r][j] = fmaf(qf[r][e], kf[j][e], s[r][j]);
+    }
+    // logits in base-2 units (times log2 e, so that exp is one ex2):
+    // scale, softcap, then the mask where the chunk is not whole
+    const bool whole = c * BC >= kr.full_lo && c * BC + BC <= kr.full_hi;
+    auto logits = [&](auto capped) {
+#pragma unroll
+      for (int r = 0; r < TR; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x;
+          if constexpr (decltype(capped)::value)
+            x = cap(s[r][j] * p.scale, p.softcap) * kLog2e;
+          else
+            x = s[r][j] * scale2;
+          if (!whole) {
+            const int jk = c * BC + kg + 8 * j;
+            x = masked(x, jk, visible(p, jk, iq[r]), p.s_pad);
+          }
+          s[r][j] = x;
         }
+    };
+    if (p.softcap > 0.f)
+      logits(std::true_type{});
+    else
+      logits(std::false_type{});
+    // the online max; P = 2^(S - m) and corr to the warp's shared memory
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+    for (int r = 0; r < TR; ++r) {
+      float mx = fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3]));
 #pragma unroll
-        for (int v = 0; v < NV; ++v)
+      for (int o2 = 1; o2 < 8; o2 <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      const float new_m = fmaxf(m[r], mx);
+      const float corr = fast_exp2(m[r] - new_m);
+      m[r] = new_m;
+      l[r] *= corr;
 #pragma unroll
-          for (int e = 0; e < EPV; ++e) s[u][v] = fmaf(qf[u][e], kf[v][e], s[u][v]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float bmax = -INFINITY;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const int jk = c * BC + tx + 16 * v;
-        s[u][v] = masked(cap(s[u][v] * p.scale, p.softcap), jk,
-                         visible(p, jk, iq[u]), p.s_pad);
-        bmax = fmaxf(bmax, s[u][v]);
+      for (int j = 0; j < 4; ++j) {
+        const float pj = fast_exp2(s[r][j] - new_m);
+        l[r] += pj;
+        pt_w[(kg + 8 * j) * PS + rg + 4 * r] = pj;
       }
-      // the 16 threads of a row are one half warp
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        bmax = fmaxf(bmax, __shfl_xor_sync(0xffffffffu, bmax, o));
-      const float new_m = fmaxf(m[u], bmax);
-      const float corr = expf(m[u] - new_m);
-      float sum = 0.f;
-#pragma unroll
-      for (int v = 0; v < NV; ++v) {
-        const float pj = expf(s[u][v] - new_m);
-        p_s[(ty + 16 * u) * BC + tx + 16 * v] = pj;
-        sum += pj;
-      }
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      m[u] = new_m;
-      l[u] = l[u] * corr + sum;
-#pragma unroll
-      for (int c2 = 0; c2 < NW * EPV; ++c2) acc[u][c2] *= corr;
+      if (kg == 0) corr_w[rg + 4 * r] = corr;
     }
-    __syncthreads();  // p_s complete
-#pragma unroll 2
-    for (int j = 0; j < BC; ++j) {
-      float pj[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) pj[u] = p_s[(ty + 16 * u) * BC + j];
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        if (tx + 16 * w >= GR) continue;
-        float vf[EPV];
-        load16<T>(sv + j * RS + (tx + 16 * w) * EPV, vf);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-#pragma unroll
-          for (int e = 0; e < EPV; ++e)
-            acc[u][w * EPV + e] = fmaf(pj[u], vf[e], acc[u][w * EPV + e]);
-      }
-    }
-  });
+    __syncwarp();
 
-  T* out = static_cast<T*>(p.out);
+    // O = O corr + P V over the warp's rows
+    if (o_active) {
+      float cr[TRO];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int gr = row0 + ty + 16 * u, t = gr / G, g = gr - t * G;
-    if (t >= T_) continue;
-    const float inv = 1.f / fmaxf(l[u], 1e-30f);
-    T* orow = out + (((size_t)b * H + kvh * G + g) * T_ + t) * HD;
+      for (int s4 = 0; s4 < TRO / 4; ++s4)
+        load16<float>(corr_w + 4 * RGW * s4 + orow, cr + 4 * s4);
+      bool moved = false;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      if (tx + 16 * w >= GR) continue;
+      for (int u = 0; u < TRO; ++u) moved = moved || cr[u] != 1.f;
+      if (moved) {
 #pragma unroll
-      for (int e = 0; e < EPV; ++e)
-        orow[(tx + 16 * w) * EPV + e] = from_f32<T>(acc[u][w * EPV + e] * inv);
+        for (int u = 0; u < TRO; ++u)
+#pragma unroll
+          for (int v = 0; v < TDO; ++v) o[u][v] *= cr[u];
+      }
+#pragma unroll
+      for (int key = 0; key < BC; ++key) {
+        float pv[TRO], vv[TDO];
+#pragma unroll
+        for (int s4 = 0; s4 < TRO / 4; ++s4)
+          load16<float>(pt_w + key * PS + 4 * RGW * s4 + orow, pv + 4 * s4);
+#pragma unroll
+        for (int s4 = 0; s4 < TDO / 4; ++s4)
+          load16<float>(sv + key * RS + F::kDStep * s4 + odim, vv + 4 * s4);
+#pragma unroll
+        for (int u = 0; u < TRO; ++u)
+#pragma unroll
+          for (int v = 0; v < TDO; ++v) o[u][v] = fmaf(pv[u], vv[v], o[u][v]);
+      }
     }
+    if (!seq) {
+      if (tail) __syncthreads();  // slots == d: chunk i + d refills i's slot
+      issue(i + d);
+    }
+  }
+  cp_async_wait<0>();
+
+  // each row's l: the sum of its 8 lanes' parts
+#pragma unroll
+  for (int r = 0; r < TR; ++r) {
+    float lr = l[r];
+#pragma unroll
+    for (int o2 = 1; o2 < 8; o2 <<= 1)
+      lr += __shfl_xor_sync(0xffffffffu, lr, o2);
+    if (kg == 0) l_s[wrow + rg + 4 * r] = lr;
+  }
+  __syncwarp();
+  if (!o_active) return;
+  float* out = static_cast<float*>(p.out);
+#pragma unroll
+  for (int u = 0; u < TRO; ++u) {
+    const int r = wrow + 4 * RGW * (u / 4) + orow + u % 4;
+    const int gr = row0 + r, t = gr / G, g = gr - t * G;
+    if (t >= T_) continue;
+    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
+    float* orow_p = out + (((size_t)b * H + kvh * G + g) * T_ + t) * HD;
+#pragma unroll
+    for (int s4 = 0; s4 < TDO / 4; ++s4)
+      *reinterpret_cast<float4*>(orow_p + F::kDStep * s4 + odim) =
+          make_float4(o[u][4 * s4] * inv, o[u][4 * s4 + 1] * inv,
+                      o[u][4 * s4 + 2] * inv, o[u][4 * s4 + 3] * inv);
   }
 }
 
@@ -1127,14 +1251,27 @@ int launch_flash_tc(const Params& p, int B, int smem_bytes, cudaStream_t s) {
 
 template <int HD>
 int launch_flash_f32(const Params& p, int B, int smem_bytes, cudaStream_t s) {
-  static const cudaError_t attr = allow_full_smem(flash_kernel<float, HD>);
+  static const cudaError_t attr = allow_full_smem(flash_kernel<HD>);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  using C = Chunk<float, HD>;
-  if (smem_bytes < p.slots * C::kElems * 4 + (kRows * HD + kRows * C::kBC) * 4)
+  if (smem_bytes < (p.slots * F32Chunk<HD>::kElems + F32Tile<HD>::kAux) * 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((p.T * p.G + kRows - 1) / kRows, p.K, B);
-  flash_kernel<float, HD><<<grid, kThreads, smem_bytes, s>>>(p);
+  constexpr int BR = F32Tile<HD>::kBR;
+  const long long grid = (long long)((p.T * p.G + BR - 1) / BR) * p.K * B;
+  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_kernel<HD><<<(unsigned)grid, kThreads, smem_bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// blocks of K7's f32 body one SM holds at this dynamic shared memory;
+// negative: minus a CUDA error
+template <int HD>
+int flash_f32_blocks(int smem_bytes) {
+  static const cudaError_t attr = allow_full_smem(flash_kernel<HD>);
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, flash_kernel<HD>, kThreads, smem_bytes);
+  return rc == cudaSuccess ? n : -static_cast<int>(rc);
 }
 
 template <int HD>
@@ -1337,6 +1474,20 @@ int pul_dense_attention_blocks_per_sm(int hd, int dtype, int G,
   DecodeParams p = {};
   p.G = G;
   return decode_for_hd(p, 0, 1, hd, dtype, smem_bytes, nullptr);
+}
+
+// Blocks of K7's f32 body at head dim hd one SM holds at this dynamic
+// shared memory; negative: minus a CUDA error.
+int pul_flash_attention_blocks_per_sm(int hd, int smem_bytes) {
+  switch (hd) {
+    case 16: return flash_f32_blocks<16>(smem_bytes);
+    case 32: return flash_f32_blocks<32>(smem_bytes);
+    case 64: return flash_f32_blocks<64>(smem_bytes);
+    case 112: return flash_f32_blocks<112>(smem_bytes);
+    case 128: return flash_f32_blocks<128>(smem_bytes);
+    case 256: return flash_f32_blocks<256>(smem_bytes);
+  }
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

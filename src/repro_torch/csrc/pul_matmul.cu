@@ -58,18 +58,49 @@
 //     run in parallel, and the stores of one overlap the work of others.
 //
 // The CUDA-core body (matmul_kernel), for f32 (whose reference tolerance,
-// rtol 2e-5, TF32's 10-bit mantissa does not admit) and bm = 32:
-//   * the block tile is the TPU's output tile, bm x bn = (16 TM) x (16 TN);
-//     256 threads as a 16 x 16 grid, thread (ty, tx) accumulating the TM x TN
-//     outputs (ty + 16 u, tx + 16 v) in fp32 registers, every multiply-add
-//     an fp32 FMA (bf16 inputs widened as they are read);
-//   * the ring (pul_ring.cuh): each stream position is one chunk of K, bkc
-//     columns of the A tile and bkc rows of the B tile, copied by 16-byte
-//     cp.async into slot t % slots, `distance` chunks ahead; BATCH issues
-//     chunk t + d after chunk t is consumed, SEQUENTIAL before (slots >=
-//     d + 1). The host's matmul_ring_plan picks bkc, a divisor of bk, so
-//     that the slots PULConfig asks for fit (bkc = 16 at the default
-//     (128, 128, 128) f32 tiles: 8 slots of 16 KB at d = 4).
+// rtol 2e-5, TF32's 10-bit mantissa does not admit; no TF32, no split-TF32)
+// and bf16 at bm = 32. Every multiply-add is an fp32 FMA, so the bound is
+// the 67 TFLOP/s of the FMA pipes. What takes it below that on this card
+// is the data shared memory hands each lane: a value loaded from shared
+// memory costs about as much SM time as an FFMA (chip_smoke.fma_feed_probe:
+// a 4 x 4 register tile, 2 FMAs a loaded value, runs at 59 % of the peak,
+// an 8 x 8 tile, 4 FMAs a value, at 74 %), and the copies into the ring
+// draw on the same pipe. What the design does about it:
+//   * register tiles (FmaTile): a thread accumulates a TM x TN tile of C,
+//     (TM / 4) x (TN / 4) sub-tiles of 4 x 4, TM, TN = 8 where bm, bn = 128
+//     and 4 below; a warp is 8 x 4 lanes, so its tile is 8 TM x 4 TN (64 x
+//     32 at the default 128 x 128 block, whose 256 threads are 2 x 4
+//     warps). A K step loads TM / 4 granules of A and TN / 4 of B, 16 bytes
+//     each, for TM TN FMAs: 64 FMAs per 4 LDS.128 at 8 x 8;
+//   * A is K-major in shared memory: the ring copies it 4 bytes at a time
+//     (cp.async.ca, one f32 or two bf16 K values) into row k of bm words,
+//     padded by one 16-byte granule, so a thread's 4 rows are one granule,
+//     the 8 lanes of a warp that read different rows read 8 contiguous
+//     granules, and the copy's 8 words (K) x 4 rows a warp hit 32 banks. B
+//     stays (K, N) row-major, read as 4 contiguous columns. bf16 is widened
+//     as it is read (a shift). (A row-major A read four K at a time, with
+//     16-byte copies, measured slower: its 32 registers of A fragment);
+//   * the K loop over a ring position is kFmaChunk = 16 deep at compile
+//     time and unrolled, so the compiler loads step k + 1's fragments while
+//     step k's FMAs issue;
+//   * the ring (pul_ring.cuh) stays explicit: each stream position is one
+//     16-deep chunk of K, the (bm, 16) A tile and the (16, bn) B tile, in
+//     slot t % slots, `distance` chunks ahead. BATCH issues chunk t + d
+//     after computing chunk t, SEQUENTIAL before (after chunk t's arrival
+//     barrier, so one barrier a chunk covers both the arrival and the slot
+//     it refills: slots >= d + 1); BATCH with slots == d adds the barrier
+//     that frees chunk t's own slot. The host's matmul_ring_plan takes d and
+//     slots from PULConfig (8 slots of 24,832 B at the default d = 4 and
+//     tiles);
+//   * two output tiles a block where they pair up: at 128 x 128 f32 with N
+//     a multiple of 256 (the default tiles), a block takes two tiles side
+//     by side, 8 x 16 thread tiles (64 x 64 warp tiles): each A chunk, the
+//     dear 4-byte copies, serves twice the FMAs, and a K step loads 2 + 4
+//     granules for 128 FMAs. The 2048^3 product is then 128 blocks, one
+//     wave on 132 SMs;
+//   * one 256-thread block an SM: a thread's 64 or 128 accumulators take
+//     160 registers or more. Two blocks an SM (128 registers, a ring in
+//     half the SM's shared memory) spilled and ran no faster.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,56 +115,117 @@ namespace {
 
 using namespace pul;
 
-constexpr int kThreads = 256;
 constexpr int kGranule = 16;
+// K values of one ring position of the CUDA-core body: the compile-time
+// depth of its unrolled K loop (the host's FMA_CHUNK)
+constexpr int kFmaChunk = 16;
 
 struct Params {
   const void* a;  // (M, K) row-major
   const void* b;  // (K, N) row-major
   void* c;        // (M, N) row-major, f32 or bf16 (out_bf16)
   int M, N, K;
-  int bkc;        // K columns of one stream position
   int distance, slots, sequential, out_bf16;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x) {
-  if constexpr (std::is_same<T, float>::value)
-    return x;
-  else
-    return __bfloat162float(x);
+// 4 bytes global -> shared (cp.async takes copies under 16 bytes only
+// through L1, .ca)
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
 }
 
-template <typename T, int TM, int TN>
-__global__ void __launch_bounds__(kThreads) matmul_kernel(Params p) {
-  constexpr int BM = 16 * TM, BN = 16 * TN;
+// The CUDA-core body's tiles at a (BM, BN) block: thread tile TM x TN,
+// (TM / 4) x (TN / 4) sub-tiles of 4 x 4; warp tile 8 TM x 4 TN (8 x 4
+// lanes); WC warps along N (the host's matmul_fma_tiles). BN = 256 is two
+// 128 x 128 output tiles side by side (fma_block_n)
+template <int BM, int BN>
+struct FmaTile {
+  static constexpr int kTM = BM == 128 ? 8 : 4;
+  static constexpr int kTN = BN == 256 ? 16 : BN == 128 ? 8 : 4;
+  static constexpr int kWM = 8 * kTM;
+  static constexpr int kWN = 4 * kTN;
+  static constexpr int kWC = BN / kWN;
+  static constexpr int kThreads = 32 * (BM / kWM) * kWC;
+};
+
+// the K values of one 4-byte word of A (one f32, or two bf16), widened (a
+// bf16 is the high half of its fp32: widening is a shift, exactly)
+template <typename T>
+__device__ __forceinline__ void unpack_word(uint32_t w, float* out) {
+  if constexpr (std::is_same<T, float>::value) {
+    out[0] = __uint_as_float(w);
+  } else {
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
+  }
+}
+
+// four contiguous B values at smem p (16 bytes f32, 8 bf16), widened
+template <typename T>
+__device__ __forceinline__ void load_b4(const T* p, float* out) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x;
+    out[1] = x.y;
+    out[2] = x.z;
+    out[3] = x.w;
+  } else {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    unpack_word<T>(x.x, out);
+    unpack_word<T>(x.y, out + 2);
+  }
+}
+
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(FmaTile<BM, BN>::kThreads, 1)
+    matmul_kernel(Params p) {
+  using F = FmaTile<BM, BN>;
+  constexpr int NT = F::kThreads, TM = F::kTM, TN = F::kTN, KC = kFmaChunk;
+  constexpr int P = 4 / (int)sizeof(T);   // K values of an A word
+  constexpr int KW = KC / P;              // A words of a row of the chunk
+  constexpr int PER = kGranule / (int)sizeof(T);
+  constexpr int GB = BN / PER;            // granules of a B chunk row
+  constexpr int AS = BM + 4;              // words of a row of A^T (padded)
+  constexpr int NW = NT / 32;
+  constexpr int A_BYTES = KW * AS * 4;
+  constexpr int SLOT_BYTES = A_BYTES + BN * KC * (int)sizeof(T);
+  static_assert(BM % (4 * NW) == 0 && KW % 8 == 0,
+                "the A copies of a chunk are whole rounds of the block");
   extern __shared__ __align__(16) unsigned char ring[];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int i = blockIdx.x, j = blockIdx.y;
-  const int bkc = p.bkc, nk = p.K / bkc;
-  const size_t slot_elems = (size_t)(BM + BN) * bkc;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // this thread's C tile: rows row0 + 32 s + ii, columns col0 + 16 t + jj
+  const int row0 = (warp / F::kWC) * F::kWM + (lane % 8) * 4;
+  const int col0 = (warp % F::kWC) * F::kWN + (lane / 8) * 4;
+  const int i = blockIdx.x, j = blockIdx.y, nk = p.K / KC;
   const T* A = static_cast<const T*>(p.a);
   const T* B = static_cast<const T*>(p.b);
-  // granules of one A chunk row (bkc values) and of one B chunk row (BN)
-  const int ga = bkc * (int)sizeof(T) / kGranule;
-  constexpr int gb = BN * (int)sizeof(T) / kGranule;
-  constexpr int per = kGranule / (int)sizeof(T);  // values per granule
+  // this thread's A copies: words (K) ak + 8 h of rows ar + 4 NW q, a warp
+  // 8 words of 4 rows (32 banks of A^T's padded rows)
+  const int ak = lane % 8, ar = 4 * warp + (lane / 8) % 4;
 
-  // PRELOAD of stream position t (K columns [t * bkc, +bkc)) into slot
-  // t % slots: the A chunk (BM, bkc), then the B chunk (bkc, BN)
+  // PRELOAD of stream position t (K [t KC, t KC + KC)) into slot t % slots:
+  // A transposed, then B
   auto issue = [&](int t) {
     if (t < nk) {
-      T* as = reinterpret_cast<T*>(ring) + (size_t)(t % p.slots) * slot_elems;
-      T* bs = as + (size_t)BM * bkc;
-      const T* a0 = A + (size_t)i * BM * p.K + (size_t)t * bkc;
-      for (int c = tid; c < BM * ga; c += kThreads) {
-        const int r = c / ga, g = c - r * ga;
-        cp_async16(as + r * bkc + g * per, a0 + (size_t)r * p.K + g * per);
-      }
-      const T* b0 = B + (size_t)t * bkc * p.N + (size_t)j * BN;
-      for (int c = tid; c < bkc * gb; c += kThreads) {
-        const int r = c / gb, g = c - r * gb;
-        cp_async16(bs + r * BN + g * per, b0 + (size_t)r * p.N + g * per);
+      unsigned char* slot = ring + (size_t)(t % p.slots) * SLOT_BYTES;
+      uint32_t* aw = reinterpret_cast<uint32_t*>(slot) + ak * AS + ar;
+      T* bs = reinterpret_cast<T*>(slot + A_BYTES);
+      const T* a0 = A + ((size_t)i * BM + ar) * p.K + (size_t)t * KC + ak * P;
+#pragma unroll
+      for (int h = 0; h < KW / 8; ++h)
+#pragma unroll
+        for (int q = 0; q < BM / (4 * NW); ++q)
+          cp_async4(aw + 8 * h * AS + 4 * NW * q,
+                    a0 + (size_t)(4 * NW * q) * p.K + 8 * h * P);
+      const T* b0 = B + (size_t)t * KC * p.N + (size_t)j * BN;
+#pragma unroll
+      for (int it = 0; it < (KC * GB + NT - 1) / NT; ++it) {
+        const int c = tid + it * NT, r = c / GB, g = c - r * GB;
+        if (c < KC * GB)
+          cp_async16(bs + r * BN + g * PER, b0 + (size_t)r * p.N + g * PER);
       }
     }
     cp_async_commit();
@@ -146,79 +238,128 @@ __global__ void __launch_bounds__(kThreads) matmul_kernel(Params p) {
     for (int v = 0; v < TN; ++v) acc[u][v] = 0.f;
 
   const int d = p.distance;
+  const bool seq = p.sequential, tail = !seq && p.slots == d;
   for (int t = 0; t < d; ++t) issue(t);
   for (int t = 0; t < nk; ++t) {
-    if (p.sequential) {
-      issue(t + d);  // PL[t + d] -> compute[t]; needs slots >= d + 1
-      cp_async_wait_dyn(d);
-    } else {
-      cp_async_wait_dyn(d - 1);
+    cp_async_wait_dyn(d - 1);
+    // chunk t visible to every thread, chunk t - 1 consumed by every thread
+    __syncthreads();
+    if (seq) issue(t + d);  // PL[t + d] -> compute[t], slots >= d + 1
+    const unsigned char* slot = ring + (size_t)(t % p.slots) * SLOT_BYTES;
+    const uint32_t* aw = reinterpret_cast<const uint32_t*>(slot);
+    const T* bs = reinterpret_cast<const T*>(slot + A_BYTES);
+#pragma unroll
+    for (int k = 0; k < KW; ++k) {
+      float a[TM][P];
+#pragma unroll
+      for (int s = 0; s < TM / 4; ++s) {
+        const uint4 w = *reinterpret_cast<const uint4*>(
+            aw + k * AS + row0 + 32 * s);
+        unpack_word<T>(w.x, a[4 * s]);
+        unpack_word<T>(w.y, a[4 * s + 1]);
+        unpack_word<T>(w.z, a[4 * s + 2]);
+        unpack_word<T>(w.w, a[4 * s + 3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < P; ++kk) {
+        float b[TN];
+#pragma unroll
+        for (int t4 = 0; t4 < TN / 4; ++t4)
+          load_b4<T>(bs + (k * P + kk) * BN + col0 + 16 * t4, b + 4 * t4);
+#pragma unroll
+        for (int u = 0; u < TM; ++u)
+#pragma unroll
+          for (int v = 0; v < TN; ++v)
+            acc[u][v] = fmaf(a[u][kk], b[v], acc[u][v]);
+      }
     }
-    __syncthreads();  // chunk t visible to every thread
-    const T* as = reinterpret_cast<const T*>(ring) +
-                  (size_t)(t % p.slots) * slot_elems;
-    const T* bs = as + (size_t)BM * bkc;
-    for (int kk = 0; kk < bkc; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int u = 0; u < TM; ++u) av[u] = to_f32(as[(ty + 16 * u) * bkc + kk]);
-#pragma unroll
-      for (int v = 0; v < TN; ++v) bv[v] = to_f32(bs[kk * BN + tx + 16 * v]);
-#pragma unroll
-      for (int u = 0; u < TM; ++u)
-#pragma unroll
-        for (int v = 0; v < TN; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+    if (!seq) {
+      if (tail) __syncthreads();  // slots == d: chunk t + d refills t's slot
+      issue(t + d);
     }
-    __syncthreads();  // chunk t consumed: its slot may be reissued
-    if (!p.sequential) issue(t + d);
   }
   cp_async_wait<0>();
 
 #pragma unroll
   for (int u = 0; u < TM; ++u) {
-    const size_t row = (size_t)i * BM + ty + 16 * u;
+    const size_t row = (size_t)i * BM + row0 + 32 * (u / 4) + u % 4;
 #pragma unroll
-    for (int v = 0; v < TN; ++v) {
-      const size_t at = row * p.N + (size_t)j * BN + tx + 16 * v;
-      if (p.out_bf16)
-        static_cast<bf16*>(p.c)[at] = __float2bfloat16_rn(acc[u][v]);
-      else
-        static_cast<float*>(p.c)[at] = acc[u][v];
+    for (int t4 = 0; t4 < TN / 4; ++t4) {
+      const size_t at = row * p.N + (size_t)j * BN + col0 + 16 * t4;
+      const float x0 = acc[u][4 * t4], x1 = acc[u][4 * t4 + 1];
+      const float x2 = acc[u][4 * t4 + 2], x3 = acc[u][4 * t4 + 3];
+      if (p.out_bf16) {
+        __nv_bfloat162* c2 =
+            reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.c) + at);
+        c2[0] = __floats2bfloat162_rn(x0, x1);
+        c2[1] = __floats2bfloat162_rn(x2, x3);
+      } else {
+        *reinterpret_cast<float4*>(static_cast<float*>(p.c) + at) =
+            make_float4(x0, x1, x2, x3);
+      }
     }
   }
 }
 
-template <typename T, int TM, int TN>
-int launch(const Params& p, int smem_bytes, cudaStream_t stream) {
+// the CUDA-core body at (T, BM, BN): launch it (launch 1) or count the
+// blocks an SM holds (launch 0; negative: minus a CUDA error)
+template <typename T, int BM, int BN>
+int fma_at(const Params& p, int launch, int smem_bytes, cudaStream_t stream) {
   // the opt-in to the full 227 KB, once per instantiation
   static const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_kernel<T, TM, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matmul_kernel<T, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       pul::kMaxSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(p.M / (16 * TM), p.N / (16 * TN));
-  matmul_kernel<T, TM, TN><<<grid, kThreads, smem_bytes, stream>>>(p);
+  if (attr != cudaSuccess)
+    return launch ? static_cast<int>(attr) : -static_cast<int>(attr);
+  constexpr int NT = FmaTile<BM, BN>::kThreads;
+  if (!launch) {
+    int n = 0;
+    const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, matmul_kernel<T, BM, BN>, NT, smem_bytes);
+    return rc == cudaSuccess ? n : -static_cast<int>(rc);
+  }
+  const dim3 grid(p.M / BM, p.N / BN);
+  matmul_kernel<T, BM, BN><<<grid, NT, smem_bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// TM, TN in {2, 4, 8}: bm, bn in {32, 64, 128}
-template <typename T, int TM>
-int launch_tn(const Params& p, int tn, int smem_bytes, cudaStream_t s) {
-  switch (tn) {
-    case 2: return launch<T, TM, 2>(p, smem_bytes, s);
-    case 4: return launch<T, TM, 4>(p, smem_bytes, s);
-    case 8: return launch<T, TM, 8>(p, smem_bytes, s);
+template <typename T, int BM>
+int fma_bn(const Params& p, int bn, int launch, int smem_bytes,
+           cudaStream_t s) {
+  switch (bn) {
+    case 32: return fma_at<T, BM, 32>(p, launch, smem_bytes, s);
+    case 64: return fma_at<T, BM, 64>(p, launch, smem_bytes, s);
+    case 128: return fma_at<T, BM, 128>(p, launch, smem_bytes, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename T>
-int launch_tm(const Params& p, int tm, int tn, int smem_bytes, cudaStream_t s) {
-  switch (tm) {
-    case 2: return launch_tn<T, 2>(p, tn, smem_bytes, s);
-    case 4: return launch_tn<T, 4>(p, tn, smem_bytes, s);
-    case 8: return launch_tn<T, 8>(p, tn, smem_bytes, s);
+// The columns of one block: two 128 x 128 f32 output tiles where N holds
+// whole pairs (each A chunk copied once for both: its 4-byte copies are the
+// dearest), else one output tile (the host's matmul_fma_block_n)
+int fma_block_n(int dtype, int bm, int bn, int N) {
+  return dtype == 0 && bm == 128 && bn == 128 && N % 256 == 0 ? 256 : bn;
+}
+
+// f32 at every tile; bf16 at bm = 32 (bm >= 64 takes the tensor cores);
+// block_n: fma_block_n
+int fma_for(const Params& p, int dtype, int bm, int block_n, int launch,
+            int smem_bytes, cudaStream_t s) {
+  if (dtype == 1 && bm == 32)
+    return fma_bn<bf16, 32>(p, block_n, launch, smem_bytes, s);
+  if (dtype == 0) {
+    switch (bm) {
+      case 32: return fma_bn<float, 32>(p, block_n, launch, smem_bytes, s);
+      case 64: return fma_bn<float, 64>(p, block_n, launch, smem_bytes, s);
+      case 128:
+        if (block_n == 256)
+          return fma_at<float, 128, 256>(p, launch, smem_bytes, s);
+        return fma_bn<float, 128>(p, block_n, launch, smem_bytes, s);
+    }
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------------- tensor-core body
@@ -381,23 +522,27 @@ int launch_wgmma_bn(const void* a, const void* b, const TcParams& p, int bn,
 extern "C" {
 
 // K10: c = a b for row-major a (M, K), b (K, N) of f32 (dtype 0) or bf16
-// (dtype 1), c f32 (out_bf16 0) or bf16 (1). Output tiles of (bm, bn) with
-// bm, bn in {32, 64, 128}; A and B stream along K in chunks of bk_chunk
-// columns, which divides K.
+// (dtype 1, bm = 32 only: bf16 at bm >= 64 is pul_matmul_wgmma's), c f32
+// (out_bf16 0) or bf16 (1). Output tiles of (bm, bn) with bm, bn in {32,
+// 64, 128}, a block taking fma_block_n columns (two tiles, at 128 x 128 f32
+// where N holds whole pairs); A and B stream along K in chunks of bk_chunk
+// = 16 columns (kFmaChunk), through `slots` ring slots of (bm + block_n +
+// 4) 16 values (A^T's rows padded by a granule).
 int pul_matmul(const void* a, const void* b, void* c, int M, int N, int K,
                int bm, int bn, int bk_chunk, int distance, int slots,
                int sequential, int dtype, int out_bf16, int smem_bytes,
                void* stream) {
   const int item = dtype == 0 ? 4 : 2;
   const bool tile_ok = (bm == 32 || bm == 64 || bm == 128) &&
-                       (bn == 32 || bn == 64 || bn == 128);
+                       (bn == 32 || bn == 64 || bn == 128) &&
+                       (dtype == 0 || bm == 32);
+  const int block_n = fma_block_n(dtype, bm, bn, N);
   if ((dtype != 0 && dtype != 1) || !tile_ok || M < 1 || N < 1 ||
-      bk_chunk < 1 || M % bm || N % bn || K % bk_chunk ||
-      (bk_chunk * item) % kGranule || (K * item) % kGranule ||
+      bk_chunk != kFmaChunk || M % bm || N % bn || K % kFmaChunk ||
       (N * item) % kGranule || N / bn > 65535 ||
       reinterpret_cast<uintptr_t>(a) % kGranule ||
       reinterpret_cast<uintptr_t>(b) % kGranule ||
-      (long long)slots * (bm + bn) * bk_chunk * item > smem_bytes ||
+      (long long)slots * (bm + block_n + 4) * kFmaChunk * item > smem_bytes ||
       !pul::ring_ok(distance, slots, sequential, smem_bytes))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
@@ -407,14 +552,20 @@ int pul_matmul(const void* a, const void* b, void* c, int M, int N, int K,
   p.M = M;
   p.N = N;
   p.K = K;
-  p.bkc = bk_chunk;
   p.distance = distance;
   p.slots = slots;
   p.sequential = sequential;
   p.out_bf16 = out_bf16;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_tm<float>(p, bm / 16, bn / 16, smem_bytes, s)
-                    : launch_tm<bf16>(p, bm / 16, bn / 16, smem_bytes, s);
+  return fma_for(p, dtype, bm, block_n, 1, smem_bytes,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of K10's CUDA-core body (bm rows, block_n columns: fma_block_n,
+// this input type) one SM holds at this dynamic shared memory; negative:
+// minus a CUDA error.
+int pul_matmul_blocks_per_sm(int bm, int block_n, int dtype, int smem_bytes) {
+  Params p = {};
+  return fma_for(p, dtype, bm, block_n, 0, smem_bytes, nullptr);
 }
 
 // K10's tensor-core body: c = a b for row-major bf16 a (M, K), b (K, N), c

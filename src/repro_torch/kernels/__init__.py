@@ -6,6 +6,7 @@ from repro_torch.kernels.pul_attention import (
     RingPlan,
     SplitPlan,
     attention_body,
+    attention_f32_tiles,
     attention_kernel_ref,
     attention_ring_plan,
     attention_tc_plan,
@@ -49,6 +50,8 @@ from repro_torch.kernels.pul_gather import (
 from repro_torch.kernels.pul_matmul import (
     MatmulPlan,
     matmul_body,
+    matmul_fma_block_n,
+    matmul_fma_tiles,
     matmul_ref,
     matmul_ring_plan,
     matmul_tc_plan,
@@ -66,6 +69,7 @@ __all__ = [
     "LAUNCHES", "NEG_INF", "SOURCES", "RingPlan", "mla_split_plan", "SplitPlan",
     "paged_split_plan", "paged_decode_split_ref", "paged_mla_decode_split_ref",
     "ref", "attention_ring_plan", "attention_tc_plan", "attention_body",
+    "attention_f32_tiles",
     "pul_attention", "attention_kernel_ref",
     "DecodePlan", "decode_ring_plan", "decode_pieces", "pul_decode_attention",
     "decode_attention_kernel_ref", "decode_attention_split_ref",
@@ -79,5 +83,6 @@ __all__ = [
     "FilterPlan", "filter_ring_plan", "pul_filter", "filter_ref",
     "filter_materialize_ref",
     "MatmulPlan", "matmul_ring_plan", "matmul_tc_plan", "matmul_body",
+    "matmul_fma_tiles", "matmul_fma_block_n",
     "pul_matmul", "matmul_ref",
 ]

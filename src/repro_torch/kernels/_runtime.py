@@ -48,11 +48,13 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "pul_filter": {"pul_filter": [_P, _P, _F] + [_I] * 15 + [_P],
                    "pul_filter_blocks_per_sm": [_I] * 3},
     "pul_matmul": {"pul_matmul": [_P] * 3 + [_I] * 12 + [_P],
-                   "pul_matmul_wgmma": [_P] * 3 + [_I] * 11 + [_P]},
+                   "pul_matmul_wgmma": [_P] * 3 + [_I] * 11 + [_P],
+                   "pul_matmul_blocks_per_sm": [_I] * 4},
     "pul_dense_attention": {
         "pul_flash_attention": [_P] * 4 + [_I] * 9 + [_F, _F] + [_I] * 5 + [_P],
         "pul_decode_attention": [_P] * 9 + [_I] * 6 + [_F, _F] + [_I] * 10 + [_P],
         "pul_dense_attention_blocks_per_sm": [_I] * 4,
+        "pul_flash_attention_blocks_per_sm": [_I] * 2,
     },
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -71,10 +73,12 @@ def lib(source: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _blocks_per_sm(source: str, *args: int) -> int:
+def _blocks_per_sm(source: str, *args: int,
+                   query: Optional[str] = None) -> int:
     """Blocks of ``source``'s kernel one SM holds at once, from the
-    library's ``<source>_blocks_per_sm`` occupancy query."""
-    n = getattr(lib(source), f"{source}_blocks_per_sm")(*args)
+    library's occupancy query ``query`` (by default
+    ``<source>_blocks_per_sm``)."""
+    n = getattr(lib(source), query or f"{source}_blocks_per_sm")(*args)
     if n < 1:
         raise RuntimeError(f"{source} occupancy query failed: {n}")
     return n

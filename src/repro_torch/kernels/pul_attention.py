@@ -75,11 +75,14 @@ DENSE_DTYPES = (torch.float32, torch.bfloat16)
 #: head dims the dense attention kernels K6/K7 are built for: every hd of the
 #: reference's tests and of the model zoo
 DENSE_HDS = (16, 32, 64, 112, 128, 256)
-#: query rows of one block of K7's f32 body (the source's kRows) and of its
-#: bf16 tensor-core body (kTcRows): flattened (position, head) pairs of one
-#: kv head's G heads
-Q_ROWS = 64
+#: query rows of one block of K7's f32 body (the source's F32Tile::kBR,
+#: halved at hd 256: :func:`attention_f32_tiles`) and of its bf16
+#: tensor-core body (kTcRows): flattened (position, head) pairs of one kv
+#: head's G heads
+Q_ROWS = 128
 TC_ROWS = 128
+#: the bodies of K7 (the ``body`` field of the smoke's rows)
+TC_BODY, F32_BODY = "mma.sync", "fma-tiled"
 #: query heads of one K3/K4 split block (the MLA source's kHeads): four m16
 #: tiles; head rows past H are zero and never written out
 MLA_HEADS = 64
@@ -189,15 +192,51 @@ def kv_slot_bytes(hd: int, itemsize: int) -> int:
     return 2 * kv_chunk_rows(itemsize) * (hd * itemsize + 16)
 
 
+@dataclasses.dataclass(frozen=True)
+class FlashTiles:
+    rows: int           # query rows of a block
+    s_thread: tuple     # (rows, keys) of S = Q K^T a lane holds
+    s_warp: tuple       # (rows, keys) of S a warp holds
+    o_thread: tuple     # (rows, dims) of O a lane holds
+    o_threads: int      # threads of the block that hold an O tile
+
+
+#: warps of a K7 f32 block (the source's kWarps), each owning an eighth of
+#: its rows
+F32_WARPS = 8
+
+
+def attention_f32_tiles(hd: int) -> FlashTiles:
+    """The register tiles of K7's f32 body at head dim hd (the source's
+    F32Tile): Q_ROWS rows a block (Q_ROWS / 2 at hd 256), an eighth of them
+    a warp (its S, softmax state and O); in S = Q K^T a lane holds
+    rows / 32 x 4 of a chunk's kv_chunk_rows(4) = 32 keys, in O += P V a
+    lane holds 8 x 8 (rows x dims) at hd >= 112, 8 x 4 at 64 and 4 x 4
+    below. At hd 128: 128 rows, S 4 x 4 a lane and 16 x 32 a warp, O 8 x 8
+    a lane on all 256 threads."""
+    rows = Q_ROWS // 2 if hd == 256 else Q_ROWS
+    keys, warp_rows = kv_chunk_rows(4), rows // F32_WARPS
+    tdo = 8 if hd >= 112 else 4
+    dg = hd // tdo
+    rgw = min(32 // dg, warp_rows // 4)
+    return FlashTiles(rows, (warp_rows // 4, keys // 8), (warp_rows, keys),
+                      (warp_rows // rgw, tdo), F32_WARPS * rgw * dg)
+
+
 def attention_ring_plan(cfg: PULConfig, *, hd: int = 128,
-                        itemsize: int = 2) -> RingPlan:
+                        itemsize: int = 4) -> RingPlan:
     """The ring of K7's f32 body: a slot holds one KV chunk
-    (:func:`kv_slot_bytes`); besides the ring a block keeps its Q_ROWS
-    query rows in fp32 and the chunk's (Q_ROWS, kv_chunk_rows)
-    probabilities; the accumulator is in registers. At hd = 128 and the
-    default d = 4 BATCH that is 5 slots (of the 8 PULConfig asks for),
-    223,232 B at itemsize 2 and 209,920 B f32."""
-    aux = (Q_ROWS * hd + Q_ROWS * kv_chunk_rows(itemsize)) * 4
+    (:func:`kv_slot_bytes`); besides the ring a block keeps, in fp32, its
+    query rows (:func:`attention_f32_tiles`) padded by a granule, each row's
+    sum, and each warp's probabilities of a chunk, transposed (keys x its
+    rows, padded by a granule), and its rows' rescale factors; the
+    accumulator is in registers. At hd = 128 that is 89,088 B beside 4
+    slots of 33,792 B f32, so the default d = 4 BATCH keeps 4 of the 8
+    slots PULConfig asks for and SEQUENTIAL runs at d = 3."""
+    rows = attention_f32_tiles(hd).rows
+    keys, warp_rows = kv_chunk_rows(4), rows // F32_WARPS
+    warp = keys * (warp_rows + 4) + warp_rows
+    aux = (rows * (hd + 4) + rows + F32_WARPS * warp) * 4
     return _plan(cfg, aux, kv_slot_bytes(hd, itemsize),
                  f"a {kv_chunk_rows(itemsize)}-key K and V chunk")
 
@@ -221,9 +260,10 @@ def attention_tc_plan(cfg: PULConfig, *, hd: int) -> RingPlan:
 
 
 def attention_body(dtype: torch.dtype) -> str:
-    """The K7 body that runs on the card for `dtype`: "mma.sync" (tensor
-    cores) for bf16, "fma" (CUDA cores) for f32."""
-    return "mma.sync" if dtype == torch.bfloat16 else "fma"
+    """The K7 body that runs on the card for `dtype`: TC_BODY (mma.sync,
+    tensor cores) for bf16, F32_BODY (register-tiled fp32 FMAs, CUDA cores)
+    for f32."""
+    return TC_BODY if dtype == torch.bfloat16 else F32_BODY
 
 
 # ---------------------------------------------------------------------- #
@@ -887,7 +927,7 @@ def pul_attention(q, k, v, *, cfg: PULConfig = PULConfig(), bt: int = 128,
     G = H // K
     _check_dense(q, k, v)
     s_pad = stream_length(S, bs)
-    tc = attention_body(q.dtype) == "mma.sync"
+    tc = attention_body(q.dtype) == TC_BODY
     plan = (attention_tc_plan(cfg, hd=hd) if tc else
             attention_ring_plan(cfg, hd=hd, itemsize=q.element_size()))
     out = torch.empty_like(q)

@@ -10,9 +10,12 @@ with two bodies that :func:`matmul_body` chooses from the arguments:
   * ``"wgmma"``: bf16 inputs with bm in (64, 128) and bn in (32, 64, 128).
     Tensor cores (wgmma, fp32 accumulate) fed by TMA through an mbarrier
     ring of K chunks, planned by :func:`matmul_tc_plan`.
-  * ``"fma"``: everything else (f32 inputs, bm = 32). fp32 FMAs on the CUDA
-    cores, no TF32; the ring streams chunks of K that
-    :func:`matmul_ring_plan` picks so the slots fit shared memory.
+  * ``"fma-tiled"``: everything else (f32 inputs, bm = 32). fp32 FMAs on
+    the CUDA cores, no TF32: register tiles of up to 8 x 16 outputs a
+    thread (:func:`matmul_fma_tiles`; two 128 x 128 output tiles a block
+    where they pair up, :func:`matmul_fma_block_n`), A transposed on its
+    way into shared memory, fed by a ring of 16-deep K chunks
+    (:func:`matmul_ring_plan`).
 
 The choice is a rule on the arguments, not a fallback: a build or launch
 failure of either body raises.
@@ -32,7 +35,6 @@ import torch
 from repro_torch.core.pul import CP_ASYNC_BYTES, IssueStrategy, PULConfig
 from repro_torch.kernels._runtime import (
     LAUNCHES,
-    SMEM_LIMIT_BYTES,
     _check,
     _plan,
     _ptr,
@@ -41,7 +43,7 @@ from repro_torch.kernels._runtime import (
     lib,
 )
 
-#: output tile sides the kernel is built for (16 x {2, 4, 8} per thread row)
+#: output tile sides the kernel is built for
 TILES = (32, 64, 128)
 #: input and output types the kernel takes
 DTYPES = (torch.float32, torch.bfloat16)
@@ -56,6 +58,11 @@ TC_CHUNKS = (64, 32, 16)
 TC_ALIGN = 1024
 #: the two mbarriers (full, empty) of one tensor-core ring slot
 TC_BARRIER_BYTES = 16
+#: K values of one ring position of the CUDA-core body (the source's
+#: kFmaChunk): the compile-time depth of its unrolled K loop
+FMA_CHUNK = 16
+#: the bodies of K10 (the ``body`` field of the smoke's rows)
+TC_BODY, FMA_BODY = "wgmma", "fma-tiled"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,35 +73,67 @@ class MatmulPlan:
     bk_chunk: int       # K columns of one ring position (divides bk)
 
 
+@dataclasses.dataclass(frozen=True)
+class FmaTiles:
+    thread: tuple       # (rows, cols) of C a thread accumulates
+    warp: tuple         # (rows, cols) of C a warp accumulates, 8 x 4 lanes
+    threads: int        # threads of a block
+
+
+def matmul_fma_block_n(dtype: torch.dtype, bm: int, bn: int, n: int) -> int:
+    """Columns of C one block of the CUDA-core body computes (the source's
+    fma_block_n): two 128 x 128 f32 output tiles side by side where N holds
+    whole pairs, so that each A chunk (copied 4 bytes at a time, to
+    transpose it) serves both; else one output tile."""
+    pair = dtype == torch.float32 and bm == bn == 128 and n % 256 == 0
+    return 2 * bn if pair else bn
+
+
+def matmul_fma_tiles(bm: int, block_n: int) -> FmaTiles:
+    """The CUDA-core body's tiles at a block of bm rows and block_n columns
+    (the source's FmaTile; block_n from :func:`matmul_fma_block_n`): a
+    thread accumulates TM x TN outputs, (TM / 4) x (TN / 4) sub-tiles of 4 x
+    4, TM = 8 at bm = 128 and 4 below, TN = 16 at 256 columns, 8 at 128 and
+    4 below; a warp's 8 x 4 lanes cover 8 TM x 4 TN, and the block has as
+    many warps as its tile holds: (8, 16), (64, 64) and 256 threads at the
+    default tiles' 128 x 256 block, (4, 4), (32, 16) and 64 threads at
+    32 x 32."""
+    if bm not in TILES or (block_n not in TILES
+                           and (bm, block_n) != (128, 256)):
+        raise ValueError(f"output tiles ({bm}, {block_n}): the kernel is "
+                         f"built for sides {TILES}")
+    tm = 8 if bm == 128 else 4
+    tn = {256: 16, 128: 8}.get(block_n, 4)
+    warp = (8 * tm, 4 * tn)
+    return FmaTiles((tm, tn), warp,
+                    32 * (bm // warp[0]) * (block_n // warp[1]))
+
+
 def matmul_ring_plan(cfg: PULConfig, *, bm: int, bk: int, bn: int,
                      itemsize: int) -> MatmulPlan:
-    """K10's ring: a position is a chunk of bk_chunk columns of the (bm, bk)
-    A tile and rows of the (bk, bn) B tile. bk_chunk is the largest of bk,
-    bk / 2, bk / 4, ... (each whole 16-byte granules) whose ring of the
-    slots PULConfig asks for (2d BATCH, d + 1 SEQUENTIAL) fits shared
-    memory; when none does, the smallest, with distance and slots clamped as
-    for K1-K5. At the default (128, 128, 128) f32 tiles and d = 4 that is
-    bk_chunk 16: 8 slots of 16 KB."""
-    unit = CP_ASYNC_BYTES // itemsize
-    if bk < unit or bk % unit:
-        raise ValueError(f"a K tile of {bk} values is not whole 16-byte "
-                         "cp.async granules")
-    chunk = bk
-    while ((bm + bn) * chunk * itemsize * cfg.num_slots > SMEM_LIMIT_BYTES
-           and chunk % 2 == 0 and (chunk // 2) % unit == 0):
-        chunk //= 2
-    ring = _plan(cfg, 0, (bm + bn) * chunk * itemsize,
-                 f"a ({bm}, {chunk}) + ({chunk}, {bn}) tile chunk pair")
-    return MatmulPlan(ring.distance, ring.slots, ring.smem_bytes, chunk)
+    """The CUDA-core body's ring: a position is a chunk of FMA_CHUNK
+    columns of the (bm, bk) A tile, transposed, its rows padded by one
+    16-byte granule, and rows of the block's bn columns of B (bk a multiple
+    of FMA_CHUNK; bn: :func:`matmul_fma_block_n`). Distance and slots
+    follow PULConfig (2d BATCH, d + 1 SEQUENTIAL), clamped as for K1-K5. At
+    the default (128, 128, 128) f32 tiles' 128 x 256 block and d = 4 that is
+    8 slots of 24,832 B."""
+    if bk < FMA_CHUNK or bk % FMA_CHUNK:
+        raise ValueError(f"a K tile of {bk} values is not whole chunks of "
+                         f"{FMA_CHUNK}")
+    ring = _plan(cfg, 0, (bm + bn + 4) * FMA_CHUNK * itemsize,
+                 f"a ({bm}, {FMA_CHUNK}) + ({FMA_CHUNK}, {bn}) tile chunk "
+                 "pair")
+    return MatmulPlan(ring.distance, ring.slots, ring.smem_bytes, FMA_CHUNK)
 
 
 def matmul_body(dtype: torch.dtype, bm: int, bn: int) -> str:
     """The kernel body that runs a product of `dtype` inputs in (bm, bn)
-    output tiles: "wgmma" (tensor cores) for bf16 with bm in TC_BM and bn in
-    TC_BN, else "fma" (CUDA cores)."""
+    output tiles: TC_BODY (wgmma, tensor cores) for bf16 with bm in TC_BM and
+    bn in TC_BN, else FMA_BODY (register-tiled fp32 FMAs, CUDA cores)."""
     if dtype == torch.bfloat16 and bm in TC_BM and bn in TC_BN:
-        return "wgmma"
-    return "fma"
+        return TC_BODY
+    return FMA_BODY
 
 
 def matmul_tc_plan(cfg: PULConfig, *, bm: int, bk: int,
@@ -163,7 +202,7 @@ def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if out.numel() == 0:
         return out
     seq = int(cfg.strategy is IssueStrategy.SEQUENTIAL)
-    if matmul_body(a.dtype, bm, bn) == "wgmma":
+    if matmul_body(a.dtype, bm, bn) == TC_BODY:
         plan = matmul_tc_plan(cfg, bm=bm, bk=bk, bn=bn)
         rc = lib("pul_matmul").pul_matmul_wgmma(
             _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
@@ -172,7 +211,8 @@ def pul_matmul(a: torch.Tensor, b: torch.Tensor, *,
         _raise_on(rc, "pul_matmul_wgmma")
         LAUNCHES["k10_wgmma"] += 1
     else:
-        plan = matmul_ring_plan(cfg, bm=bm, bk=bk, bn=bn, itemsize=item)
+        plan = matmul_ring_plan(cfg, bm=bm, bk=bk, itemsize=item,
+                                bn=matmul_fma_block_n(a.dtype, bm, bn, N))
         rc = lib("pul_matmul").pul_matmul(
             _ptr(a), _ptr(b), _ptr(out), M, N, K, bm, bn, plan.bk_chunk,
             plan.distance, plan.slots, seq, DTYPES.index(a.dtype),

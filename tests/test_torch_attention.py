@@ -265,19 +265,22 @@ def test_decode_plain_matches_reference_kernel_at_zoo_shapes(hd, G, dtype):
 # ---------------------------------------------------------- ring plans
 @pytest.mark.parametrize("itemsize,slot", [(2, 34816), (4, 33792)])
 @pytest.mark.parametrize("cfg,want", [
-    (PULConfig(), (4, 5)),
+    (PULConfig(), (4, 4)),
     (PULConfig(distance=1), (1, 2)),
-    (PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL), (4, 5)),
+    (PULConfig(distance=4, strategy=IssueStrategy.SEQUENTIAL), (3, 4)),
     (PULConfig(distance=1, strategy=IssueStrategy.SEQUENTIAL), (1, 2)),
-    (PULConfig(distance=16), (5, 5))], ids=["d4", "d1", "d4-seq", "d1-seq",
+    (PULConfig(distance=16), (4, 4))], ids=["d4", "d1", "d4-seq", "d1-seq",
                                             "d16"])
 def test_attention_ring_plan_fits_shared_memory(itemsize, slot, cfg, want):
-    """K7 at hd = 128: 64 fp32 query rows and the chunk's probabilities
-    beside the ring; d and slots clamp to what fits."""
+    """K7 at hd = 128: 128 fp32 query rows (padded by a granule), their
+    sums and each of the 8 warps' transposed probabilities of a 32-key
+    chunk (16 rows, padded) and rescale factors beside the ring; d and
+    slots clamp to what fits."""
     plan = attention_ring_plan(cfg, hd=128, itemsize=itemsize)
     assert (plan.distance, plan.slots) == want
-    rows = 64 if itemsize == 2 else 32
-    assert plan.smem_bytes == plan.slots * slot + (64 * 128 + 64 * rows) * 4
+    aux = (128 * 132 + 128 + 8 * (32 * 20 + 16)) * 4
+    assert aux == 89088
+    assert plan.smem_bytes == plan.slots * slot + aux
     assert plan.smem_bytes <= SMEM_LIMIT_BYTES
 
 
@@ -345,8 +348,10 @@ def test_attention_plans_fit_shared_memory_at_every_head_dim(hd, distance,
     tc = attention_tc_plan(cfg, hd=hd)
     assert tc.smem_bytes == tc.slots * 2 * keys * row + TC_ROWS * row
     f32 = attention_ring_plan(cfg, hd=hd, itemsize=4)
+    rows = 64 if hd == 256 else 128
+    warp = 32 * (rows // 8 + 4) + rows // 8
     assert f32.smem_bytes == (f32.slots * 2 * 32 * (4 * hd + 16)
-                              + (64 * hd + 64 * 32) * 4)
+                              + (rows * (hd + 4) + rows + 8 * warp) * 4)
     for plan in (tc, f32):
         assert plan.smem_bytes <= SMEM_LIMIT_BYTES
         assert 1 <= plan.distance <= distance
@@ -376,8 +381,9 @@ def test_decode_ring_plan_fits_at_every_head_dim(hd, itemsize):
 @pytest.mark.parametrize("dtype,body", [(torch.bfloat16, "mma.sync"),
                                         (torch.float32, "fma")])
 def test_attention_body_follows_dtype(dtype, body):
-    """bf16 runs on the tensor cores (mma.sync), f32 on the CUDA cores."""
-    assert attention_body(dtype) == body
+    """bf16 runs on the tensor cores (mma.sync), f32 on the CUDA cores (the
+    register-tiled fma body, "fma-tiled")."""
+    assert attention_body(dtype) == {"fma": "fma-tiled"}.get(body, body)
 
 
 @pytest.mark.parametrize("hd,G", [(16, 1), (32, 6), (64, 5), (112, 5),

@@ -11,7 +11,9 @@ the table's type) in both modes, at unload distances 0, 1 and 3 and at row
 widths that take either copy of its bit-vector ring. The SUM K8 is
 held exactly to the fp64 sum on values that make every order exact, and to
 the reference's tolerance on normal values; the matmul K10 to the
-reference's tolerances. K1/K2 and
+reference's tolerances, its register-tiled f32 body also at every tile,
+at bf16 with bm = 32, with both output types and at every ring of the smoke
+(and two 128 x 128 tiles a block where N allows). K1/K2 and
 the MLA pair K3/K4 are held against their plain PyTorch versions
 in bf16 (two bf16 ulps of each (b, h) row's largest value: the card sums in
 another order), K1 == K2 and K3 == K4 bitwise, and the sweep kernels'
@@ -24,7 +26,9 @@ pages they read, and K5's bulk copies at ragged and 16-byte rows. The dense atte
 pair, K7 (flash attention) and K6 (decode over a dense cache), is held the
 same way in bf16 and to rtol = atol = 3e-4 in f32, at d = 1 and 4 in both
 issue orders, with its own planted faults (the last KV chunk lost, the
-softcap dropped); K6 also at every head dim and G of 1, 2, 5 and 16 with
+softcap dropped), K7's f32 body also at every head dim, at groups of 1, 2,
+5 and 16 and under each mask (causal, window, softcap and window, T > S);
+K6 also at every head dim and G of 1, 2, 5 and 16 with
 rows of length 0, 1 and S, and at forced segment sizes, where one
 segment's piece left out of the merge must be rejected, and a plan whose
 chunk is not the kernel's is refused. The paged engine's decode step
@@ -71,8 +75,9 @@ from repro_torch.serving import (
 from repro_torch.serving.kv_pages import TRASH_FRAME
 from repro_torch.serving.capture import StepNotCapturable
 
-# the module (the package exports the function pul_attention under its name)
+# the modules (the package exports the functions under their names)
 PA = importlib.import_module("repro_torch.kernels.pul_attention")
+PM = importlib.import_module("repro_torch.kernels.pul_matmul")
 
 
 
@@ -806,6 +811,74 @@ def test_matmul_wgmma_body_matches_plain_version(dev, out_dtype, shape,
     assert not bool(((bad - want).abs() <= limit).all())
 
 
+#: K10's CUDA-core body: f32 at every tile, bf16 at bm = 32 (bm >= 64 is
+#: the tensor cores'), each at every ring of the smoke
+FMA_CASES = ([(torch.float32, bm, bn) for bm in (32, 64, 128)
+              for bn in (32, 64, 128)]
+             + [(torch.bfloat16, 32, bn) for bn in (32, 64, 128)])
+FMA_RINGS = [PULConfig(distance=d, strategy=s) for d in (1, 4)
+             for s in IssueStrategy]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", FMA_RINGS,
+                         ids=[f"d{c.distance}-{c.strategy.name.lower()}"
+                              for c in FMA_RINGS])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32-out", "bf16-out"])
+@pytest.mark.parametrize("dtype,bm,bn", FMA_CASES,
+                         ids=[f"{str(d).split('.')[-1]}-{bm}x{bn}"
+                              for d, bm, bn in FMA_CASES])
+def test_matmul_fma_body_every_tile_and_ring(dev, dtype, bm, bn, out_dtype,
+                                             cfg):
+    """The register-tiled CUDA-core body at every tile it takes and every
+    ring of the smoke (d = 1 and 4, both issue orders), both output types:
+    within 2 sqrt(K) 2^-24 (|A||B|) of the fp32 product (plus one bf16
+    rounding of it for a bf16 output); a planted fault (one K chunk of 16
+    left out) is not. Launches count on "k10" alone."""
+    M, K, N = 2 * bm, 96, 3 * bn
+    assert matmul_body(dtype, bm, bn) == "fma-tiled"
+    rng = np.random.default_rng(bm + bn)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev, dtype) for s in ((M, K), (K, N)))
+    before = (PA.LAUNCHES["k10"], PA.LAUNCHES["k10_wgmma"])
+    got = pul_matmul(a, b, cfg=cfg, bm=bm, bk=32, bn=bn, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert (PA.LAUNCHES["k10"], PA.LAUNCHES["k10_wgmma"]) == (
+        before[0] + 1, before[1])
+    want = matmul_ref(a, b)
+    limit = _matmul_limit(a, b)
+    if out_dtype == torch.bfloat16:
+        limit = limit + want.abs() * 2.0 ** -8      # the output's rounding
+    assert got.dtype == out_dtype
+    err = (got.float() - want).abs()
+    assert bool((err <= limit).all()), f"{(err / limit).max().item():.2f} x"
+    bad = want - a[:, 16:32].float() @ b[16:32].float()
+    assert not bool(((bad - want).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", FMA_RINGS,
+                         ids=[f"d{c.distance}-{c.strategy.name.lower()}"
+                              for c in FMA_RINGS])
+@pytest.mark.parametrize("N", [256, 384, 640])
+def test_matmul_fma_body_pairs_tiles_where_n_allows(dev, N, cfg):
+    """128 x 128 f32 tiles run two to a block where N holds whole pairs
+    (256 columns), one otherwise (384, 640): within the limit either way,
+    at every ring."""
+    assert PM.matmul_fma_block_n(torch.float32, 128, 128, N) == (
+        256 if N % 256 == 0 else 128)
+    rng = np.random.default_rng(N)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        dev) for s in ((256, 64), (64, N)))
+    got = pul_matmul(a, b, cfg=cfg, bm=128, bk=64, bn=128)
+    torch.cuda.synchronize()
+    want = matmul_ref(a, b)
+    err = (got - want).abs()
+    limit = _matmul_limit(a, b)
+    assert bool((err <= limit).all()), f"{(err / limit).max().item():.2f} x"
+
+
 @pytest.mark.cuda
 def test_micro_launches_are_counted_and_checks_raise(dev):
     data = torch.randn((64, 16), device=dev)
@@ -954,6 +1027,46 @@ def test_attention_kernel_takes_every_head_dim_and_group(dev, dtype, hd, G,
     ref_kw = {n: x for n, x in kw.items() if n != "bt"}
     want = PA.attention_kernel_ref(q, k, v, **ref_kw)
     err = (got.float() - want.float()).abs().max().item()
+    assert _dense_close(got, want), f"max |K7 - plain| {err:.3e}"
+    for what, bad in _attn_faults(q, k, v, kw).items():
+        assert not _dense_close(bad, want), what
+
+
+# K7's f32 body at every head dim, at groups of 1, 2, 5 and 16 (one block
+# of 128 rows holds 128, 64, 25.6 and 8 positions), under each mask:
+# (T, S, options)
+F32_MASKS = {
+    "causal": (40, 100, dict()),
+    "window": (40, 100, dict(causal=False, window=30)),
+    "softcap+window": (40, 100, dict(softcap=2.0, window=30)),
+    "rows-before-keys": (96, 48, dict(bt=32, bs=40)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", DENSE_CFGS, ids=DENSE_IDS)
+@pytest.mark.parametrize("mask", sorted(F32_MASKS))
+@pytest.mark.parametrize("G", [1, 2, 5, 16])
+@pytest.mark.parametrize("hd", PA.DENSE_HDS)
+def test_attention_f32_body_every_head_dim_group_and_mask(dev, hd, G, mask,
+                                                          cfg):
+    """The register-tiled f32 body within rtol = atol = 3e-4 of the plain
+    version at every hd, group and mask, at d = 1 and 4 in both issue
+    orders; its planted faults (the last chunk left out, the softcap or the
+    scale wrong) are rejected. Launches count on "k7" alone."""
+    T, S, kw = F32_MASKS[mask]
+    qs = 3.0 if "softcap" in kw else 0.3     # logits the softcap bends
+    q, k, v = _dense(dev, torch.float32, ((1, 2 * G, T, hd), qs),
+                     ((1, 2, S, hd), 0.3), ((1, 2, S, hd), 1.0),
+                     seed=hd + G)
+    before = (PA.LAUNCHES["k7"], PA.LAUNCHES["k7_tc"])
+    got = PA.pul_attention(q, k, v, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    assert (PA.LAUNCHES["k7"], PA.LAUNCHES["k7_tc"]) == (before[0] + 1,
+                                                         before[1])
+    ref_kw = {n: x for n, x in kw.items() if n != "bt"}
+    want = PA.attention_kernel_ref(q, k, v, **ref_kw)
+    err = (got - want).abs().max().item()
     assert _dense_close(got, want), f"max |K7 - plain| {err:.3e}"
     for what, bad in _attn_faults(q, k, v, kw).items():
         assert not _dense_close(bad, want), what

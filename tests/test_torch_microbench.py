@@ -33,6 +33,7 @@ from repro_torch.kernels.pul_attention import (
 )
 from repro_torch.kernels.pul_filter import filter_ring_plan, pul_filter
 from repro_torch.kernels.pul_matmul import (
+    FMA_CHUNK,
     TC_BM,
     TC_BN,
     matmul_body,
@@ -328,15 +329,17 @@ def test_matmul_default_tile_plan(itemsize):
         assert plan.distance == cfg.distance >= 2
         assert 128 % plan.bk_chunk == 0
         assert (plan.bk_chunk * itemsize) % 16 == 0
-        assert plan.smem_bytes == plan.slots * 256 * plan.bk_chunk * itemsize
+        # A transposed, its rows of 128 words padded by one 16-byte granule
+        slot = (256 + 4) * plan.bk_chunk * itemsize
+        assert plan.smem_bytes == plan.slots * slot
         assert plan.smem_bytes <= SMEM_LIMIT_BYTES
         assert plan.slots >= cfg.distance + (
             1 if strategy is IssueStrategy.SEQUENTIAL else 0)
     assert matmul_ring_plan(PULConfig(), bm=128, bk=128, bn=128,
                             itemsize=4).bk_chunk == 16
-    # the test shapes keep whole tiles where they fit
+    # the chunk is the body's compile-time K depth at every tile
     assert matmul_ring_plan(PULConfig(distance=3), bm=64, bk=64, bn=64,
-                            itemsize=4).bk_chunk == 64
+                            itemsize=4).bk_chunk == FMA_CHUNK
 
 
 @pytest.mark.parametrize("strategy", list(IssueStrategy),
@@ -374,8 +377,8 @@ def test_matmul_tc_plan_fits_shared_memory(bm, bn, distance, strategy):
 @pytest.mark.parametrize("bn", [32, 64, 128])
 def test_matmul_body_follows_dtype_and_tiles(dtype, bm, bn):
     """bf16 with bm >= 64 runs on the tensor cores (wgmma), everything else
-    (f32, bm = 32) on the CUDA cores."""
-    want = "wgmma" if dtype == torch.bfloat16 and bm >= 64 else "fma"
+    (f32, bm = 32) on the CUDA cores (the register-tiled fma body)."""
+    want = "wgmma" if dtype == torch.bfloat16 and bm >= 64 else "fma-tiled"
     assert matmul_body(dtype, bm, bn) == want
 
 
