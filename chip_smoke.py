@@ -305,6 +305,7 @@ from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.module import flatten, unflatten  # noqa: E402
+from repro_torch.obs.tracer import Tracer  # noqa: E402
 from repro_torch.optim import OptimizerConfig, adamw_init  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     EngineConfig, PackedKVLayout, PagedEngineConfig, PagedServingEngine,
@@ -1847,10 +1848,10 @@ PATHS = {
 }
 
 
-def _engine(cfg, params, path, device):
+def _engine(cfg, params, path, device, tracer=None):
     """A checked engine at the serving geometry (SLOTS x MAX_SEQ)."""
     return _geometry_engine(cfg, params, path, device,
-                            (SLOTS, MAX_SEQ, SERVE_BUCKETS))
+                            (SLOTS, MAX_SEQ, SERVE_BUCKETS), tracer=tracer)
 
 
 def _path_kernel(cfg, path):
@@ -2017,12 +2018,12 @@ WINDOW_PROMPTS = (5000, 4500, 300)
 
 
 def _geometry_engine(cfg, params, path, device, geometry, chunk=0,
-                     cls=None):
+                     cls=None, tracer=None):
     slots, max_seq, buckets = geometry
     return (cls or _CheckedEngine)(cfg, params, PagedEngineConfig(
         batch_slots=slots, max_seq=max_seq, page_tokens=P,
         prefill_buckets=buckets, prefill_chunk_tokens=chunk, device=device,
-        **PATHS[path]))
+        **PATHS[path]), tracer=tracer)
 
 
 def _serve_long(cfg, params, path, chunk, device, geometry=LONG,
@@ -2148,18 +2149,27 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
     captured step, "-eager" runs it eagerly) at the smoke configuration of
     `arch` (8 requests, all admitted at tick 0), with `params` (random from
     seed 0 unless given). The smoke runs it on the captured sweep of both
-    models. Prints one [profile] line: over 4 ticks without the profiler,
-    the wall time and the device span of the step (CUDA events around the
-    replay or the eager step) and its share of the wall time; over 4 more
-    under the profiler, the same, the device busy share (the kernels' time
-    over the ticks' wall time), the top kernels, and the port's own kernels
-    (K1-K5 on this path) by name."""
+    models. The engine runs with a tracer, whose ``gauges/device_step_ms``
+    counter gives the step's device span (the engine's CUDA events around
+    the replay or the eager step, kernel-true paths only). Prints one
+    [profile] line: over 4 ticks without the profiler, the wall time and
+    that span and its share of the wall time; over 4 more under the
+    profiler, the same, the device busy share (the kernels' time over the
+    ticks' wall time), the top kernels, and the port's own kernels (K1-K5
+    on this path) by name."""
     from torch.profiler import ProfilerActivity, profile
     cfg = smoke_config(arch)
     if params is None:
         params = init_params(cfg, seed=0, device="cuda")
     warm_up(cfg, params, paths=(path,))
-    eng = _engine(cfg, params, path, "cuda")
+    tracer = Tracer()
+    eng = _engine(cfg, params, path, "cuda", tracer=tracer)
+
+    def device_ms():
+        """Every step's device span so far, ms."""
+        return [e.args["value"] for e in tracer.events
+                if e.track == "gauges" and e.name == "device_step_ms"]
+
     for r in _requests(cfg.vocab_size)[:8]:
         eng.submit(r)
     for _ in range(3):
@@ -2167,27 +2177,16 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
     n_prefills = eng.metrics.prefills
     bound_ms = _tick_bytes(cfg, params, eng) / HBM_PEAK * 1e3
     ticks = 4                   # 3 + 2 x 4 ticks: inside 24 new tokens
-    spans = []
-    run = eng._run_device_step
-
-    def timed():
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = run()
-        b.record()
-        spans.append((a, b))
-        return out
-
-    eng._run_device_step = timed
     # first without the profiler (its tracing costs each kernel time), then
     # the same number of ticks under it
     torch.cuda.synchronize()
+    before = len(device_ms())
     t0, c = time.perf_counter(), eng.check_s
     for _ in range(ticks):
         eng.step()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0 - (eng.check_s - c)
+    spans = device_ms()[before:]
     kernel_true = PATHS[path]["use_paged_kernel"]
     if len(spans) != ticks * kernel_true or (eng._captured is not None) != (
             kernel_true and PATHS[path].get("capture_decode", True)):
@@ -2195,8 +2194,7 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
                              f"{ticks} ticks, captured: {eng._captured}")
     # the step's device span, on the kernel-true paths (whose device half
     # is one call; the assembly path's is not)
-    span = (sum(a.elapsed_time(b) for a, b in spans) / ticks
-            if kernel_true else None)
+    span = sum(spans) / ticks if kernel_true else None
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0, c = time.perf_counter(), eng.check_s
@@ -2206,7 +2204,7 @@ def profile_decode(arch="qwen3-1.7b", path="sweep", params=None):
         wall = time.perf_counter() - t0 - (eng.check_s - c)
     if eng.metrics.prefills != n_prefills:
         raise AssertionError("a prefill ran inside the decode window")
-    traced_span = (sum(a.elapsed_time(b) for a, b in spans[ticks:]) / ticks
+    traced_span = (sum(device_ms()[before + ticks:]) / ticks
                    if kernel_true else None)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]

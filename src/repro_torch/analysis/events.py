@@ -35,6 +35,15 @@ class EventKind(str, enum.Enum):
     TICK = "tick"            # pool clock advanced (step boundary)
 
 
+#: the kinds that change a page's state; the others (TICK, TOUCH, READ,
+#: WRITE_ROWS) come once a page or a layer every step. The pool bridges
+#: only these into its ``obs.tracer.Tracer``.
+STATE_KINDS = frozenset({
+    EventKind.ALLOC, EventKind.REF, EventKind.UNREF, EventKind.FREE,
+    EventKind.EVICT, EventKind.RESTORE, EventKind.WRITE_PAGE,
+    EventKind.DEADLINE})
+
+
 @dataclasses.dataclass(frozen=True)
 class PageEvent:
     """One recorded lifecycle transition.

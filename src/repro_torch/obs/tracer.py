@@ -1,12 +1,15 @@
 """Structured tracing for the PUL serving stack.
 
 One :class:`Tracer` instance is threaded through every layer — the paged
-engine (tick/prefill/chunk/decode spans, request lifecycles), the admission
-scheduler (decisions with their *reason*), the KV page pool (the
-``analysis.events`` lifecycle trace bridged into the same stream), and the
-DMA twin (per-channel FIFO occupancy, descriptor spans, back-pressure
-stalls) — so a serving run produces ONE timeline that Perfetto / Chrome
-``about:tracing`` can load directly (:meth:`Tracer.to_chrome`).
+engine (tick/prefill/chunk/decode spans, the decode step's phases, request
+lifecycles), the captured decode step on the card (a ``device/decode_step``
+complete span from CUDA events, mapped onto this tracer's clock), the
+admission scheduler (decisions with their *reason*), the KV page pool (the
+state changes of the ``analysis.events`` lifecycle trace bridged into the
+same stream), and the DMA twin (per-channel FIFO occupancy, descriptor
+spans, back-pressure stalls) — so a serving run produces ONE timeline that
+Perfetto / Chrome ``about:tracing`` can load directly
+(:meth:`Tracer.to_chrome`).
 
 Design rules:
 
@@ -32,9 +35,12 @@ Design rules:
 
 Events are plain dataclasses with JSON-safe args (tuples become lists,
 ``inf`` becomes the string ``"inf"``), so a trace survives export → parse →
-replay; :func:`page_events_from_chrome` rebuilds the page-lifecycle
-``PageEvent`` stream from an exported file, which the round-trip tests feed
-back through the sanitizer's ``LifecycleChecker``.
+replay; :func:`page_events_from_chrome` rebuilds the bridged page-lifecycle
+``PageEvent`` stream from an exported file. The pool bridges state changes
+only (``analysis.events.STATE_KINDS``: alloc, ref, unref, free, evict,
+restore, write_page, deadline); the per-step kinds (tick, touch, read,
+write_rows, one a page or a layer a step) stay in the pool's ``TraceLog``,
+which ``shadow_check`` feeds to the sanitizer.
 """
 from __future__ import annotations
 
@@ -369,16 +375,21 @@ def validate_chrome_trace(doc: Any) -> List[str]:
 
 def page_events_from_chrome(doc: Dict[str, Any]):
     """Rebuild the `analysis.events` PageEvent stream from an exported
-    trace (the bridge's inverse). The result replays through
-    `analysis.sanitizer.LifecycleChecker` exactly like the pool's own
-    trace — the round-trip tests assert the two agree."""
-    from repro_torch.analysis.events import EventKind, PageEvent
+    trace (the bridge's inverse): the pool's ``TraceLog`` restricted to
+    the bridged state changes (``analysis.events.STATE_KINDS``), with
+    the log's own ``seq`` where the pool kept one. It carries refcounts,
+    frames, evictions and restores, but no TOUCH, so replayed through
+    `analysis.sanitizer.LifecycleChecker` it cannot judge a steal's LRU
+    victim order; ``shadow_check`` judges the whole log."""
+    from repro_torch.analysis.events import STATE_KINDS, EventKind, PageEvent
     out = []
     for ev in doc.get("traceEvents", ()):
         if ev.get("cat") != "page" or ev.get("ph") != PH_INSTANT:
             continue
         args = dict(ev.get("args") or {})
         kind = EventKind(ev["name"])
+        if kind not in STATE_KINDS:
+            continue
         shared_key = args.get("shared_key")
         if isinstance(shared_key, list):
             shared_key = tuple(

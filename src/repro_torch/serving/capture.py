@@ -21,10 +21,15 @@ allocated once and updated in place by the step (the counterpart of the
 reference's donation); a replay checks their addresses first and raises if
 a plane was reallocated behind the graph's back. There is no fallback to
 the eager step: a capture or replay that fails raises.
+
+:class:`StepTimer` times a step on the card with two CUDA events recorded
+around it and maps them onto a host clock (the engine's tracer's) through
+an anchor event; a :class:`CapturedStep` given one records them around
+each replay. The engine makes one only when its tracer records.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -115,17 +120,80 @@ class StepGuard(TorchDispatchMode):
         return out
 
 
+#: seconds between two anchors of a :class:`StepTimer`
+REANCHOR_S = 1.0
+
+
+class StepTimer:
+    """A decode step's device time from two reusable CUDA events recorded
+    on the current stream around it (:meth:`begin`, :meth:`end`), placed on
+    the host clock `clock` (microseconds, the tracer's ``now_us``).
+
+    The anchor is an event recorded on an idle card, read between two
+    readings of `clock`: an event lies at the anchor's host time plus the
+    card's time since the anchor. The card's clock drifts from the host's,
+    so :meth:`reanchor_if_due` sets the anchor again every
+    :data:`REANCHOR_S` and returns the drift the old anchor had gathered."""
+
+    def __init__(self, clock: Callable[[], float], device):
+        self._clock = clock
+        self._device = torch.device(device)
+        self._start = torch.cuda.Event(enable_timing=True)
+        self._end = torch.cuda.Event(enable_timing=True)
+        self._anchors = [torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True)]
+        self.anchor_us = self._mark(self._anchors[0])
+
+    def _mark(self, event) -> float:
+        """Record `event` on the idle card; its time on the host clock (the
+        middle of the two readings around the record and its wait)."""
+        torch.cuda.synchronize(self._device)
+        before = self._clock()
+        event.record()
+        event.synchronize()
+        return (before + self._clock()) / 2
+
+    def begin(self) -> None:
+        self._start.record()
+
+    def end(self) -> None:
+        self._end.record()
+
+    def span_us(self) -> Tuple[float, float]:
+        """The last step's start on the host clock and its device time, in
+        microseconds; call once its end event has completed."""
+        anchor = self._anchors[0]
+        return (self.anchor_us + anchor.elapsed_time(self._start) * 1e3,
+                self._start.elapsed_time(self._end) * 1e3)
+
+    def reanchor_if_due(self) -> Optional[float]:
+        """Past :data:`REANCHOR_S` since the anchor, a new anchor; returns
+        where it lies on the host clock less where the old anchor put it
+        (µs), else None."""
+        if self._clock() - self.anchor_us < REANCHOR_S * 1e6:
+            return None
+        old, new = self._anchors
+        now = self._mark(new)
+        drift = now - (self.anchor_us + old.elapsed_time(new) * 1e3)
+        self._anchors = [new, old]
+        self.anchor_us = now
+        return drift
+
+
 class CapturedStep:
     """`fn` (no arguments; it reads only `inputs`, whose addresses stay
     fixed) captured once as a CUDA graph and replayed.
 
     `planes` are the tensors the step updates in place; :meth:`replay`
     checks that the planes it is given are still at the captured addresses.
-    `what` names the step in errors."""
+    `what` names the step in errors. With a `timer`, each replay records
+    its events around ``graph.replay()``."""
 
     def __init__(self, fn: Callable, *, inputs: List[torch.Tensor],
-                 planes: Dict[str, torch.Tensor], what: str):
+                 planes: Dict[str, torch.Tensor], what: str,
+                 timer: Optional[StepTimer] = None):
         self.what = what
+        self.timer = timer
         self._ptrs = {k: p.data_ptr() for k, p in planes.items()}
         device = next(iter(planes.values())).device
         counts = dict(LAUNCHES)
@@ -163,7 +231,12 @@ class CapturedStep:
                                f"over other planes: {moved} were "
                                "reallocated since")
         try:
-            self.graph.replay()
+            if self.timer is None:
+                self.graph.replay()
+            else:
+                self.timer.begin()
+                self.graph.replay()
+                self.timer.end()
         except RuntimeError as e:
             raise RuntimeError(f"replay of the captured {self.what} decode "
                                f"step failed: {e}") from e

@@ -58,6 +58,16 @@ decode step and replayed every tick; ``capture_decode=False`` runs the same
 device half eagerly (the counterpart of ``jax.disable_jit``), as the CPU
 always does. The assembly path stays eager.
 
+With a ``Tracer`` that records, each decode tick's ``engine/decode`` span
+holds five phases, in order: ``decode_pages`` (tail pages, the working
+set, ``pool.ensure_hot``), ``decode_fill`` (the step buffer and its copy),
+``decode_launch`` (the commit's accounting and the step's enqueue),
+``decode_wait`` (the logits' copy to the host and its wait) and
+``decode_emit`` (the tokens); on the card the kernel-true step's device
+time, from CUDA events (``serving.capture.StepTimer``), becomes a
+``device/decode_step`` span on the same clock and a
+``gauges/device_step_ms`` counter. Without one, no event is made.
+
 A recurrent model's state (rwkv6's WKV state and token-shift carries,
 zamba2's Mamba h and conv state) is not pageable: it lives in ``resident``,
 one tree of the non-pageable cache leaves only, with one row per slot, at
@@ -111,7 +121,7 @@ from repro_torch.obs.metrics import (
     economics_into_registry,
 )
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
-from repro_torch.serving.capture import CapturedStep
+from repro_torch.serving.capture import CapturedStep, StepTimer
 from repro_torch.serving.kv_pages import (
     KVPagePool,
     PackedKVLayout,
@@ -427,6 +437,7 @@ class PagedServingEngine:
         self._host_batch = self._step_views(self._step_host)
         self._batch = self._step_views(self._step_dev)
         self._captured: Optional[CapturedStep] = None
+        self._step_timer: Optional[StepTimer] = None
 
     # ------------------------------------------------------------------ #
     def submit(self, req: Request):
@@ -910,67 +921,100 @@ class PagedServingEngine:
         return h["frames"].copy(), h["offsets"].copy()
 
     def _ensure_captured(self):
-        """On the card, capture the device half at the engine's first decode
-        step, over dummy inputs that commit nothing (every slot writes to
-        TRASH_FRAME); the warm-up's step of the recurrent state is taken
-        back."""
-        if (self._captured is not None or self.device.type != "cuda"
-                or not self.cfg.capture_decode):
+        """On the card, the step timer where the tracer records, then the
+        device half captured at the engine's first decode step, over dummy
+        inputs that commit nothing (every slot writes to TRASH_FRAME); the
+        warm-up's step of the recurrent state is taken back."""
+        if self.device.type != "cuda":
+            return
+        if self._step_timer is None and self.tracer.enabled:
+            self._step_timer = StepTimer(self.tracer.now_us, self.device)
+        if self._captured is not None or not self.cfg.capture_decode:
             return
         self._fill_step([])
         state = [leaf.clone() for _, leaf in _leaves(self.resident)]
         self._captured = CapturedStep(
             self._device_step, inputs=self.step_inputs(),
             planes=self._updated(),
-            what="sweep" if self.cfg.sweep_decode else "per-layer")
+            what="sweep" if self.cfg.sweep_decode else "per-layer",
+            timer=self._step_timer)
         for (_, leaf), saved in zip(_leaves(self.resident), state):
             leaf.copy_(saved)
 
     def _run_device_step(self):
         """The device half: replayed from its CUDA graph when captured, else
-        run eagerly."""
-        if self._captured is None:
+        run eagerly (between the step timer's events, where there is one:
+        on the eager path its span holds the launches' gaps too)."""
+        if self._captured is not None:
+            return self._captured.replay(self._updated())
+        timer = self._step_timer
+        if timer is None:
             return self._device_step()
-        return self._captured.replay(self._updated())
+        timer.begin()
+        out = self._device_step()
+        timer.end()
+        return out
+
+    def _note_device_step(self):
+        """The step's device time, once its logits are on the host: a
+        ``device/decode_step`` span on the tracer's clock and a
+        ``gauges/device_step_ms`` counter; when the timer sets a new
+        anchor, the old one's drift (``gauges/device_clock_drift_us``)."""
+        ts, dur = self._step_timer.span_us()
+        tr = self.tracer
+        tr.complete("device", "decode_step", ts=ts, dur=dur)
+        tr.counter("gauges", "device_step_ms", dur / 1e3)
+        drift = self._step_timer.reanchor_if_due()
+        if drift is not None:
+            tr.counter("gauges", "device_clock_drift_us", drift)
 
     def _decode_step(self):
         live = self._live_slots()
         if not live:
             return
-        self._ensure_tail_pages()
-        needed = sorted({pid for i in live for pid in self.slot_pages[i]})
-        faults = self.pool.ensure_hot(needed)
+        tr = self.tracer
+        with tr.span("engine", "decode_pages"):
+            self._ensure_tail_pages()
+            needed = sorted({pid for i in live for pid in self.slot_pages[i]})
+            faults = self.pool.ensure_hot(needed)
         # with no pageable KV the kernel-true paths have nothing to read:
         # the dense decode over the recurrent state, as in the reference
         kernel_true = self.cfg.use_paged_kernel and self.layout.features > 0
-        if kernel_true:
-            self._ensure_captured()
-        frames, offs = self._fill_step(live)
-        if not kernel_true:
-            # assembly: dense decode over pages gathered into a fresh tree
-            # beside the recurrent state, the step's new rows written back
-            # into the tail pages and its new state into resident
-            tree = (self._assemble(self._batch["page_table"])
-                    if self.layout.features else self.resident)
-            logits, new = self.model.decode_step(self._batch, tree)
-            if self.layout.features:
-                rows = self.layout.pack_rows(
-                    new, torch.tensor(self.slot_len, device=self.device))
+        with tr.span("engine", "decode_fill"):
+            if kernel_true:
+                self._ensure_captured()
+            frames, offs = self._fill_step(live)
+        with tr.span("engine", "decode_launch"):
+            if not kernel_true:
+                # assembly: dense decode over pages gathered into a fresh
+                # tree beside the recurrent state, the step's new rows
+                # written back into the tail pages and its new state into
+                # resident
+                tree = (self._assemble(self._batch["page_table"])
+                        if self.layout.features else self.resident)
+                logits, new = self.model.decode_step(self._batch, tree)
+                if self.layout.features:
+                    rows = self.layout.pack_rows(
+                        new, torch.tensor(self.slot_len, device=self.device))
+                    self.pool.write_rows(frames, offs, rows)
+                self._merge_nonpageable(new)
+            elif self.cfg.sweep_decode:
+                # account + trace the fused commit BEFORE the launch
+                self.pool.note_fused_commit(frames, offs)
+                logits, _ = self._run_device_step()
+            else:
+                logits, rows = self._run_device_step()
                 self.pool.write_rows(frames, offs, rows)
-            self._merge_nonpageable(new)
-        elif self.cfg.sweep_decode:
-            # account + trace the fused commit BEFORE the launch
-            self.pool.note_fused_commit(frames, offs)
-            logits, _ = self._run_device_step()
-        else:
-            logits, rows = self._run_device_step()
-            self.pool.write_rows(frames, offs, rows)
         self.metrics.decode_steps += 1
 
-        logits = self._logits_to_host(logits)
-        for i in live:
-            self.slot_len[i] += 1
-            self._emit_token(i, logits[i])
+        with tr.span("engine", "decode_wait"):
+            logits = self._logits_to_host(logits)
+            if self._step_timer is not None:
+                self._note_device_step()
+        with tr.span("engine", "decode_emit"):
+            for i in live:
+                self.slot_len[i] += 1
+                self._emit_token(i, logits[i])
         return faults
 
     def _logits_to_host(self, logits: torch.Tensor) -> np.ndarray:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis.events import EventKind, TraceLog
+from repro_torch.analysis.events import STATE_KINDS, EventKind, TraceLog
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dma import DMAEngine, KVPageWorkload, run_kv_page_workload
 from repro_torch.core.planner import kv_page_flops, plan_kv_page_stream
@@ -449,6 +449,7 @@ class KVPagePool:
         self.pages: "OrderedDict[int, _PageMeta]" = OrderedDict()
         self.cold: Dict[int, torch.Tensor] = {}
         self.prefix_index: Dict[tuple, int] = {}
+        self._hot = 0               # pages with a hot frame (hot_in_use)
         self.metrics = PoolMetrics()
         self.trace: Optional[TraceLog] = TraceLog() if pcfg.trace else None
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -475,7 +476,9 @@ class KVPagePool:
         return self.hot_frames - RESERVED_FRAMES
 
     def hot_in_use(self) -> int:
-        return sum(1 for m in self.pages.values() if m.frame is not None)
+        """Pages that hold a hot frame (kept by alloc, restore, evict and
+        free)."""
+        return self._hot
 
     def packed_store(self) -> torch.Tensor:
         """The packed (NF, P, F) store: a materialized copy of the planes
@@ -501,9 +504,13 @@ class KVPagePool:
             self.layout.write_frame_packed(self.planes, frame, rows)
 
     def _emit(self, kind: EventKind, **fields) -> None:
+        """One lifecycle event into the ``TraceLog`` (every kind) and, for
+        the state changes (``STATE_KINDS``), into the tracer, numbered as
+        in the log where there is one. Callers emit the per-step kinds only
+        where ``self.trace`` records them."""
         if self.trace is not None:
             self.trace.emit(self._clock, kind, **fields)
-        if self.tracer.enabled:
+        if self.tracer.enabled and kind in STATE_KINDS:
             seq = (self.trace.events[-1].seq if self.trace is not None
                    else self._bridge_seq)
             self._bridge_seq = seq + 1
@@ -511,7 +518,8 @@ class KVPagePool:
 
     def tick(self) -> None:
         self._clock += 1
-        self._emit(EventKind.TICK)
+        if self.trace is not None:
+            self._emit(EventKind.TICK)
 
     def alloc(self, shared_key: Optional[tuple] = None, *,
               needed: Sequence[int] = ()) -> int:
@@ -522,6 +530,7 @@ class KVPagePool:
         frame = self._take_frame(needed=needed)
         self.pages[pid] = _PageMeta(frame=frame, last_used=self._clock,
                                     shared_key=shared_key)
+        self._hot += 1
         if shared_key is not None:
             self.prefix_index[shared_key] = pid
         self.metrics.pages_allocated += 1
@@ -557,6 +566,7 @@ class KVPagePool:
             self.prefix_index.pop(meta.shared_key, None)
         if meta.frame is not None:
             self.free_frames.append(meta.frame)
+            self._hot -= 1
         self.cold.pop(pid, None)
         del self.pages[pid]
         self._emit(EventKind.FREE, pid=pid)
@@ -605,6 +615,7 @@ class KVPagePool:
             Direction.UNLOAD, src=meta.frame * self.page_bytes,
             dst=pid * self.page_bytes, nbytes=self.page_bytes, tag=pid))
         meta.frame = None
+        self._hot -= 1
 
     def evict_pages(self, pids: Sequence[int]) -> None:
         for pid in pids:
@@ -616,11 +627,13 @@ class KVPagePool:
         distance d*, BATCH order, replayed on the DMA twin); returns the
         page-fault count."""
         self.tick()
+        log, clock, pages = self.trace, self._clock, self.pages
         faults = []
         for pid in pids:
-            meta = self.pages[pid]
-            meta.last_used = self._clock
-            self._emit(EventKind.TOUCH, pid=pid)
+            meta = pages[pid]
+            meta.last_used = clock
+            if log is not None:
+                self._emit(EventKind.TOUCH, pid=pid)
             if meta.frame is None:
                 faults.append(pid)
         for pid in faults:
@@ -628,6 +641,7 @@ class KVPagePool:
             frame = self._take_frame(needed=pids)
             self._write_frame(frame, self.cold.pop(pid))
             meta.frame = frame
+            self._hot += 1
             meta.pending_read = True
             self._emit(EventKind.RESTORE, pid=pid, frame=frame)
             self.metrics.descriptors.append(TransferRequest(
@@ -651,14 +665,15 @@ class KVPagePool:
         """Physical frame per page id (ZERO_FRAME for unallocated slots).
         All pages must be hot (call ensure_hot first)."""
         out = np.full((len(pids),), ZERO_FRAME, np.int32)
+        log, pages = self.trace, self.pages
         for i, pid in enumerate(pids):
             if pid is None:
                 continue
-            meta = self.pages[pid]
+            meta = pages[pid]
             if meta.pending_read:
                 meta.pending_read = False
                 self.metrics.useful_preloads += 1
-            if self.trace is not None or self.tracer.enabled:
+            if log is not None:
                 self._emit(EventKind.READ, pid=pid, frame=meta.frame)
             if meta.frame is None:
                 raise RuntimeError(f"page {pid} is cold at read time")
@@ -687,8 +702,9 @@ class KVPagePool:
                    rows: torch.Tensor) -> None:
         """Eagerly commit one packed row per slot at (frame, offset) — the
         out-of-kernel half of the commit contract (per-layer decode)."""
-        self._emit(EventKind.WRITE_ROWS,
-                   frames=tuple(int(f) for f in frames))
+        if self.trace is not None:
+            self._emit(EventKind.WRITE_ROWS,
+                       frames=tuple(int(f) for f in frames))
         self._check_commit(frames)
         dev = self.device
         self.layout.commit_token(
@@ -702,7 +718,8 @@ class KVPagePool:
         rows): validation, byte accounting and the lifecycle trace only, one
         WRITE_ROWS per layer. Call BEFORE the kernel."""
         del offsets
-        for layer in range(self.n_layers):
-            self._emit(EventKind.WRITE_ROWS, layer=layer,
-                       frames=tuple(int(f) for f in frames))
+        if self.trace is not None:
+            by_slot = tuple(int(f) for f in frames)
+            for layer in range(self.n_layers):
+                self._emit(EventKind.WRITE_ROWS, layer=layer, frames=by_slot)
         self._check_commit(frames)

@@ -1399,6 +1399,82 @@ def test_captured_decode_refuses_moved_planes_and_host_reads(reduced_models,
         eng.step()
 
 
+def _phase_spans(tracer):
+    """Each decode tick's phase spans by name, (start, end) µs, in the
+    order the ticks ran (ticks without a live slot have none)."""
+    ticks, open_ = [], {}
+    for e in tracer.events:
+        if e.track != "engine":
+            continue
+        if e.ph == "B":
+            open_[e.name] = e.ts
+            if e.name == "decode_pages":
+                ticks.append({})
+        elif e.ph == "E" and e.name.startswith("decode_"):
+            ticks[-1][e.name] = (open_.pop(e.name), e.ts)
+    return ticks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("traced", [False, True], ids=["untimed", "timed"])
+def test_step_timer_on_the_captured_step(reduced_models, traced,
+                                         monkeypatch):
+    """Untraced, the engine makes no CUDA event. Traced, with an anchor
+    set again every tick, each replay gives one ``device/decode_step``
+    span inside its tick's ``decode_launch`` start to ``decode_wait`` end
+    (within 0.1 ms) and a positive ``gauges/device_step_ms``; the drift
+    between two anchors stays under 0.1 ms. Tokens are equal either way."""
+    from repro_torch.obs.tracer import Tracer
+    from repro_torch.serving import capture
+
+    made = []
+    event = torch.cuda.Event
+
+    def counted(*args, **kw):
+        made.append(kw)
+        return event(*args, **kw)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    monkeypatch.setattr(capture, "REANCHOR_S", 0.0)
+    cfg, params = reduced_models["qwen3-1.7b"]
+
+    def run(tracer):
+        eng = PagedServingEngine(cfg, params, PagedEngineConfig(
+            batch_slots=3, max_seq=64, page_tokens=8,
+            prefill_buckets=(8, 16, 32), device="cuda"), tracer=tracer)
+        rng = np.random.default_rng(3)
+        for rid, (n, new) in enumerate(((5, 9), (13, 3), (20, 7), (9, 5))):
+            eng.submit(Request(rid=rid, prompt=rng.integers(1, 256, n).tolist(),
+                               max_new_tokens=new))
+        eng.run()
+        assert eng._captured is not None
+        return eng
+
+    tracer = Tracer() if traced else None
+    eng = run(tracer)
+    if not traced:
+        assert made == [] and eng._step_timer is None
+        assert eng._captured.timer is None
+        return
+    assert len(made) == 4 and eng._captured.timer is eng._step_timer
+    ticks = _phase_spans(tracer)
+    device = [e for e in tracer.events if e.track == "device"]
+    gauges = [e.args["value"] for e in tracer.events
+              if e.name == "device_step_ms"]
+    drifts = [e.args["value"] for e in tracer.events
+              if e.name == "device_clock_drift_us"]
+    assert len(ticks) == len(device) == len(gauges) == \
+        eng.metrics.decode_steps > 0
+    for phases, ev, ms in zip(ticks, device, gauges):
+        assert ev.ph == "X" and ev.dur == pytest.approx(ms * 1e3) and ms > 0
+        assert phases["decode_launch"][0] - 100 <= ev.ts
+        assert ev.ts + ev.dur <= phases["decode_wait"][1] + 100
+    assert drifts and max(abs(d) for d in drifts) < 100
+    off = run(None)
+    assert {r.rid: r.out_tokens for r in eng.requests.values()} == \
+        {r.rid: r.out_tokens for r in off.requests.values()}
+
+
 # ------------------------------------- shadow_check and the serving benchmarks
 @pytest.mark.cuda
 @pytest.mark.parametrize("sweep", [True, False], ids=["sweep", "per-layer"])
