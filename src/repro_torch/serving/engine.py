@@ -58,9 +58,23 @@ decode step and replayed every tick; ``capture_decode=False`` runs the same
 device half eagerly (the counterpart of ``jax.disable_jit``), as the CPU
 always does. The assembly path stays eager.
 
+The page table that the step reads is kept across ticks: row i holds the
+frames of slot i's pages, and only what changes is rewritten. A new tail
+page writes its one entry; any other change of a slot's pages (prefill,
+shared-prefix admission, a chunk pass, a resume) marks its row, as does a
+page of the row moving tier (``pool.take_moved``); a marked row is
+rewritten from the slot's pages when the slot next decodes
+(``gauges/page_rows_rebuilt`` counts them). With the pool's trace off a
+steady tick then costs O(slots) in Python: the tail pages, restores only
+where a page is cold (``pool.restore_cold``), one touch of the table's
+frames and one copy of the live rows. With the trace on (``shadow_check``)
+the tick walks every page as the reference does (``pool.ensure_hot``,
+``pool.frames_of``: a TOUCH and a READ per page) and holds each kept row
+to what that walk reads.
+
 With a ``Tracer`` that records, each decode tick's ``engine/decode`` span
-holds five phases, in order: ``decode_pages`` (tail pages, the working
-set, ``pool.ensure_hot``), ``decode_fill`` (the step buffer and its copy),
+holds five phases, in order: ``decode_pages`` (tail pages, restores, the
+kept page table), ``decode_fill`` (the step buffer and its copy),
 ``decode_launch`` (the commit's accounting and the step's enqueue),
 ``decode_wait`` (the logits' copy to the host and its wait) and
 ``decode_emit`` (the tokens); on the card the kernel-true step's device
@@ -92,7 +106,7 @@ import dataclasses
 import time
 import warnings
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -436,6 +450,11 @@ class PagedServingEngine:
                                      device=self.device)
         self._host_batch = self._step_views(self._step_host)
         self._batch = self._step_views(self._step_dev)
+        # the page table kept across ticks (row i: the frames of
+        # slot_pages[i], ZERO_FRAME after the last); a row in _stale_rows
+        # is rewritten from its pages before the slot next decodes
+        self._page_table = np.full((B, n), ZERO_FRAME, np.int32)
+        self._stale_rows: Set[int] = set()
         self._captured: Optional[CapturedStep] = None
         self._step_timer: Optional[StepTimer] = None
 
@@ -600,7 +619,7 @@ class PagedServingEngine:
                                if self.pool.pages[pid].refcount == 1])
         self._swapped[req.rid] = state
         self.slot_req[slot] = None
-        self.slot_pages[slot] = []
+        self._set_pages(slot, [])
         self.slot_len[slot] = 0
         self.paused[slot] = False
         self.metrics.preemptions += 1
@@ -618,7 +637,7 @@ class PagedServingEngine:
         req.resuming = False
         slot = a.slot
         self.slot_req[slot] = req
-        self.slot_pages[slot] = state["pages"]
+        self._set_pages(slot, state["pages"])
         self.slot_len[slot] = state["slot_len"]
         self.paused[slot] = False
         if state["nonpageable"]:
@@ -651,7 +670,7 @@ class PagedServingEngine:
         pids = [self.pool.lookup_shared(k) for k in page_keys]
         self.pool.note_deadline(pids, a.request.deadline_tick())
         self.slot_req[a.slot] = a.request
-        self.slot_pages[a.slot] = pids
+        self._set_pages(a.slot, pids)
         self.slot_len[a.slot] = n
         self.paused[a.slot] = False
         self.metrics.prefill_skips += 1
@@ -661,11 +680,12 @@ class PagedServingEngine:
 
     def _write_prompt_pages(self, slot: int, key_bucket: int,
                             prompt: List[int], lo: int, hi: int,
-                            packed: torch.Tensor, working: set):
+                            packed: torch.Tensor):
         """Allocate (or prefix-share) and fill the pages covering prompt
         tokens [lo, hi) of `slot`. `packed` is this slot's (S >= hi, F)
         packed KV rows; `lo` must be page-aligned. FULL pages are shareable
-        under (key_bucket, prompt-prefix) keys."""
+        under (key_bucket, prompt-prefix) keys. No page any slot holds is
+        evicted to make room."""
         P = self.cfg.page_tokens
         req = self.slot_req[slot]
         pids = self.slot_pages[slot]
@@ -680,13 +700,12 @@ class PagedServingEngine:
                     pid = self.pool.alloc(shared_key=key
                                           if self.cfg.share_prefix_pages
                                           else None,
-                                          needed=working)
+                                          needed=self._held_pages)
                     self.pool.write_page(pid, packed[plo:phi], phi - plo)
             else:
-                pid = self.pool.alloc(needed=working)
+                pid = self.pool.alloc(needed=self._held_pages)
                 self.pool.write_page(pid, packed[plo:phi], phi - plo)
-            pids.append(pid)
-            working.add(pid)
+            self._add_page(slot, pid)
         self.pool.note_deadline(pids, req.deadline_tick())
 
     def _prefill(self, rows: List[List[int]], slots: List[int], bucket: int):
@@ -733,13 +752,12 @@ class PagedServingEngine:
             self.slot_req[a.slot] = a.request
         logits, packed, caches, at = self._prefill(
             prompts, [a.slot for a in group], bucket)
-        working = {pid for pages in self.slot_pages for pid in pages}
         for r, (a, prompt) in enumerate(zip(group, prompts)):
             slot, n = a.slot, len(prompt)
-            self.slot_pages[slot] = []
+            self._set_pages(slot, [])
             if self.layout.features:
                 self._write_prompt_pages(slot, bucket, prompt, 0, n,
-                                         packed[r], working)
+                                         packed[r])
             self.slot_len[slot] = n
             self.paused[slot] = False
             self._merge_resident(caches, at[r], slot)
@@ -792,7 +810,7 @@ class PagedServingEngine:
     # ------------------------------------------------------------------ #
     def _start_chunk(self, a: Admission):
         self.slot_req[a.slot] = a.request
-        self.slot_pages[a.slot] = []
+        self._set_pages(a.slot, [])
         self.slot_len[a.slot] = 0
         self.paused[a.slot] = False
         self._chunk[a.slot] = {"prompt": a.request.prompt[-a.bucket:],
@@ -817,10 +835,9 @@ class PagedServingEngine:
         logits, packed, caches, at = self._prefill([prompt[:hi]], [slot],
                                                    bucket)
         self.metrics.chunk_passes += 1
-        working = {pid for pages in self.slot_pages for pid in pages}
         if self.layout.features:
             self._write_prompt_pages(slot, req.bucket, prompt, f, hi,
-                                     packed[0], working)
+                                     packed[0])
         st["filled"] = hi
         self.slot_len[slot] = hi
         if hi < n:
@@ -837,20 +854,61 @@ class PagedServingEngine:
     # ------------------------------------------------------------------ #
     # decode
     # ------------------------------------------------------------------ #
-    def _ensure_tail_pages(self):
+    # the page table kept across ticks: one owner of its rows
+    def _set_pages(self, slot: int, pids: List[int]):
+        """Every change of a slot's page list but an appended page: the
+        list replaced, the row cleared and marked for a rewrite."""
+        self.slot_pages[slot] = pids
+        self._page_table[slot] = ZERO_FRAME
+        self._stale_rows.add(slot)
+
+    def _add_page(self, slot: int, pid: int):
+        """A page appended to a slot's list; a row that is current takes
+        its frame (a new tail page), a marked one waits for its rewrite."""
+        pages = self.slot_pages[slot]
+        pages.append(pid)
+        if slot not in self._stale_rows:
+            self._page_table[slot, len(pages) - 1] = self.pool.pages[pid].frame
+
+    def _refresh_rows(self, live: List[int]) -> int:
+        """Bring the live slots' rows up to date once their pages are hot:
+        rows that hold a page that moved tier since the last call are
+        marked, then each marked live row is rewritten from its pages.
+        Returns how many rows were rewritten."""
+        moved = self.pool.take_moved()
+        if moved:
+            for i, pids in enumerate(self.slot_pages):
+                if i not in self._stale_rows and not moved.isdisjoint(pids):
+                    self._stale_rows.add(i)
+        rebuild = [i for i in live if i in self._stale_rows]
+        pages = self.pool.pages
+        for i in rebuild:
+            frames = [pages[pid].frame for pid in self.slot_pages[i]]
+            if None in frames:
+                raise RuntimeError(f"slot {i} reads a cold page")
+            row = self._page_table[i]
+            row[:len(frames)] = frames
+            row[len(frames):] = ZERO_FRAME
+            self._stale_rows.discard(i)
+        return len(rebuild)
+
+    def _held_pages(self) -> Set[int]:
+        """Every page some slot holds (a prefill's working set)."""
+        return {pid for pages in self.slot_pages for pid in pages}
+
+    def _ensure_tail_pages(self, live: List[int],
+                           working: Callable[[], Set[int]]):
         """Every live slot needs a writable page for the incoming token;
-        the step's working set is never evicted to make room."""
+        the step's working set (`working()`, built only when a page has to
+        be evicted to make room) is never evicted."""
         P = self.cfg.page_tokens
-        live = self._live_slots()
-        working = {pid for i in live for pid in self.slot_pages[i]}
         for i in live:
             pos = int(self.slot_len[i])
             if pos // P == len(self.slot_pages[i]):
                 pid = self.pool.alloc(needed=working)
                 self.pool.note_deadline([pid],
                                         self.slot_req[i].deadline_tick())
-                self.slot_pages[i].append(pid)
-                working.add(pid)
+                self._add_page(i, pid)
 
     def _step_views(self, buf):
         """The step buffer's fields, views of `buf`: page_table (B, n_pages)
@@ -900,25 +958,42 @@ class PagedServingEngine:
     def _fill_step(self, live: List[int]):
         """The host half: the step buffer filled for the `live` slots (the
         TRASH sink and ZERO_FRAME pages at length 0 for every other slot)
-        and copied to the device. Returns the commit (frames, offsets)."""
+        and copied to the device. Returns the commit (frames, offsets).
+        The live rows of the page table are copied from the kept table;
+        with the pool's trace on they are read page by page
+        (``pool.frames_of``) and must equal the kept rows."""
         P = self.cfg.page_tokens
         h = self._host_batch
         h["page_table"].fill(ZERO_FRAME)
         h["frames"].fill(TRASH_FRAME)
         for key in ("lengths", "offsets", "tokens", "pos0"):
             h[key].fill(0)
-        for i in live:
-            pos = int(self.slot_len[i])
-            h["tokens"][i] = self.slot_req[i].out_tokens[-1]
-            h["pos0"][i] = h["lengths"][i] = pos
-            if not self.layout.features:
-                continue            # no pages to read or commit
-            pids = self.slot_pages[i]
-            h["frames"][i] = self.pool.pages[pids[pos // P]].frame
-            h["offsets"][i] = pos % P
-            h["page_table"][i, :len(pids)] = self.pool.frames_of(pids)
+        if live:
+            rows = np.asarray(live)
+            pos = self.slot_len[rows]
+            h["tokens"][rows, 0] = [self.slot_req[i].out_tokens[-1]
+                                    for i in live]
+            h["pos0"][rows] = h["lengths"][rows] = pos
+            # without pageable KV there are no pages to read or commit
+            if self.layout.features:
+                h["frames"][rows] = self._page_table[rows, pos // P]
+                h["offsets"][rows] = pos % P
+                h["page_table"][rows] = self._page_table[rows]
+                if self.pool.trace is not None:
+                    self._read_rows_by_page(live)
         self._step_dev.copy_(torch.from_numpy(self._step_host))
         return h["frames"].copy(), h["offsets"].copy()
+
+    def _read_rows_by_page(self, live: List[int]):
+        """The traced read of the live rows, page by page as the
+        reference reads them (a READ event each), held to the kept rows."""
+        for i in live:
+            pids = self.slot_pages[i]
+            frames = self.pool.frames_of(pids)
+            if not np.array_equal(frames, self._page_table[i, :len(pids)]):
+                raise RuntimeError(
+                    f"slot {i}'s kept page-table row {self._page_table[i]} "
+                    f"is not its pages' frames {frames}")
 
     def _ensure_captured(self):
         """On the card, the step timer where the tracer records, then the
@@ -973,10 +1048,23 @@ class PagedServingEngine:
         if not live:
             return
         tr = self.tracer
+        pool = self.pool
         with tr.span("engine", "decode_pages"):
-            self._ensure_tail_pages()
-            needed = sorted({pid for i in live for pid in self.slot_pages[i]})
-            faults = self.pool.ensure_hot(needed)
+            working = lambda: {pid for i in live for pid in self.slot_pages[i]}
+            self._ensure_tail_pages(live, working)
+            traced = pool.trace is not None
+            # traced: every page touched (and, in _fill_step, read) one by
+            # one, as in the reference
+            faults = (pool.ensure_hot(sorted(working())) if traced
+                      else pool.restore_cold(working))
+            rebuilt = self._refresh_rows(live)
+            if not traced:
+                rows = self._page_table[live]
+                pool.touch_frames(rows)
+                if self.layout.features:
+                    pool.note_reads(rows)
+        if tr.enabled:
+            tr.counter("gauges", "page_rows_rebuilt", rebuilt)
         # with no pageable KV the kernel-true paths have nothing to read:
         # the dense decode over the recurrent state, as in the reference
         kernel_true = self.cfg.use_paged_kernel and self.layout.features > 0
@@ -1083,7 +1171,7 @@ class PagedServingEngine:
                                   cat="slot")
         for pid in self.slot_pages[slot]:
             self.pool.unref(pid)
-        self.slot_pages[slot] = []
+        self._set_pages(slot, [])
         self.slot_req[slot] = None
         self.slot_len[slot] = 0
         self.paused[slot] = False

@@ -33,7 +33,18 @@ from __future__ import annotations
 
 import dataclasses
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any,
+    Callable,
+    Collection,
+    Dict,
+    List,
+    Optional,
+    Sequence,
+    Set,
+    Tuple,
+    Union,
+)
 
 import numpy as np
 import torch
@@ -391,10 +402,13 @@ class PoolMetrics:
 class _PageMeta:
     frame: Optional[int]        # hot frame index, or None when cold
     refcount: int = 1
-    last_used: int = 0
     shared_key: Optional[tuple] = None
     deadline: float = float("inf")   # owning request's TTFT deadline tick
-    pending_read: bool = False  # restored but not yet read
+
+
+#: a step's working set, or a function that returns it (called only when
+#: no frame is free and a page has to be evicted)
+WorkingSet = Union[Collection[int], Callable[[], Collection[int]]]
 
 
 ZERO_FRAME = 0      # reserved all-zeros frame (unallocated page-table slots)
@@ -411,7 +425,13 @@ class KVPagePool:
     reference's vestigial pool instead: no planes and a packed (NF, P, 1)
     store, so pages, tiers and trace still run.
     Frame ids, page ids, refcounts, eviction order, DMA descriptors and the
-    lifecycle trace follow the reference pool."""
+    lifecycle trace follow the reference pool.
+
+    A page's last use is kept per frame (``_last_used``), so a decode tick
+    touches its pages in one assignment over their frames
+    (:meth:`touch_frames`). Evictions and restores record the page
+    (:meth:`take_moved`), which is how a page table kept across ticks
+    learns that a frame changed."""
 
     def __init__(self, pcfg: PageConfig, *, layout: PackedKVLayout,
                  gqa_group: int = 1, dtype=torch.bfloat16, device="cuda",
@@ -448,6 +468,13 @@ class KVPagePool:
         self.free_frames: List[int] = list(range(RESERVED_FRAMES, n))
         self.pages: "OrderedDict[int, _PageMeta]" = OrderedDict()
         self.cold: Dict[int, torch.Tensor] = {}
+        # the clock tick of each frame's last use (alloc, restore, touch)
+        self._last_used = np.zeros((n,), np.int64)
+        # restored pages not yet read (a read counts a useful preload; an
+        # eviction or free first, a wasted one)
+        self._unread: Set[int] = set()
+        # pages whose frame changed (evicted or restored) since take_moved
+        self._moved: Set[int] = set()
         self.prefix_index: Dict[tuple, int] = {}
         self._hot = 0               # pages with a hot frame (hot_in_use)
         self.metrics = PoolMetrics()
@@ -522,14 +549,15 @@ class KVPagePool:
             self._emit(EventKind.TICK)
 
     def alloc(self, shared_key: Optional[tuple] = None, *,
-              needed: Sequence[int] = ()) -> int:
+              needed: WorkingSet = ()) -> int:
         """Allocate a fresh page in the hot tier; returns its page id.
-        `needed` (the step's working set) is never evicted to make room."""
+        `needed` (the step's working set, or a function that returns it) is
+        never evicted to make room."""
         pid = self._next_id
         self._next_id += 1
         frame = self._take_frame(needed=needed)
-        self.pages[pid] = _PageMeta(frame=frame, last_used=self._clock,
-                                    shared_key=shared_key)
+        self._last_used[frame] = self._clock
+        self.pages[pid] = _PageMeta(frame=frame, shared_key=shared_key)
         self._hot += 1
         if shared_key is not None:
             self.prefix_index[shared_key] = pid
@@ -559,9 +587,10 @@ class KVPagePool:
         self._emit(EventKind.UNREF, pid=pid, refcount=meta.refcount)
         if meta.refcount > 0:
             return
-        if meta.pending_read:
-            meta.pending_read = False
+        if pid in self._unread:
+            self._unread.discard(pid)
             self.metrics.wasted_preloads += 1
+        self._moved.discard(pid)
         if meta.shared_key is not None:
             self.prefix_index.pop(meta.shared_key, None)
         if meta.frame is not None:
@@ -579,14 +608,16 @@ class KVPagePool:
             self.pages[pid].deadline = deadline
             self._emit(EventKind.DEADLINE, pid=pid, deadline=deadline)
 
-    def _take_frame(self, needed: Sequence[int]) -> int:
+    def _take_frame(self, needed: WorkingSet) -> int:
         """A free hot frame, evicting pages not in `needed` — latest request
         deadline first, then LRU within a tie."""
         if self.free_frames:
             return self.free_frames.pop()
-        needed = set(needed)
+        needed = set(needed() if callable(needed) else needed)
+        last_used = self._last_used.tolist()
         victims = sorted(
-            ((-m.deadline, m.last_used), pid) for pid, m in self.pages.items()
+            ((-m.deadline, last_used[m.frame]), pid)
+            for pid, m in self.pages.items()
             if m.frame is not None and pid not in needed)
         if not victims:
             raise RuntimeError(
@@ -603,9 +634,10 @@ class KVPagePool:
         meta = self.pages[pid]
         if meta.frame is None:
             raise RuntimeError(f"page {pid} already cold")
-        if meta.pending_read:
-            meta.pending_read = False
+        if pid in self._unread:
+            self._unread.discard(pid)
             self.metrics.wasted_preloads += 1
+        self._moved.add(pid)
         self._emit(EventKind.EVICT, pid=pid, frame=meta.frame, cause=cause,
                    pinned=tuple(sorted(pinned)))
         self.cold[pid] = self._read_frame(meta.frame)
@@ -625,24 +657,49 @@ class KVPagePool:
     def ensure_hot(self, pids: Sequence[int]) -> int:
         """Restore any cold page in `pids` as one planned batch (preload
         distance d*, BATCH order, replayed on the DMA twin); returns the
-        page-fault count."""
+        page-fault count. Touches every page, one TOUCH event each where
+        the trace records."""
         self.tick()
         log, clock, pages = self.trace, self._clock, self.pages
         faults = []
         for pid in pids:
             meta = pages[pid]
-            meta.last_used = clock
             if log is not None:
                 self._emit(EventKind.TOUCH, pid=pid)
             if meta.frame is None:
                 faults.append(pid)
+            else:
+                self._last_used[meta.frame] = clock
+        self._restore(faults, pids)
+        return len(faults)
+
+    def restore_cold(self, working: Callable[[], Collection[int]]) -> int:
+        """:meth:`ensure_hot` without the walk over the working set, for a
+        pool whose trace is off: the clock's tick, then the cold pages of
+        the set that `working()` returns (called only when a page is cold)
+        restored as one planned batch in ascending page order. The caller
+        touches the set's frames once they are all hot
+        (:meth:`touch_frames`). Returns the page-fault count."""
+        self.tick()
+        if not self.cold:
+            return 0
+        needed = set(working())
+        faults = sorted(pid for pid in self.cold if pid in needed)
+        self._restore(faults, needed)
+        return len(faults)
+
+    def _restore(self, faults: Sequence[int], needed: WorkingSet) -> None:
+        """Bring the cold pages `faults` back into hot frames, evicting none
+        of `needed`, as one planned batch replayed on the DMA twin."""
         for pid in faults:
             meta = self.pages[pid]
-            frame = self._take_frame(needed=pids)
+            frame = self._take_frame(needed=needed)
             self._write_frame(frame, self.cold.pop(pid))
             meta.frame = frame
+            self._last_used[frame] = self._clock
             self._hot += 1
-            meta.pending_read = True
+            self._unread.add(pid)
+            self._moved.add(pid)
             self._emit(EventKind.RESTORE, pid=pid, frame=frame)
             self.metrics.descriptors.append(TransferRequest(
                 Direction.PRELOAD, src=pid * self.page_bytes,
@@ -658,20 +715,42 @@ class KVPagePool:
                 distance=self.distance)
             self.metrics.modeled_restore_time += stats.total_time
             self.metrics.modeled_restore_stall += stats.stall_time
-        return len(faults)
+
+    def touch_frames(self, frames: np.ndarray) -> None:
+        """The tick's touch of the pages at `frames` (hot frames, or the
+        reserved ZERO_FRAME, which no page holds), in one assignment."""
+        self._last_used[frames] = self._clock
+
+    def note_reads(self, frames: np.ndarray) -> None:
+        """:meth:`frames_of`'s accounting for a step that reads the pages at
+        `frames`, without the walk: each restored page among them counts
+        once as a useful preload. Emits no READ event."""
+        if not self._unread:
+            return
+        held = np.zeros((self._n_frames,), bool)
+        held[frames] = True
+        read = [pid for pid in self._unread if held[self.pages[pid].frame]]
+        self._unread.difference_update(read)
+        self.metrics.useful_preloads += len(read)
+
+    def take_moved(self) -> Set[int]:
+        """The pages evicted or restored since the last call (their frames
+        changed), and a fresh empty set in their place."""
+        moved, self._moved = self._moved, set()
+        return moved
 
     # ------------------------------------------------------------------ #
     def frames_of(self, pids: Sequence[Optional[int]]) -> np.ndarray:
         """Physical frame per page id (ZERO_FRAME for unallocated slots).
         All pages must be hot (call ensure_hot first)."""
         out = np.full((len(pids),), ZERO_FRAME, np.int32)
-        log, pages = self.trace, self.pages
+        log, pages, unread = self.trace, self.pages, self._unread
         for i, pid in enumerate(pids):
             if pid is None:
                 continue
             meta = pages[pid]
-            if meta.pending_read:
-                meta.pending_read = False
+            if pid in unread:
+                unread.discard(pid)
                 self.metrics.useful_preloads += 1
             if log is not None:
                 self._emit(EventKind.READ, pid=pid, frame=meta.frame)
