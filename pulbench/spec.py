@@ -7,6 +7,8 @@ each configuration, traffic mix, cell and per-layer metric under
     traffic/<traffic>.json    a traffic mix's parameters (``traffic.py``)
     cells/<workload>.json     a cell's correctness limits and their readings
     metrics/<metric>.py       a per-layer metric's reader, ``read(run)``
+    families/<family>.py      a family's widths, weight layout and yardstick
+    reference/<family>.py     a family's plain reference
 
 Nothing here imports the port or torch.
 """
@@ -15,9 +17,10 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
-import math
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
+
+from pulbench import families
 
 BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
@@ -90,80 +93,20 @@ def cell(workload: str, bench: Optional[Dict[str, Any]] = None) -> Cell:
 
 
 # ------------------------------------------------------------------------ #
-# a configuration's widths, read from the published config's own keys
+# a configuration's widths and the port's configuration, by its family
 # ------------------------------------------------------------------------ #
-#: the port's row padding of the vocabulary (``ModelConfig.vocab_chunk``),
-#: which the weight layout follows
-VOCAB_CHUNK = 16384
+#: the dense family's widths (``families/dense_gqa.py``), under their old name
+Arch = families.family("dense_gqa").Arch
 
 
-@dataclasses.dataclass(frozen=True)
-class Arch:
-    """The widths of one configuration as the benchmark reads them (the
-    published config's keys), and the port's padded table rows."""
-
-    name: str
-    family: str                 # the reference's module: "dense_gqa"
-    d: int
-    layers: int
-    heads: int
-    kv_heads: int
-    head_dim: int
-    d_ff: int
-    vocab: int
-    vocab_rows: int             # the port's table rows (vocab padded)
-    tied: bool
-    rope_theta: float
-    eps: float
-    qk_norm: bool
-    init_std: float             # the config's initializer_range
-
-    @property
-    def kv_row_bytes(self) -> int:
-        """Bytes of one cached token over all layers (bf16)."""
-        return self.layers * 2 * self.kv_heads * self.head_dim * 2
-
-
-def _dense_gqa(cfg: Dict[str, Any]) -> None:
-    """Raises where the published config asks for what the port's dense
-    decoder does not compute."""
-    unsupported = {
-        "hidden_act": cfg.get("hidden_act", "silu") != "silu",
-        "attention_bias": bool(cfg.get("attention_bias", False)),
-        "rope_scaling": cfg.get("rope_scaling") is not None,
-        "use_sliding_window": bool(cfg.get("use_sliding_window", False)),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise ValueError(f"{cfg['name']}: the port's dense decoder does not "
-                         f"compute {bad}")
-
-
-def arch(cfg: Dict[str, Any]) -> Arch:
-    if cfg["reference"] != "dense_gqa":
-        raise ValueError(f"{cfg['name']}: no reference family "
-                         f"{cfg['reference']!r}")
-    _dense_gqa(cfg)
-    vocab = cfg["vocab_size"]
-    return Arch(
-        name=cfg["name"], family=cfg["reference"], d=cfg["hidden_size"],
-        layers=cfg["num_hidden_layers"], heads=cfg["num_attention_heads"],
-        kv_heads=cfg["num_key_value_heads"], head_dim=cfg["head_dim"],
-        d_ff=cfg["intermediate_size"], vocab=vocab,
-        vocab_rows=math.ceil(vocab / VOCAB_CHUNK) * VOCAB_CHUNK,
-        tied=bool(cfg.get("tie_word_embeddings", False)),
-        rope_theta=float(cfg["rope_theta"]), eps=float(cfg["rms_norm_eps"]),
-        qk_norm=cfg.get("model_type") == "qwen3",
-        init_std=float(cfg.get("initializer_range", 0.02)))
+def arch(cfg: Dict[str, Any]) -> Any:
+    """The widths of `cfg`, read by its family (``families/<reference>.py``)
+    from the published config's own keys. What shared code may read of
+    them is listed in ``families/__init__.py``."""
+    return families.of(cfg).arch(cfg)
 
 
 def port_config(cfg: Dict[str, Any]) -> Dict[str, Any]:
     """The keyword arguments of the port's ``ModelConfig`` for `cfg`, from
     the published keys alone (the same that ``arch`` reads)."""
-    a = arch(cfg)
-    return dict(
-        name=a.name, family="dense", num_layers=a.layers, d_model=a.d,
-        num_heads=a.heads, num_kv_heads=a.kv_heads, head_dim=a.head_dim,
-        d_ff=a.d_ff, vocab_size=a.vocab, pattern=("global",),
-        mlp_type="swiglu", qk_norm=a.qk_norm, rope_theta=a.rope_theta,
-        tie_embeddings=a.tied, norm_eps=a.eps, vocab_chunk=VOCAB_CHUNK)
+    return families.of(cfg).port_config(cfg)

@@ -9,10 +9,10 @@ import time
 
 import pytest
 
-from pulbench import harness
+from pulbench import harness, spec
 from pulbench.tests.tiny import tiny_cell
 
-CELLS = ["qwen3_longctx_decode", "qwen3_chat_closed"]
+CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 SEED = 2**31 + 21
 #: the tiny cells' limit: above the program's widest gap on the CPU
 #: (0-0.027 over three seeds a cell, 24-step windows) and below the
@@ -55,12 +55,15 @@ def _altered_token(engine):
         emit(slot, logits)
         count["n"] += 1
         if count["n"] % 5 == 0:
-            req.out_tokens[-1] = (req.out_tokens[-1] + 1) % 256
+            req.out_tokens[-1] = ((req.out_tokens[-1] + 1)
+                                  % engine.model_cfg.vocab_size)
     engine._emit_token = altered
 
 
-#: the plain sweep kernel and where its planes are among the arguments
-SWEEPS = {"paged_sweep_decode_attention_ref": 1}
+#: the plain sweep kernels (K1's for GQA, K3's for MLA) and where their
+#: planes are among the arguments
+SWEEPS = {"paged_sweep_decode_attention_ref": 1,
+          "paged_sweep_mla_decode_attention_ref": 2}
 
 
 def _state_unchanged(engine):

@@ -11,7 +11,7 @@ import pytest
 from pulbench import harness, spec
 from pulbench.tests.tiny import tiny_cell
 
-CELLS = ["qwen3_longctx_decode", "qwen3_chat_closed"]
+CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
 SEED = 2**31 + 33
 STEP_MS = 0.004
 HOST = ["page_walk_ms_p50", "emit_ms_p50"]

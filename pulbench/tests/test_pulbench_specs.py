@@ -9,7 +9,7 @@ import re
 import pytest
 import torch
 
-from pulbench import spec, weights
+from pulbench import families, spec, weights
 
 BENCH = spec.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
@@ -58,33 +58,41 @@ def test_config_file(entry):
     assert cfg["source"] == entry["source"]
     assert "port" not in cfg
     port = spec.port_config(cfg)
-    assert (port["d_model"], port["num_heads"], port["num_kv_heads"],
-            port["head_dim"], port["d_ff"], port["vocab_size"],
-            port["num_layers"], port["rope_theta"], port["norm_eps"],
-            port["tie_embeddings"]) == (
-        cfg["hidden_size"], cfg["num_attention_heads"],
-        cfg["num_key_value_heads"], cfg["head_dim"],
-        cfg["intermediate_size"], cfg["vocab_size"],
-        cfg["num_hidden_layers"], cfg["rope_theta"], cfg["rms_norm_eps"],
-        cfg["tie_word_embeddings"])
+    fields = families.of(cfg).PORT_FIELDS
+    assert fields
+    for field, key in fields.items():
+        assert port[field] == cfg[key], (field, key)
 
 
 #: fields of the port's ModelConfig that only training reads
 TRAINING_ONLY = ("train_accum", "remat", "seq_shard_carry", "bf16_moments")
 
 
-@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
-def test_port_config_is_the_ports_own(entry):
-    """The configuration built from the published keys is the port's own
-    registered one, field for field, but for what only training reads."""
+def ports_own(cfg):
+    """Asserts that the configuration built from `cfg`'s published keys is
+    the port's own registered one (``registered`` in the file, else its
+    name), field for field, but for what only training reads, and for the
+    fields that the file's ``reduced`` keys give (through its family's
+    ``PORT_FIELDS``), which take the file's values."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ModelConfig
-    ours = ModelConfig(**spec.port_config(spec.config(entry["name"])))
-    theirs = get_config(entry["name"])
+    ours = ModelConfig(**spec.port_config(cfg))
+    theirs = get_config(cfg.get("registered", cfg["name"]))
+    cut = {f: getattr(ours, f) for f, key in
+           families.of(cfg).PORT_FIELDS.items() if key in cfg["reduced"]}
+    theirs = dataclasses.replace(theirs, **cut)
     for f in dataclasses.fields(ModelConfig):
-        if f.name not in TRAINING_ONLY:
+        if f.name not in TRAINING_ONLY and f.name != "name":
             assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+
+
+@pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
+def test_port_config_is_the_ports_own(entry):
+    cfg = spec.config(entry["name"])
+    ports_own(cfg)
+    if "registered" not in cfg:
+        assert spec.port_config(cfg)["name"] == cfg["name"]
 
 
 @pytest.mark.parametrize("key,value", [
@@ -93,6 +101,7 @@ def test_port_config_is_the_ports_own(entry):
     ("use_sliding_window", True)])
 def test_what_the_port_does_not_compute_is_refused(key, value):
     cfg = dict(spec.config("qwen3-1.7b"), **{key: value})
+    assert cfg["reference"] == "dense_gqa"
     with pytest.raises(ValueError, match=key):
         spec.port_config(cfg)
 

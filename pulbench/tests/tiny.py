@@ -1,6 +1,7 @@
 """The benchmark's cells cut to a size the CPU runs in seconds: the same
 configuration files, traffic files and cell files, with every width and
-count shrunk (these sizes stand for nothing; they drive the code). The
+count shrunk (these sizes stand for nothing; they drive the code): the
+published keys that the configuration's family lists in its ``TINY``. The
 weights' scale is that of the published widths' fan-in (0.02 at 2,048 is
 about 1/sqrt(2,048)), 1/sqrt(64) here, so that the layers, not the
 embedding, carry the residual stream as they do at full width."""
@@ -9,14 +10,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 
-from pulbench import spec
+from pulbench import families, spec
 
-#: the published keys the tiny cells change; the port's configuration is
-#: built from these, as at full size
-WIDTHS = {"hidden_size": 64, "num_attention_heads": 4,
-          "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 128,
-          "vocab_size": 256, "num_hidden_layers": 2,
-          "initializer_range": 0.125}
 TRAFFIC = {
     "closed_batch": {"sessions": 4, "admit_per_step": 2, "sample": 2,
                      "prompt": {"dist": "loguniform", "lo": 40, "hi": 120},
@@ -48,7 +43,7 @@ def _merge(base, over):
 
 def tiny_cell(workload: str, limit: float = 1.0) -> spec.Cell:
     cell = spec.cell(workload)
-    cfg = _merge(cell.config, WIDTHS)
+    cfg = _merge(cell.config, families.of(cell.config).TINY)
     mix = _merge(cell.traffic, TRAFFIC[cell.traffic["mode"]])
     limits = {"logit_gap": {"limit": limit}, "compared_tokens": {"limit": 8}}
     return dataclasses.replace(cell, config=cfg, traffic=mix, limits=limits)

@@ -1,6 +1,7 @@
 """The weights of a run, made on the device from ``--seed``.
 
-The tree has the port's layout (its parameter tree's paths and shapes;
+The tree has the port's layout (its parameter tree's paths and shapes),
+which the configuration's family gives (``families/<family>.py``;
 ``tests/test_pulbench_specs.py`` holds the two to each other on the CPU).
 Every leaf is a view into one of two flat buffers, one bf16 and one fp32,
 each filled by a few large ``normal_`` calls of one ``torch.Generator`` on
@@ -15,46 +16,17 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from pulbench.spec import Arch
+from pulbench import families
+from pulbench.families import BF16, F32
 
-BF16, F32 = "bf16", "f32"
 #: elements a single normal_ call fills (two calls for 3.4 GB)
 DRAW_ELEMENTS = 2**30
 
 
-def _attn(a: Arch) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    p = {"wq": ((a.d, a.heads, a.head_dim), BF16),
-         "wk": ((a.d, a.kv_heads, a.head_dim), BF16),
-         "wv": ((a.d, a.kv_heads, a.head_dim), BF16),
-         "wo": ((a.heads, a.head_dim, a.d), BF16)}
-    if a.qk_norm:
-        p["q_norm"] = ((a.head_dim,), F32)
-        p["k_norm"] = ((a.head_dim,), F32)
-    return p
-
-
-def _mlp(d: int, f: int) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    return {"w_gate": ((d, f), BF16), "w_up": ((d, f), BF16),
-            "w_down": ((f, d), BF16)}
-
-
-def _block(a: Arch) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    out = {"norm1": ((a.d,), F32), "norm2": ((a.d,), F32)}
-    out.update({f"attn/{k}": v for k, v in _attn(a).items()})
-    out.update({f"mlp/{k}": v for k, v in _mlp(a.d, a.d_ff).items()})
-    return out
-
-
-def layout(a: Arch) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """(path, shape, dtype) of every leaf, sorted by path: the layers
-    stacked under ``groups/0:global`` with a leading layer axis."""
-    leaves = {"embedding/table": ((a.vocab_rows, a.d), BF16),
-              "final_norm": ((a.d,), F32)}
-    if not a.tied:
-        leaves["embedding/lm_head"] = ((a.vocab_rows, a.d), BF16)
-    for k, (shape, dt) in _block(a).items():
-        leaves[f"groups/0:global/{k}"] = ((a.layers, *shape), dt)
-    return sorted((p, s, dt) for p, (s, dt) in leaves.items())
+def layout(a) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(path, shape, dtype) of every leaf of `a`'s family, sorted by path
+    (``families/<family>.py``)."""
+    return families.family(a.family).layout(a)
 
 
 def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -68,7 +40,7 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     return out
 
 
-def make(a: Arch, seed: int, device) -> Dict[str, Any]:
+def make(a, seed: int, device) -> Dict[str, Any]:
     """The weight tree from `seed`, every leaf a view of one of two flat
     buffers drawn on `device` (bf16 and fp32), N(0, initializer_range)."""
     leaves = layout(a)
@@ -89,6 +61,5 @@ def make(a: Arch, seed: int, device) -> Dict[str, Any]:
     return _unflatten(flat)
 
 
-def nbytes(a: Arch) -> int:
-    return sum(math.prod(s) * (2 if dt == BF16 else 4)
-               for _, s, dt in layout(a))
+def nbytes(a) -> int:
+    return families.layout_bytes(layout(a))
